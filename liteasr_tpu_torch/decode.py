@@ -1,0 +1,257 @@
+"""U2 decoding: CTC greedy, CTC prefix beam search and attention rescoring
+(liteasr_tpu/decode.py).
+
+The reference runs these as jitted ``lax.scan``/``vmap`` programs. Here
+they run eagerly under ``torch.inference_mode()``: a Python loop over
+frames in place of the scan, a batch dimension in place of the vmap. The
+prefix beam keeps the reference's dense (B, K, Lmax) hypotheses and its
+pair of 32-bit rolling hashes (emulated in int64, masked to 32 bits), so
+both packages merge and rank the same candidates.
+"""
+
+from typing import List, Optional, Tuple
+
+import torch
+
+from liteasr_tpu_torch.ops.masks import padding_mask, triangle_mask
+
+NEG_INF = -1e30
+U32 = 0xFFFFFFFF
+_H1_MULT = 1000003
+_H2_MULT = 69069
+
+
+def _hash_extend(h1, h2, tok):
+    t = tok + 1
+    return (h1 * _H1_MULT + t) & U32, (h2 * _H2_MULT + t) & U32
+
+
+def _top_k(x, k: int):
+    """``lax.top_k``: the k largest along the last axis, lower index first
+    on ties (a stable descending sort; ``torch.topk`` promises no order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _segment_logsumexp(scores, seg_ids):
+    """Batched ``_segment_logsumexp`` of the reference over (B, N)."""
+    seg_max = torch.full_like(scores, float("-inf")).scatter_reduce(
+        1, seg_ids, scores, "amax")
+    seg_max = torch.where(seg_max <= NEG_INF, 0.0, seg_max)
+    shifted = torch.exp(scores - seg_max.gather(1, seg_ids))
+    shifted = torch.where(scores <= NEG_INF, 0.0, shifted)
+    seg_sum = torch.zeros_like(scores).scatter_add(1, seg_ids, shifted)
+    out = seg_max + torch.log(torch.clamp(seg_sum, min=1e-38))
+    return torch.where(seg_sum <= 0.0, NEG_INF, out)
+
+
+def _ctc_prefix_step(state, logp_t, active, beam_size: int, blank: int,
+                     max_len: int):
+    """One frame of prefix beam search for a batch (liteasr_tpu/decode.py:
+    60-154)."""
+    prefixes, plens, last, h1, h2, pb, pnb = state
+    B, K = pb.shape
+    P = beam_size
+    dev = pb.device
+    ps, toks = _top_k(logp_t, P)  # (B, P)
+
+    # stay candidates (K): prefix unchanged
+    blank_in = toks == blank
+    ps_blank = torch.where(blank_in, ps, NEG_INF).amax(dim=1, keepdim=True)
+    stay_pb = torch.logaddexp(pb + ps_blank, pnb + ps_blank)
+    rep_in = toks[:, None, :] == last[:, :, None]  # (B, K, P)
+    ps_rep = torch.where(rep_in, ps[:, None, :], NEG_INF).amax(dim=2)
+    stay_pnb = pnb + ps_rep
+
+    # extend candidates (K, P): prefix + tok
+    from_b = pb[:, :, None] + ps[:, None, :]
+    ext_pnb = torch.where(
+        rep_in, from_b, torch.logaddexp(from_b, pnb[:, :, None] + ps[:, None, :]))
+    ext_pnb = torch.where(blank_in[:, None, :], NEG_INF, ext_pnb)
+    ext_pnb = torch.where(plens[:, :, None] >= max_len, NEG_INF, ext_pnb)
+    toks_kp = toks[:, None, :].expand(B, K, P)
+    eh1, eh2 = _hash_extend(h1[:, :, None], h2[:, :, None], toks_kp)
+    # dead extend candidates must not hash-collide with anything real
+    dead = ext_pnb <= NEG_INF
+    salt = torch.arange(K * P, dtype=torch.int64, device=dev).reshape(K, P) + 0xA5A50000
+    eh1 = torch.where(dead, salt, eh1)
+    eh2 = torch.where(dead, (salt * _H2_MULT) & U32, eh2)
+
+    # flatten candidates: N = K + K*P
+    N = K + K * P
+    cand_h1 = torch.cat([h1, eh1.reshape(B, -1)], dim=1)
+    cand_h2 = torch.cat([h2, eh2.reshape(B, -1)], dim=1)
+    cand_pb = torch.cat([stay_pb, torch.full((B, K * P), NEG_INF, device=dev)], dim=1)
+    cand_pnb = torch.cat([stay_pnb, ext_pnb.reshape(B, -1)], dim=1)
+    ar_k = torch.arange(K, device=dev)
+    cand_parent = torch.cat([ar_k, ar_k.repeat_interleave(P)])  # (N,)
+    cand_tok = torch.cat([torch.full((B, K), -1, dtype=toks.dtype, device=dev),
+                          toks_kp.reshape(B, -1)], dim=1)
+
+    # merge duplicates: lexsort by (h1, h2) as two stable sorts, then
+    # segment-logsumexp
+    o2 = torch.sort(cand_h2, dim=1, stable=True).indices
+    o1 = torch.sort(cand_h1.gather(1, o2), dim=1, stable=True).indices
+    order = o2.gather(1, o1)
+    s_h1, s_h2 = cand_h1.gather(1, order), cand_h2.gather(1, order)
+    s_pb, s_pnb = cand_pb.gather(1, order), cand_pnb.gather(1, order)
+    is_first = torch.ones_like(s_h1, dtype=torch.bool)
+    is_first[:, 1:] = (s_h1[:, 1:] != s_h1[:, :-1]) | (s_h2[:, 1:] != s_h2[:, :-1])
+    seg_ids = torch.cumsum(is_first, dim=1) - 1  # (B, N)
+    seg_pb = _segment_logsumexp(s_pb, seg_ids)
+    seg_pnb = _segment_logsumexp(s_pnb, seg_ids)
+    # representative candidate = first of each segment (index into sorted)
+    ar_n = torch.arange(N, device=dev).expand(B, N)
+    rep_idx = torch.full((B, N), N, device=dev).scatter_reduce(
+        1, seg_ids, ar_n, "amin")
+    seg_valid = torch.zeros((B, N), dtype=torch.int64, device=dev).scatter_add(
+        1, seg_ids, torch.ones_like(seg_ids)) > 0
+
+    seg_score = torch.where(seg_valid, torch.logaddexp(seg_pb, seg_pnb), NEG_INF)
+    _, top_seg = _top_k(seg_score, K)
+
+    sel_sorted = rep_idx.gather(1, top_seg)
+    sel = order.gather(1, sel_sorted.clamp(0, N - 1))  # into raw candidates
+    sel_parent = cand_parent[sel]  # (B, K)
+    sel_tok = cand_tok.gather(1, sel)
+
+    new_pb = seg_pb.gather(1, top_seg)
+    new_pnb = seg_pnb.gather(1, top_seg)
+    new_h1 = cand_h1.gather(1, sel)
+    new_h2 = cand_h2.gather(1, sel)
+
+    parent_prefix = prefixes.gather(1, sel_parent[:, :, None].expand(B, K, max_len))
+    parent_len = plens.gather(1, sel_parent)
+    parent_last = last.gather(1, sel_parent)
+    is_ext = sel_tok >= 0
+    pos = torch.arange(max_len, device=dev)[None, None, :]
+    new_prefixes = torch.where(
+        (pos == parent_len[:, :, None]) & is_ext[:, :, None],
+        sel_tok[:, :, None], parent_prefix)
+    new_plens = parent_len + is_ext.to(parent_len.dtype)
+    new_last = torch.where(is_ext, sel_tok, parent_last)
+
+    new_state = (new_prefixes, new_plens, new_last, new_h1, new_h2, new_pb, new_pnb)
+
+    def keep(n, o):
+        a = active.reshape((B,) + (1,) * (n.dim() - 1))
+        return torch.where(a, n, o)
+
+    return tuple(keep(n, o) for n, o in zip(new_state, state))
+
+
+def ctc_prefix_beam_init(B: int, K: int, max_len: int, device=None):
+    """Fresh prefix-beam state (liteasr_tpu/decode.py:188-203)."""
+    prefixes = torch.zeros((B, K, max_len), dtype=torch.int64, device=device)
+    plens = torch.zeros((B, K), dtype=torch.int64, device=device)
+    last = torch.full((B, K), -1, dtype=torch.int64, device=device)
+    h1 = ((torch.arange(K, dtype=torch.int64, device=device) + 0x5EED0001)
+          * 2654435761) & U32
+    h1 = h1[None, :].expand(B, K).clone()
+    h2 = h1 ^ 0x9E3779B9
+    # only beam 0 (the empty prefix) is live initially
+    pb = torch.full((B, K), NEG_INF, device=device)
+    pb[:, 0] = 0.0
+    pnb = torch.full((B, K), NEG_INF, device=device)
+    h1[:, 0] = 17
+    h2[:, 0] = 29
+    return (prefixes, plens, last, h1, h2, pb, pnb)
+
+
+def ctc_prefix_beam_finalize(state):
+    """Sort a prefix-beam state by total score, descending (stable)."""
+    prefixes, plens, last, h1, h2, pb, pnb = state
+    scores = torch.logaddexp(pb, pnb)
+    order = torch.sort(-scores, dim=1, stable=True).indices
+    return (prefixes.gather(1, order[:, :, None].expand_as(prefixes)),
+            plens.gather(1, order), scores.gather(1, order))
+
+
+def ctc_prefix_beam_search(ctc_logp: torch.Tensor, enc_lens: torch.Tensor,
+                           beam_size: int = 10, blank: int = 0,
+                           max_len: Optional[int] = None):
+    """Batched prefix beam search over CTC posteriors.
+
+    :param ctc_logp: (B, T', V) log-softmax CTC output
+    :param enc_lens: (B,) valid frames
+    :return: (prefixes (B, K, Lmax), lens (B, K), scores (B, K)) sorted by
+        score, descending; Lmax = T' unless given.
+    """
+    B, T, V = ctc_logp.shape
+    Lmax = max_len or T
+    state = ctc_prefix_beam_init(B, beam_size, Lmax, ctc_logp.device)
+    for t in range(T):
+        state = _ctc_prefix_step(state, ctc_logp[:, t], t < enc_lens,
+                                 beam_size, blank, Lmax)
+    return ctc_prefix_beam_finalize(state)
+
+
+def attention_rescore(model, h_enc, enc_mask, prefixes, plens, ctc_scores,
+                      ctc_weight: float = 0.5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pick the best CTC n-best hypothesis by decoder log-prob plus
+    ``ctc_weight`` times its CTC score (liteasr_tpu/decode.py:222-279).
+    Returns (best hyp tokens (B, Lmax), best lens (B,))."""
+    B, K, Lmax = prefixes.shape
+    dev = prefixes.device
+    flat = prefixes.reshape(B * K, Lmax)
+    flens = plens.reshape(B * K)
+    ys_in = torch.cat(
+        [torch.full((B * K, 1), model.sos, dtype=flat.dtype, device=dev), flat], dim=1)
+    mask = (padding_mask(flens + 1, Lmax + 1)[:, None, :]
+            | triangle_mask(Lmax + 1, device=dev)[None])
+    mem = h_enc.repeat_interleave(K, dim=0)  # (B*K, T', D)
+    mem_mask = enc_mask.repeat_interleave(K, dim=0)
+
+    logits = model.decode_logits(ys_in, mem, mask, mem_mask)  # (BK, L+1, V)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    del logits
+    # sum_j logp[j, y_j] over the hypothesis + logp[len, eos]
+    tok_logp = logp[:, :Lmax].gather(2, flat[:, :, None])[:, :, 0]
+    pos = torch.arange(Lmax, device=dev)[None, :]
+    att_score = torch.where(pos < flens[:, None], tok_logp, 0.0).sum(dim=1)
+    att_score = att_score + logp[torch.arange(B * K, device=dev), flens, model.eos]
+    del logp
+
+    total = att_score.reshape(B, K) + ctc_weight * ctc_scores
+    # dead beams (score=-inf) must never win
+    total = torch.where(ctc_scores <= NEG_INF / 2, float("-inf"), total)
+    best = torch.argmax(total, dim=1)
+    best_hyp = prefixes.gather(1, best[:, None, None].expand(B, 1, Lmax))[:, 0]
+    return best_hyp, plens.gather(1, best[:, None])[:, 0]
+
+
+def ctc_greedy(ctc_logp: torch.Tensor, enc_lens: torch.Tensor, blank: int = 0):
+    """Argmax collapse decode. Returns (tokens (B, T'), keep mask (B, T'))."""
+    ids = torch.argmax(ctc_logp, dim=-1)
+    prev = torch.cat([torch.full_like(ids[:, :1], -1), ids[:, :-1]], dim=1)
+    pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
+    keep = (ids != blank) & (ids != prev) & (pos < enc_lens[:, None])
+    return ids, keep
+
+
+def decode_batch(model, xs, xlens, beam_size: int = 10,
+                 ctc_weight: float = 0.5,
+                 mode: str = "attention_rescore") -> List[List[int]]:
+    """Decode a padded batch of utterances (on the model's device).
+    Returns a list of token-id lists."""
+    if mode not in ("ctc_greedy", "ctc_prefix_beam_search", "attention_rescore"):
+        raise NotImplementedError(f"decode mode {mode!r} is not ported")
+    with torch.inference_mode():
+        h_enc, enc_mask = model.encode(xs, xlens)
+        enc_lens = model.get_pred_len(xlens)
+        ctc_logp = torch.log_softmax(model.ctc_logits(h_enc).float(), dim=-1)
+        if mode == "ctc_greedy":
+            ids, keep = ctc_greedy(ctc_logp, enc_lens)
+            ids, keep = ids.cpu(), keep.cpu()
+            return [ids[b][keep[b]].tolist() for b in range(ids.shape[0])]
+        prefixes, plens, scores = ctc_prefix_beam_search(
+            ctc_logp, enc_lens, beam_size=beam_size)
+        if mode == "ctc_prefix_beam_search":
+            best_hyp, best_len = prefixes[:, 0], plens[:, 0]
+        else:
+            best_hyp, best_len = attention_rescore(
+                model, h_enc, enc_mask, prefixes, plens, scores,
+                ctc_weight=ctc_weight)
+        best_hyp, best_len = best_hyp.cpu(), best_len.cpu()
+    return [best_hyp[b, :int(best_len[b])].tolist()
+            for b in range(best_hyp.shape[0])]

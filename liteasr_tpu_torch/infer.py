@@ -1,0 +1,153 @@
+"""Batch inference + scoring CLI (liteasr_tpu/infer.py; reference
+liteasr/infer.py:25-129).
+
+Usage: ``python -m liteasr_tpu_torch.infer --config-dir <run_dir>
+[overrides]``, where run_dir holds the resolved ``config.yaml`` of a
+training run. The test set is decoded in length-sorted batches on one
+``torch.device``.
+"""
+
+import logging
+import os
+import sys
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from liteasr_tpu_torch import decode, tasks
+from liteasr_tpu_torch.checkpoint import load_ckpt
+from liteasr_tpu_torch.config import compose
+from liteasr_tpu_torch.config.core import load_yaml
+from liteasr_tpu_torch.utils.misc import round_up
+from liteasr_tpu_torch.utils.score import levenshtein
+
+logger = logging.getLogger("liteasr_tpu_torch.infer")
+
+LOG_FORMAT = "%(asctime)s | %(levelname)s | %(name)s | %(message)s"
+
+
+def setup_logging(run_dir: str, level: str = "INFO",
+                  filename: str = "infer.log") -> None:
+    os.makedirs(run_dir, exist_ok=True)
+    root = logging.getLogger()
+    root.setLevel(getattr(logging, level.upper()))
+    for h in list(root.handlers):
+        root.removeHandler(h)
+    console = logging.StreamHandler()
+    console.setFormatter(logging.Formatter("[%(levelname)s]: %(message)s"))
+    root.addHandler(console)
+    fileh = logging.FileHandler(os.path.join(run_dir, filename))
+    fileh.setFormatter(logging.Formatter(LOG_FORMAT))
+    root.addHandler(fileh)
+
+
+def infer_dataset(task, model, dataset, infer_cfg, device: torch.device,
+                  pad_time_multiple: int = 128, verbose: bool = True,
+                  collect=None):
+    """Decode one test set on ``device``; returns (total_err, total_len).
+
+    ``model`` must already live on ``device``. ``collect``: optional list
+    that receives ``(ref, hyp)`` text pairs in decode order (length-sorted).
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if next(model.parameters()).device != device:
+        raise ValueError(f"the model is not on {device}")
+    if bool(getattr(dataset, "fbank", False)):
+        raise NotImplementedError(
+            "dataset.fbank=true: on-device fbank features are not ported yet")
+
+    batch_size = int(infer_cfg.get("batch_size", 8))
+    beam_size = int(infer_cfg.get("beam_size", 10))
+    ctc_weight = float(infer_cfg.get("ctc_weight", 0.5))
+
+    data = sorted(dataset.data, key=lambda a: a.xlen, reverse=True)
+    total_err, total_len = 0, 0
+    for lo in range(0, len(data), batch_size):
+        chunk = data[lo:lo + batch_size]
+        T = round_up(max(a.xlen for a in chunk), pad_time_multiple)
+        xs = np.zeros((len(chunk), T, dataset.feat_dim), np.float32)
+        xlens = np.array([a.xlen for a in chunk], np.int64)
+        for i, a in enumerate(chunk):
+            xs[i, : a.xlen] = a.x
+        hyps = decode.decode_batch(
+            model, torch.from_numpy(xs).to(device),
+            torch.from_numpy(xlens).to(device), beam_size=beam_size,
+            ctc_weight=ctc_weight,
+            mode=str(infer_cfg.get("mode", "attention_rescore")))
+        for a, hyp_ids in zip(chunk, hyps):
+            hyp = task.ids_to_text(hyp_ids)
+            ref = task.normalize_ref(a.text)
+            if collect is not None:
+                collect.append((ref, hyp))
+            err = levenshtein(ref, hyp)
+            total_err += err
+            total_len += len(ref)
+            res = "[X]" if ref == hyp else "[ ]"
+            log = logger.info if verbose else logger.debug
+            log("\n%s %s\n%3d %s", res, hyp, err, ref)
+    return total_err, total_len
+
+
+def infer(cfg, device: Optional[torch.device] = None):
+    """Decode every test set of the composed config; returns
+    [(errors, ref length), ...]. ``device`` defaults to the first GPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device; pass device=torch.device('cpu') "
+                               "to decode on the CPU")
+        device = torch.device("cuda", 0)
+    task = tasks.setup_task(cfg.task)
+    logger.info("setting %s task...", task.__class__.__name__)
+
+    logger.info("1. load data...")
+    task.load_dataset("test", list(task.cfg.test), cfg.dataset, None)
+
+    model = task.build_model(cfg.model)
+    model.load_state_dict(load_ckpt(cfg.inference))
+    model.to(device).eval()
+
+    results = []
+    dump = cfg.inference.get("dump")
+    for si, test_set in enumerate(task.dataset("test")):
+        pairs = [] if dump else None
+        err, length = infer_dataset(
+            task, model, test_set, cfg.inference, device,
+            pad_time_multiple=cfg.dataset.get("pad_time_multiple", 128),
+            collect=pairs)
+        results.append((err, length))
+        logger.info("Error rate: %d / %d = %.2f%%",
+                    err, length, 100.0 * err / max(length, 1))
+        if dump:
+            path = str(dump) if si == 0 else f"{dump}.{si}"
+            with open(path, "w") as f:
+                for i, (ref, hyp) in enumerate(pairs):
+                    f.write(f"{i}\t{ref}\t{hyp}\n")
+            logger.info("dumped %d ref/hyp pairs to %s", len(pairs), path)
+    return results
+
+
+def main(argv: Optional[List[str]] = None):
+    args = list(argv if argv is not None else sys.argv[1:])
+    config_dir = None
+    if "--config-dir" in args:
+        i = args.index("--config-dir")
+        config_dir = args[i + 1]
+        del args[i:i + 2]
+    base = None
+    if config_dir:
+        base = load_yaml(os.path.join(config_dir, "config.yaml"))
+    cfg = compose(args, base=base)
+    setup_logging(cfg.common.run_dir, cfg.common.log_level,
+                  filename="infer.log")
+    return infer(cfg)
+
+
+def cli_main():
+    main()
+
+
+if __name__ == "__main__":
+    cli_main()

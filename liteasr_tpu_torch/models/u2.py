@@ -1,0 +1,192 @@
+"""U2: hybrid CTC/attention Conformer ASR model, eval mode
+(liteasr_tpu/models/u2.py). Special ids: blank=0, sos=eos=V-1, ignore=-1.
+
+Training modes are not ported: there is no dropout, no dynamic or static
+chunk masks and no remat. Decoding lives in :mod:`liteasr_tpu_torch.decode`.
+"""
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import torch
+from torch import nn
+
+from liteasr_tpu_torch.config import II, MISSING, LiteasrDataclass
+from liteasr_tpu_torch.models import LiteasrModel, register_model
+from liteasr_tpu_torch.nets.attention import RelativeMultiHeadAttention
+from liteasr_tpu_torch.nets.common import Dense, lecun_normal_
+from liteasr_tpu_torch.nets.decoder import TransformerDecoder
+from liteasr_tpu_torch.nets.encoder import TransformerEncoder, subsample_mask
+from liteasr_tpu_torch.ops.masks import padding_mask, triangle_mask
+
+IGNORE = -1
+
+
+@dataclass
+class U2Config(LiteasrDataclass):
+    """The reference's schema (liteasr_tpu/models/u2.py:28-76), so that
+    configs written by either package compose here unchanged."""
+
+    name: Optional[str] = field(default="U2")
+
+    dropout_rate: float = 0.0
+
+    enc_arch: str = "conformer"  # transformer | conformer
+    use_rel: bool = True
+    input_dim: int = MISSING
+    enc_dim: int = 256
+    enc_ff_dim: int = 2048
+    enc_attn_heads: int = 4
+    enc_dropout_rate: float = II("model.dropout_rate")
+    enc_pos_dropout_rate: float = II("model.enc_dropout_rate")
+    enc_attn_dropout_rate: float = II("model.enc_dropout_rate")
+    enc_ff_dropout_rate: float = II("model.enc_dropout_rate")
+    enc_layers: int = 12
+    activation: str = "swish"
+    static_chunk_size: int = 0
+    dynamic_chunk: bool = False
+    remat: bool = False
+    normalize_before: bool = True
+
+    dec_arch: str = "transformer"
+    vocab_size: int = MISSING
+    dec_dim: int = 256
+    dec_ff_dim: int = 2048
+    dec_attn_heads: int = 4
+    dec_dropout_rate: float = II("model.dropout_rate")
+    dec_pos_dropout_rate: float = II("model.dec_dropout_rate")
+    dec_self_attn_dropout_rate: float = II("model.dec_dropout_rate")
+    dec_src_attn_dropout_rate: float = II("model.dec_dropout_rate")
+    dec_ff_dropout_rate: float = II("model.dec_dropout_rate")
+    dec_layers: int = 6
+
+    dtype: str = "float32"
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@register_model("U2", dataclass=U2Config)
+class U2(LiteasrModel):
+    def __init__(self, input_dim: int = 80, vocab_size: int = 0,
+                 enc_arch: str = "conformer", use_rel: bool = True,
+                 enc_dim: int = 256, enc_ff_dim: int = 2048,
+                 enc_attn_heads: int = 4, enc_layers: int = 12,
+                 activation: str = "swish", normalize_before: bool = True,
+                 dec_dim: int = 256, dec_ff_dim: int = 2048,
+                 dec_attn_heads: int = 4, dec_layers: int = 6, *,
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if enc_dim != dec_dim:
+            raise ValueError("the decoder attends to the encoder output: "
+                             f"enc_dim {enc_dim} != dec_dim {dec_dim}")
+        self.vocab_size = vocab_size
+        # parameters are drawn on the CPU, so one seed gives the same
+        # weights on every device
+        kw = dict(dtype=dtype)
+        self.encoder = TransformerEncoder(
+            input_dim, use_rel, enc_dim, enc_ff_dim, enc_attn_heads,
+            enc_layers, activation, enc_arch,
+            normalize_before=normalize_before, **kw)
+        self.decoder = TransformerDecoder(
+            vocab_size, dec_dim, dec_ff_dim, dec_attn_heads, dec_layers,
+            normalize_before, **kw)
+        self.ctc_lo = Dense(enc_dim, vocab_size, **kw)
+        self.init_params(generator)
+        if device is not None:
+            self.to(device)
+
+    @property
+    def sos(self) -> int:
+        return self.vocab_size - 1
+
+    @property
+    def eos(self) -> int:
+        return self.vocab_size - 1
+
+    @torch.no_grad()
+    def init_params(self, generator: Optional[torch.Generator] = None):
+        """flax's default initializers, drawn from ``generator``: lecun-normal
+        kernels, zero biases, N(0, 1/D) embeddings, xavier-uniform rel-pos
+        biases; norms start at identity."""
+        for module in self.modules():
+            if isinstance(module, (Dense, nn.Conv1d, nn.Conv2d)):
+                w = module.weight
+                fan_in = w[0].numel()
+                lecun_normal_(w, fan_in, generator)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, nn.Embedding):
+                module.weight.normal_(0.0, module.weight.shape[1] ** -0.5,
+                                      generator=generator)
+            elif isinstance(module, RelativeMultiHeadAttention):
+                module.reset_pos_bias(generator)
+
+    def encode(self, xs, xlens):
+        """Encoder forward for decoding. Returns (h_enc, enc_mask (B, T'))."""
+        xs_mask = padding_mask(xlens, xs.shape[1])
+        return self.encoder(xs, mask=xs_mask), subsample_mask(xs_mask)
+
+    def ctc_logits(self, h_enc):
+        return self.ctc_lo(h_enc)
+
+    def decode_logits(self, ys_in, h_enc, mask=None, enc_mask=None):
+        """Decoder forward over already-subsampled memory."""
+        return self.decoder(ys_in, h_enc, mask=mask, memory_mask=enc_mask,
+                            memory_mask_presubsampled=True)
+
+    def forward(self, xs, xlens, ys, ylens):
+        """Eval-mode training forward: (h_attn (B, L+1, V), h_ctc (B, T', V))
+        (liteasr_tpu/models/u2.py:149-172)."""
+        B, T = xs.shape[0], xs.shape[1]
+        L = ys.shape[1]
+        xs_mask = padding_mask(xlens, T)
+        ys_ = torch.where(ys == IGNORE, self.eos, ys)
+        sos_col = torch.full((B, 1), self.sos, dtype=ys.dtype, device=ys.device)
+        ys_in = torch.cat([sos_col, ys_], dim=1)
+        ys_mask = padding_mask(ylens + 1, L + 1)
+        h_enc = self.encoder(xs, mask=xs_mask)
+        causal = triangle_mask(L + 1, device=ys.device)
+        h_attn = self.decoder(ys_in, h_enc, mask=ys_mask[:, None, :] | causal[None],
+                              memory_mask=xs_mask)
+        return h_attn, self.ctc_lo(h_enc)
+
+    def get_pred_len(self, xlens):
+        return ((xlens - 1) // 2 - 1) // 2
+
+    @classmethod
+    def build_model(cls, cfg, task=None, device=None, generator=None):
+        """Build from the composed config. Raises on the training-mode and
+        streaming options this package has not ported."""
+        if task is not None:
+            cfg.input_dim = task.feat_dim
+            cfg.vocab_size = task.vocab_size
+        for key in ("static_chunk_size", "dynamic_chunk"):
+            if cfg.get(key):
+                raise NotImplementedError(
+                    f"model.{key}: streaming encoders are not ported yet")
+        if str(cfg.get("dec_arch", "transformer")) != "transformer":
+            raise NotImplementedError(f"dec_arch {cfg.dec_arch!r} is not ported")
+        dtype = str(cfg.get("dtype", "float32"))
+        if dtype not in _DTYPES:
+            raise ValueError(f"unsupported model.dtype {dtype!r}")
+        return cls(
+            input_dim=int(cfg.input_dim),
+            vocab_size=int(cfg.vocab_size),
+            enc_arch=str(cfg.enc_arch),
+            use_rel=bool(cfg.use_rel),
+            enc_dim=int(cfg.enc_dim),
+            enc_ff_dim=int(cfg.enc_ff_dim),
+            enc_attn_heads=int(cfg.enc_attn_heads),
+            enc_layers=int(cfg.enc_layers),
+            activation=str(cfg.activation),
+            normalize_before=bool(cfg.get("normalize_before", True)),
+            dec_dim=int(cfg.dec_dim),
+            dec_ff_dim=int(cfg.dec_ff_dim),
+            dec_attn_heads=int(cfg.dec_attn_heads),
+            dec_layers=int(cfg.dec_layers),
+            dtype=_DTYPES[dtype],
+            device=device,
+            generator=generator,
+        )

@@ -1,0 +1,122 @@
+"""LayerNorm(eps=1e-12), swish, FFN, positional encodings
+(liteasr_tpu/nets/common.py).
+
+Every layer keeps fp32 parameters and computes in its ``dtype``, casting
+inputs and parameters explicitly where flax's ``dtype=`` promotes them.
+"""
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LN_EPS = 1e-12  # reference liteasr/nets/layer_norm.py:10
+
+
+class Dense(nn.Linear):
+    """``flax.linen.Dense(dtype=dtype)``: fp32 parameters, computed in
+    ``dtype``. ``weight`` is (out, in), the transpose of flax's kernel."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 *, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device,
+                         dtype=torch.float32)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.Module):
+    """fp32 statistics, output cast to ``dtype``
+    (liteasr_tpu/nets/common.py:32-44, ops/layer_norm.py:29-37)."""
+
+    def __init__(self, dim: int, *, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        xc = x32 - mean
+        var = (xc * xc).mean(dim=-1, keepdim=True)
+        y = xc * torch.rsqrt(var + LN_EPS) * self.weight + self.bias
+        # the reference rounds to the input's dtype first, then casts
+        return y.to(x.dtype).to(self.compute_dtype)
+
+
+def swish(x):
+    return x * torch.sigmoid(x)
+
+
+_ACTIVATIONS = {
+    "relu": F.relu,
+    "swish": swish,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # flax's nn.gelu
+}
+
+
+def get_activation(name: str):
+    return _ACTIVATIONS[name]
+
+
+class PositionwiseFeedForward(nn.Module):
+    """fc1 -> act -> fc2 (dropout is a training-mode op; not ported)."""
+
+    def __init__(self, d: int, h_units: int, activation: str = "relu", *,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.fc1 = Dense(d, h_units, dtype=dtype, device=device)
+        self.fc2 = Dense(h_units, d, dtype=dtype, device=device)
+        self.act = get_activation(activation)
+
+    def forward(self, x):
+        return self.fc2(self.act(self.fc1(x)))
+
+
+def sinusoidal_pe(length: int, dim: int, dtype=torch.float32,
+                  device=None) -> torch.Tensor:
+    """(1, length, dim) table with sin and cos INTERLEAVED
+    (liteasr_tpu/nets/common.py:79-89)."""
+    position = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div_term = torch.exp(
+        torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+        * -(math.log(10000.0) / dim))
+    rad = position * div_term
+    pe = torch.stack([torch.sin(rad), torch.cos(rad)], dim=-1)
+    return pe.reshape(length, dim)[None].to(dtype)
+
+
+def positional_encoding(x: torch.Tensor) -> torch.Tensor:
+    """x * sqrt(d) + PE (PositionalEncoding in eval mode)."""
+    d = x.shape[-1]
+    return x * math.sqrt(d) + sinusoidal_pe(x.shape[1], d, x.dtype, x.device)
+
+
+def relative_positional_encoding(
+        x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x * sqrt(d), pos_emb) (RelativePositionalEncoding in eval mode)."""
+    d = x.shape[-1]
+    return x * math.sqrt(d), sinusoidal_pe(x.shape[1], d, x.dtype, x.device)
+
+
+def xavier_uniform_(t: torch.Tensor, generator: Optional[torch.Generator]):
+    bound = math.sqrt(6.0 / (t.shape[0] + t.shape[1]))
+    with torch.no_grad():
+        return t.uniform_(-bound, bound, generator=generator)
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator]):
+    """flax's default kernel init: truncated normal (2 sigma) of variance
+    1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)

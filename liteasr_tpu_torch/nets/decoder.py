@@ -1,0 +1,52 @@
+"""Transformer decoder, full mode (liteasr_tpu/nets/decoder.py).
+
+embed -> PE -> N DecoderLayers (self + src attention) -> LayerNorm ->
+vocab projection.
+"""
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from liteasr_tpu_torch.nets.common import Dense, LayerNorm, positional_encoding
+from liteasr_tpu_torch.nets.encoder import subsample_mask
+from liteasr_tpu_torch.nets.layers import DecoderLayer
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(self, vocab_size: int, h_dim: int, ff_dim: int, n_head: int,
+                 n_layer: int, normalize_before: bool = True, *,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.compute_dtype = dtype
+        self.n_layer = n_layer
+        self.embed = nn.Embedding(vocab_size, h_dim, device=device,
+                                  dtype=torch.float32)
+        for i in range(n_layer):
+            self.add_module(f"layer_{i}", DecoderLayer(
+                h_dim, n_head, ff_dim, normalize_before, **kw))
+        self.after_norm = LayerNorm(h_dim, **kw)
+        self.linear_out = Dense(h_dim, vocab_size, **kw)
+
+    def forward(self, y, memory, mask: Optional[torch.Tensor] = None,
+                memory_mask: Optional[torch.Tensor] = None,
+                memory_mask_presubsampled: bool = False):
+        """:param y: (B, L) token ids; ``memory``: (B, T', D)
+        :param mask: (B, L, L) self-attention mask (True = masked)
+        :param memory_mask: (B, T) padding mask, subsampled here — or
+            already (B, T') if ``memory_mask_presubsampled``
+        """
+        dt = self.compute_dtype
+        y = positional_encoding(F.embedding(y, self.embed.weight.to(dt)))
+        if mask is not None:
+            mask = mask[:, None, :, :]  # (B, 1, L, L)
+        if memory_mask is not None:
+            if not memory_mask_presubsampled:
+                memory_mask = subsample_mask(memory_mask)
+            memory_mask = memory_mask[:, None, None, :]  # (B, 1, 1, T')
+        for i in range(self.n_layer):
+            y = getattr(self, f"layer_{i}")(y, memory, mask, memory_mask)
+        return self.linear_out(self.after_norm(y))

@@ -1,0 +1,62 @@
+"""Conformer / Transformer encoder, full mode (liteasr_tpu/nets/encoder.py).
+
+Conv2D subsample (T -> T') -> (relative) positional encoding -> N layers ->
+final LayerNorm. The rel-pos table has the PADDED length T' of the batch,
+as in the reference: the legacy rel_shift indexes it from its end.
+"""
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from liteasr_tpu_torch.nets.common import (
+    LayerNorm, positional_encoding, relative_positional_encoding)
+from liteasr_tpu_torch.nets.layers import ConformerLayer, EncoderLayer
+from liteasr_tpu_torch.nets.subsampling import Conv2DSubsampling
+
+
+def subsample_mask(mask: torch.Tensor) -> torch.Tensor:
+    """(B, T) padding mask -> (B, T') after the two stride-2 convs
+    (reference transformer_encoder.py:118)."""
+    return mask[:, :-2:2][:, :-2:2]
+
+
+class TransformerEncoder(nn.Module):
+    def __init__(self, input_dim: int, use_rel: bool, h_dim: int, ff_dim: int,
+                 n_head: int, n_layer: int, activation: str = "swish",
+                 arch: str = "conformer", conv_kernel: int = 15,
+                 normalize_before: bool = True, *,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        if arch not in ("conformer", "transformer"):
+            raise ValueError(f"unknown encoder arch {arch!r}")
+        kw = dict(dtype=dtype, device=device)
+        self.use_rel = use_rel
+        self.n_layer = n_layer
+        self.embed = Conv2DSubsampling(input_dim, h_dim, **kw)
+        for i in range(n_layer):
+            if arch == "conformer":
+                layer = ConformerLayer(h_dim, n_head, ff_dim, conv_kernel,
+                                       activation, use_rel, normalize_before,
+                                       **kw)
+            else:
+                layer = EncoderLayer(h_dim, n_head, ff_dim, activation,
+                                     use_rel, normalize_before, **kw)
+            self.add_module(f"layer_{i}", layer)
+        self.after_norm = LayerNorm(h_dim, **kw)
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        """:param x: (B, T, F); ``mask``: (B, T) True = padding.
+        Returns (B, T', h_dim)."""
+        x = self.embed(x)
+        if self.use_rel:
+            x, pos_emb = relative_positional_encoding(x)
+        else:
+            x, pos_emb = positional_encoding(x), None
+        attn_mask = None
+        if mask is not None:
+            attn_mask = subsample_mask(mask)[:, None, None, :]  # (B, 1, 1, T')
+        for i in range(self.n_layer):
+            x = getattr(self, f"layer_{i}")(x, pos_emb, attn_mask)
+        return self.after_norm(x)

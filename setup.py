@@ -9,9 +9,12 @@ setup(
     name="liteasr_tpu",
     version="0.1.0",
     description="TPU-native (JAX/XLA/Pallas) end-to-end speech recognition framework",
-    packages=find_packages(include=["liteasr_tpu", "liteasr_tpu.*"]),
+    packages=find_packages(include=["liteasr_tpu", "liteasr_tpu.*",
+                                    "liteasr_tpu_torch", "liteasr_tpu_torch.*"]),
     include_package_data=True,
-    package_data={"liteasr_tpu.config": ["yaml/*.yaml", "yaml/*/*.yaml"]},
+    package_data={"liteasr_tpu.config": ["yaml/*.yaml", "yaml/*/*.yaml"],
+                  "liteasr_tpu_torch": ["csrc/*.cu"],
+                  "liteasr_tpu_torch.config": ["yaml/*.yaml", "yaml/*/*.yaml"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy", "pyyaml"],
     entry_points={

@@ -1,0 +1,48 @@
+"""liteasr_tpu_torch imports without jax, flax or liteasr_tpu, and its CUDA
+kernel loader raises (no fallback) where there is no CUDA device."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_port_imports_without_jax():
+    proc = _run("""
+        import importlib, pkgutil, sys
+        import liteasr_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            liteasr_tpu_torch.__path__, "liteasr_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "flax", "liteasr_tpu"))
+        assert not bad, bad
+        assert "liteasr_tpu_torch.ops.flash_attention" in names, names
+        print(len(names))
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 25
+
+
+def test_kernel_loader_raises_without_cuda():
+    proc = _run("""
+        from liteasr_tpu_torch.ops import flash_attention as fa
+        try:
+            fa.load_library()
+        except RuntimeError as e:
+            print("raised:", e)
+        else:
+            raise SystemExit("the loader returned without a CUDA device")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert "raised: CUDA is not available" in proc.stdout
