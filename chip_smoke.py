@@ -2,22 +2,50 @@
 
     python3 chip_smoke.py
 
-1. builds the CUDA kernel (csrc/rel_attention_fwd.cu, nvcc, sm_90a);
-2. holds the kernel against its plain PyTorch version at the three
-   attention shapes of the decode slice, in fp32 (tol 1e-4, TF32 off) and
-   bf16 (tol 2e-2), and times both with CUDA events;
-3. decodes a generated Kaldi corpus (32 utterances of 1000-1600 frames x 80
+1. builds the CUDA kernels (csrc/rel_attention_fwd.cu and
+   csrc/rel_attention_bwd.cu, one nvcc each, in parallel, sm_90a);
+2. K1: holds the forward kernel against its plain PyTorch version at the
+   three attention shapes of the decode slice, in fp32 (tol 1e-4, TF32
+   off) and bf16 (tol 2e-2), and times both with CUDA events;
+3. K1' and K2: holds the training forward (lse, dropout 0.1) and the
+   backward against their plain versions at the training shape (BH=128,
+   T'=199, D=64, a kv_len=0 row), fp32 (tol 1e-4 forward, 1e-3 grads) and
+   bf16 (2e-2, 5e-2), and times kernel and plain forward+backward;
+4. decodes a generated Kaldi corpus (32 utterances of 1000-1600 frames x 80
    fbank, 5000-token vocab) with the full-width U2 (12 conformer layers,
    256-d, 6 decoder layers, bf16 compute, random weights from a seed)
    through ``infer_dataset`` in attention_rescore mode (beam 10, CTC weight
-   0.5, 16 utterances per batch), and checks that every attention went
-   through the kernel: 24 launches per batch;
-4. runs 2 utterances through the same weights in fp32 on the GPU (kernel)
+   0.5, 16 utterances per batch): 24 K1 launches per batch;
+5. runs 2 utterances through the same weights in fp32 on the GPU (kernel)
    and on the CPU (plain path) and bounds the encoder and CTC log-prob
-   difference by 1e-3.
+   difference by 1e-3;
+6. trains the full-width U2 (my_U2, bf16, dropout 0.1, my_hybrid_ctc,
+   my_noam, clip 5, accum 2, no SpecAugment) through
+   ``liteasr_tpu_torch.train.main`` on a generated corpus (80 train and 16
+   valid utterances of 400-800 frames, 24-48 tokens, batch 32) for 2 epochs:
+   12 K1' and 12 K2 launches per micro-batch, finite losses, moved
+   parameters, ``valid loss:`` lines, and a ``model.ep.2.pt`` that
+   ``infer`` decodes (24 K1 launches per batch);
+7. times the train micro-step at bench.py's operating point (B=32, T=800,
+   U=48): 5 warm-up steps, then the median of 5 repetitions of 10, with
+   utt/s and MFU against the H100's dense bf16 peak (informational), and
+   the device-busy share of 10 more micro-steps traced with device
+   activity only;
+8. one fp32 train step (TF32 off, dropout 0, 2 encoder and 1 decoder
+   layer at full width) on the GPU (kernels) and the CPU (plain path): the
+   loss and every gradient agree within 1e-3 of the leaf's own max (the
+   depthwise-conv and attention key biases, whose gradient is 0 in exact
+   arithmetic, within 1e-3 of the largest gradient).
 
 Every failure raises, so the exit code is not 0. The last line is the JSON
-device record; the line before it lists the kernels.
+device record; the line before it lists the kernels (for
+rel_attention_fwd, ``ms``/``plain_ms`` are K1 per decoded batch and the
+``lse_*`` keys K1' per training call).
+
+    python3 chip_smoke.py --profile-train
+
+runs only a host+device torch.profiler window over the train micro-step
+of 7 and prints the top kernels by device time.
 """
 
 import json
@@ -41,6 +69,13 @@ ENC_LAYERS, DEC_LAYERS, HEADS, DIM = 12, 6, 4, 256
 FRAME_S = 0.01  # 10 ms fbank hop
 PARITY_TOL = 1e-3
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+# training slice: 800 frames -> T' = 199, 4 heads of 64
+TRAIN_BH, TRAIN_T, TRAIN_D, TRAIN_RATE, TRAIN_SEED = 128, 199, 64, 0.1, 1234
+N_TRAIN, N_VALID, TRAIN_MIN_T, TRAIN_MAX_T = 80, 16, 400, 800
+TRAIN_BATCH, TRAIN_EPOCHS, ACCUM = 32, 2, 2
+H100_BF16_PEAK = 989e12  # dense, SXM, at 700 W (NVIDIA data sheet)
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(*args):
@@ -68,6 +103,22 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def reset_counts(fa):
+    fa.flash_attention.launches = 0
+    fa.flash_attention.lse_launches = 0
+    fa.flash_rel_attention_bwd.launches = 0
+
+
+def counts(fa):
+    return (fa.flash_attention.launches, fa.flash_attention.lse_launches,
+            fa.flash_rel_attention_bwd.launches)
+
+
+def within(got, ref, tol) -> bool:
+    return bool(((got.float() - ref.float()).abs()
+                 <= tol + tol * ref.float().abs()).all())
 
 
 def slice_shapes(gen, dev, dtype):
@@ -102,8 +153,8 @@ def slice_shapes(gen, dev, dtype):
 
 
 def check_kernel(fa, dev, name):
-    """Kernel vs plain at the slice shapes. Returns the bf16 numbers the
-    kernels line reports."""
+    """K1 vs plain at the decode shapes. Returns the bf16 error and the
+    per-decode-batch times."""
     gen = torch.Generator().manual_seed(SEED)
     per_batch = {"encoder_rel": ENC_LAYERS, "decoder_self_mask": DEC_LAYERS,
                  "decoder_src_kv_lens": DEC_LAYERS}
@@ -116,8 +167,7 @@ def check_kernel(fa, dev, name):
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             tol = KERNEL_TOL[dtype]
-            bound = tol + tol * ref.float().abs()
-            if not bool(((out.float() - ref.float()).abs() <= bound).all()):
+            if not within(out, ref, tol):
                 raise RuntimeError(f"K1 {shape} {dtype}: max abs err {err} "
                                    f"exceeds atol=rtol={tol}")
             ms = cuda_time_ms(lambda: fa.flash_attention(scale=scale, **args))
@@ -130,25 +180,111 @@ def check_kernel(fa, dev, name):
                 report["max_abs_err"] = max(report["max_abs_err"], err)
                 report["ms"] += per_batch[shape] * ms
                 report["plain_ms"] += per_batch[shape] * plain_ms
+    log(f"K1 per decode batch (12 + 6 + 6 calls, bf16): kernel "
+        f"{report['ms']:.3f} ms, plain {report['plain_ms']:.3f} ms [{name}]")
     return report
 
 
-def write_corpus(root: str) -> None:
+def train_slice_inputs(gen, dev, dtype):
+    """One conformer self-attention call of a training micro-batch: B=32 x
+    4 heads, T'=199, Dk=64, the table shared over the batch; row 5 has
+    kv_len 0."""
+    bh, t, d = TRAIN_BH, TRAIN_T, TRAIN_D
+
+    def rnd(*shape):
+        return (0.5 * torch.randn(*shape, generator=gen)).to(dev, dtype)
+
+    kv = torch.randint(t // 2, t + 1, (bh // HEADS,), generator=gen)
+    kv = kv.repeat_interleave(HEADS)
+    kv[0], kv[5] = t, 0
+    return dict(q_u=rnd(bh, t, d), qv=rnd(bh, t, d), k=rnd(bh, t, d),
+                v=rnd(bh, t, d), p=rnd(HEADS, t, d),
+                kv_lens=kv.to(dev, torch.int32),
+                dout=torch.randn(bh, t, d, generator=gen).to(dev))
+
+
+def check_train_kernels(fa, dev, name):
+    """K1' (lse + dropout) and K2 vs their plain versions at the training
+    shape; times kernel and plain forward + backward."""
+    gen = torch.Generator().manual_seed(SEED + 1)
+    scale = TRAIN_D ** -0.5
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = train_slice_inputs(gen, dev, dtype)
+        ins = [x[n] for n in ("q_u", "qv", "k", "v", "p")]
+        kv, dout = x["kv_lens"], x["dout"]
+
+        def fwd(plain=False):
+            f = fa.flash_attention_plain if plain else fa.flash_attention
+            return f(ins[0], ins[2], ins[3], kv_lens=kv, rel_qv=ins[1],
+                     rel_p=ins[4], scale=scale, return_lse=True,
+                     dropout_rate=TRAIN_RATE, dropout_seed=TRAIN_SEED)
+
+        def bwd(out, lse, plain=False):
+            f = fa.flash_rel_attention_bwd_plain if plain else fa.flash_rel_attention_bwd
+            return f(*ins, kv, out, lse, dout, scale, TRAIN_RATE, TRAIN_SEED)
+
+        out, lse = fwd()
+        ref_out, ref_lse = fwd(plain=True)
+        out32 = out.float()
+        grads = bwd(out32, lse)
+        ref_grads = bwd(out32, ref_lse, plain=True)
+        torch.cuda.synchronize()
+        ftol, gtol = KERNEL_TOL[dtype], GRAD_TOL[dtype]
+        live = kv > 0
+        errs = {"out": (out.float() - ref_out.float()).abs().max().item(),
+                "lse": (lse[live] - ref_lse[live]).abs().max().item()}
+        ok = (within(out, ref_out, ftol) and within(lse[live], ref_lse[live], ftol)
+              and bool((lse[~live] == fa.NEG_INF).all()))
+        for gname, g, r in zip(("dq_u", "dqv", "dk", "dv", "dp"), grads, ref_grads):
+            g = g.to(dtype).float()  # what K3 hands back
+            errs[gname] = (g - r).abs().max().item()
+            ok = ok and within(g, r, gtol)
+            if gname != "dp":
+                ok = ok and bool((g[5] == 0).all())  # the dead row
+        line = " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+        if not ok:
+            raise RuntimeError(f"K1'/K2 {dtype}: {line} beyond tol "
+                               f"{ftol}/{gtol} (or the dead row is not 0)")
+
+        def kernel_step():
+            o, l = fwd()
+            bwd(o.float(), l)
+
+        def plain_step():
+            o, l = fwd(plain=True)
+            bwd(o.float(), l, plain=True)
+
+        fwd_ms = cuda_time_ms(fwd)
+        fwd_plain = cuda_time_ms(lambda: fwd(plain=True))
+        bwd_ms = cuda_time_ms(lambda: bwd(out32, lse))
+        bwd_plain = cuda_time_ms(lambda: bwd(out32, ref_lse, plain=True))
+        step_ms, step_plain = cuda_time_ms(kernel_step), cuda_time_ms(plain_step)
+        log(f"K1'/K2 {str(dtype)[6:]} BH={TRAIN_BH} T'={TRAIN_T} D={TRAIN_D} "
+            f"dropout {TRAIN_RATE}: {line} (tol {ftol}/{gtol}); fwd kernel "
+            f"{fwd_ms:.4f} ms plain {fwd_plain:.4f}; bwd kernel {bwd_ms:.4f} "
+            f"ms plain {bwd_plain:.4f}; fwd+bwd kernel {step_ms:.4f} ms plain "
+            f"{step_plain:.4f} [{name}]")
+        if dtype == torch.bfloat16:
+            report = {"fwd_err": max(errs["out"], errs["lse"]),
+                      "bwd_err": max(errs[g] for g in ("dq_u", "dqv", "dk", "dv", "dp")),
+                      "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain,
+                      "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain}
+    return report
+
+
+def write_split(root, split, n, min_t, max_t, min_u, max_u, rng):
     from liteasr_tpu_torch.data import kaldi_io
 
-    rng = np.random.default_rng(SEED)
-    with open(os.path.join(root, "vocab.txt"), "w") as f:
-        # <blank> and <sos/eos> complete the file's VOCAB - 2 tokens
-        f.write("<unk> 1\n" + "".join(f"w{i} {i + 2}\n" for i in range(VOCAB - 3)))
-    d = os.path.join(root, "test")
+    d = os.path.join(root, split)
     os.makedirs(d)
-    lens = rng.integers(MIN_T, MAX_T + 1, N_UTT)
-    lens[0] = MAX_T
+    lens = rng.integers(min_t, max_t + 1, n)
+    lens[0] = max_t
     mats, texts, frames = {}, [], []
     for i, t in enumerate(lens):
-        uttid = f"utt{i:03d}"
+        uttid = f"{split}{i:03d}"
         mats[uttid] = rng.normal(size=(int(t), FEAT)).astype(np.float32)
-        words = rng.integers(0, VOCAB - 3, int(rng.integers(20, 60)))
+        words = rng.integers(0, VOCAB - 3, int(rng.integers(min_u, max_u + 1)))
         texts.append(f"{uttid} " + " ".join(f"w{w}" for w in words))
         frames.append(f"{uttid} {int(t)}")
     kaldi_io.save_ark(os.path.join(d, "feats.ark"), mats,
@@ -157,16 +293,33 @@ def write_corpus(root: str) -> None:
         f.write("\n".join(frames) + "\n")
     with open(os.path.join(d, "text"), "w") as f:
         f.write("\n".join(texts) + "\n")
+    return d
 
 
-def build_model(dtype, device):
+def write_corpus(root: str) -> None:
+    rng = np.random.default_rng(SEED)
+    with open(os.path.join(root, "vocab.txt"), "w") as f:
+        # <blank> and <sos/eos> complete the file's VOCAB - 2 tokens
+        f.write("<unk> 1\n" + "".join(f"w{i} {i + 2}\n" for i in range(VOCAB - 3)))
+    write_split(root, "test", N_UTT, MIN_T, MAX_T, 20, 60, rng)
+    write_split(root, "train", N_TRAIN, TRAIN_MIN_T, TRAIN_MAX_T, 24, 48, rng)
+    write_split(root, "valid", N_VALID, TRAIN_MIN_T, TRAIN_MAX_T, 24, 48, rng)
+
+
+def build_model(dtype, device, enc_layers=ENC_LAYERS, dec_layers=DEC_LAYERS,
+                dropout_rate=0.0):
     from liteasr_tpu_torch.models.u2 import U2
 
     gen = torch.Generator().manual_seed(SEED)
+    rates = {k: dropout_rate for k in (
+        "dropout_rate", "enc_dropout_rate", "enc_pos_dropout_rate",
+        "enc_attn_dropout_rate", "enc_ff_dropout_rate", "dec_dropout_rate",
+        "dec_pos_dropout_rate", "dec_self_attn_dropout_rate",
+        "dec_src_attn_dropout_rate", "dec_ff_dropout_rate")}
     return U2(input_dim=FEAT, vocab_size=VOCAB, enc_dim=DIM, enc_ff_dim=2048,
-              enc_attn_heads=HEADS, enc_layers=ENC_LAYERS, dec_dim=DIM,
-              dec_ff_dim=2048, dec_attn_heads=HEADS, dec_layers=DEC_LAYERS,
-              dtype=dtype, device=device, generator=gen).eval()
+              enc_attn_heads=HEADS, enc_layers=enc_layers, dec_dim=DIM,
+              dec_ff_dim=2048, dec_attn_heads=HEADS, dec_layers=dec_layers,
+              dtype=dtype, device=device, generator=gen, **rates)
 
 
 def run_slice(fa, task, dev, name):
@@ -181,7 +334,7 @@ def run_slice(fa, task, dev, name):
 
     infer_dataset(task, model, dataset, cfg, dev, PAD_TIME, verbose=False)  # warm-up
     torch.cuda.synchronize()
-    fa.flash_attention.launches = 0
+    reset_counts(fa)
     t0 = time.perf_counter()
     pairs = []
     err, length = infer_dataset(task, model, dataset, cfg, dev, PAD_TIME,
@@ -207,8 +360,6 @@ def check_parity(task, dev, name):
     """2 utterances in fp32: GPU (kernel) vs CPU (plain path)."""
     from liteasr_tpu_torch import decode
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     data = task.dataset("test").data[:2]
     T = max(a.xlen for a in data)
     xs = np.zeros((2, T, FEAT), np.float32)
@@ -236,6 +387,260 @@ def check_parity(task, dev, name):
         raise RuntimeError("GPU and CPU paths disagree beyond the bound")
 
 
+def run_training(fa, root, dev, name):
+    """train.main at full width; returns the forward (K1 and K1'), K1' and
+    K2 launches of the training run and the K1 launches of the decode of
+    its checkpoint (counts reset before each)."""
+    from liteasr_tpu_torch import infer, train
+    from liteasr_tpu_torch.config import compose
+    from liteasr_tpu_torch.config.core import load_yaml
+
+    run = os.path.join(root, "run")
+    overrides = [
+        "task=asr", "model=my_U2", "criterion=my_hybrid_ctc",
+        "optimizer=my_noam", f"task.vocab={root}/vocab.txt",
+        f"task.train={root}/train", f"task.valid={root}/valid",
+        f"task.test=[{root}/valid]", "task.delimiter=' '",
+        f"task.save_dir={run}/ckpts", f"common.run_dir={run}",
+        f"common.seed={SEED}", "model.dtype=bfloat16",
+        "model.dropout_rate=0.1", f"dataset.batch_size={TRAIN_BATCH}",
+        "dataset.max_len_in=1000", "postprocess.workflow=[]",
+        f"optimization.max_epoch={TRAIN_EPOCHS}",
+        f"optimization.accum_grad={ACCUM}", "optimization.clip_grad_norm=5.0"]
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    trainer = train.main(overrides, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fwd, lse, bwd = counts(fa)
+    micro = TRAIN_EPOCHS * len(trainer.task.dataset("train"))
+    n_valid = TRAIN_EPOCHS * len(trainer.valid_set)
+    losses = torch.stack(trainer._loss_accum).float().cpu()
+    if (lse, bwd, fwd - lse) != (ENC_LAYERS * micro, ENC_LAYERS * micro,
+                                 (ENC_LAYERS + 2 * DEC_LAYERS) * n_valid):
+        raise RuntimeError(f"launches K1' {lse}, K2 {bwd}, K1 {fwd - lse} for "
+                           f"{micro} micro-batches and {n_valid} valid batches")
+    if len(losses) != micro or not bool(torch.isfinite(losses).all()):
+        raise RuntimeError(f"training losses {losses.tolist()}")
+    init = dict(build_model(torch.bfloat16, "cpu").named_parameters())
+    moved = [n for n, p in trainer.model.named_parameters()
+             if not torch.equal(p.detach().cpu(), init[n])]  # same seed as train.main
+    if int(trainer.tx.count) < 1 or len(moved) < len(init) // 2:
+        raise RuntimeError(f"{int(trainer.tx.count)} steps applied, "
+                           f"{len(moved)} parameters moved")
+    with open(os.path.join(run, "train.log")) as f:
+        valid_lines = [ln for ln in f if "valid loss:" in ln]
+    if len(valid_lines) != TRAIN_EPOCHS:
+        raise RuntimeError(f"{len(valid_lines)} 'valid loss:' lines")
+    ckpt = os.path.join(run, "ckpts", f"model.ep.{TRAIN_EPOCHS}.pt")
+    if not os.path.isfile(ckpt):
+        raise RuntimeError(f"{ckpt} was not written")
+    log(f"train: {micro} micro-batches of <= {TRAIN_BATCH} utts in "
+        f"{TRAIN_EPOCHS} epochs, {int(trainer.tx.count)} optimizer steps "
+        f"({int(trainer.tx.notfinite_count)} skipped), {secs:.2f} s incl. "
+        f"validation and checkpoints; losses {[round(x, 3) for x in losses.tolist()]}; "
+        f"K1' {lse}, K2 {bwd}, K1 {fwd - lse} launches; "
+        f"{len(moved)} parameter leaves moved; {valid_lines[-1].split(' - ')[-1].strip()} "
+        f"[{name}]")
+
+    cfg = compose([f"inference.ckpt_name={TRAIN_EPOCHS}",
+                   "inference.model_avg=false", f"inference.batch_size={N_VALID}",
+                   f"inference.beam_size={BEAM}"],
+                  base=load_yaml(os.path.join(run, "config.yaml")))
+    reset_counts(fa)
+    results = infer.infer(cfg, device=dev)
+    torch.cuda.synchronize()
+    dec_fwd = counts(fa)[0]
+    if dec_fwd != ENC_LAYERS + 2 * DEC_LAYERS or results[0][1] <= 0:
+        raise RuntimeError(f"decoding the checkpoint: {results}, K1 {dec_fwd}")
+    log(f"decoded {ckpt.split('/')[-1]}: error count {results[0][0]}/"
+        f"{results[0][1]} (2 epochs on random data), K1 launches {dec_fwd} [{name}]")
+    return fwd, lse, bwd, dec_fwd
+
+
+def bench_batch(dev):
+    """bench.py:179-187's fixed batch: B=32, T=800, U=48, vocab 5000."""
+    B, T, U = 32, 800, 48
+    rng = np.random.default_rng(0)
+    batch = {
+        "xs": rng.normal(size=(B, T, FEAT)).astype(np.float32),
+        "xlens": rng.integers(T // 2, T + 1, size=B).astype(np.int32),
+        "ys": rng.integers(1, VOCAB - 1, size=(B, U)).astype(np.int32),
+        "ylens": rng.integers(U // 2, U + 1, size=B).astype(np.int32),
+        "valid": np.ones((B,), np.float32),
+    }
+    from liteasr_tpu_torch.trainer import to_device
+
+    return to_device(batch, dev), B
+
+
+def bench_step(dev):
+    """The full-width bf16 train micro-step (dropout 0.1, hybrid loss, Noam
+    Adam, clip 5, accum 2) on bench_batch; returns (step, B)."""
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
+    from liteasr_tpu_torch.optims.fused_step import FusedAdam
+    from liteasr_tpu_torch.optims.noam import noam_schedule
+
+    torch.manual_seed(SEED)
+    model = build_model(torch.bfloat16, dev, dropout_rate=0.1)
+    crit = HybridCTCLoss(DotDict(vocab_size=VOCAB, padding_idx=-1,
+                                 smoothing=0.1, ctc_weight=0.3))
+    params = list(model.parameters())
+    tx = FusedAdam(params, noam_schedule(256, 1.0, 25000), 0.9, 0.98, 1e-9,
+                   clip=5.0, accum=ACCUM)
+    batch, B = bench_batch(dev)
+
+    def step():
+        loss, _ = crit(model, batch, train=True)
+        loss.backward()
+        tx.update([p.grad for p in params])
+        for p in params:
+            p.grad = None
+        return loss
+
+    return step, B
+
+
+def traced_steps(step, steps, activities):
+    """Runs ``steps`` micro-steps under torch.profiler. Returns the profiler,
+    the wall time in us, the device-busy time in us (the union of the device
+    intervals) and the number of device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("the profiler recorded no device time")
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return prof, wall_us, busy, len(spans)
+
+
+def time_train_step(dev, name):
+    """Median of 5 repetitions of 10 micro-steps at bench.py's point, then
+    10 micro-steps traced with device activity only (no host-op records,
+    so the host runs near its untraced speed) for the device-busy share."""
+    from torch.profiler import ProfilerActivity
+
+    sys.path.insert(0, REPO)
+    from bench import train_step_flops  # imports jax only inside its main()
+
+    step, B = bench_step(dev)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    reps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            loss = step()
+        torch.cuda.synchronize()
+        reps.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(loss)):
+        raise RuntimeError("non-finite loss in the timed steps")
+    med = statistics.median(reps) / 10
+    flops = train_step_flops(VOCAB)
+    log(f"train step at bench.py's point (B={B}, T=800, U=48, bf16, accum "
+        f"{ACCUM}): median {med * 1e3:.2f} ms/micro-step (best "
+        f"{min(reps) * 100:.2f}), {B / med:.2f} utt/s, {flops / 1e12:.3f} "
+        f"TFLOP/step (bench.train_step_flops), MFU {flops / med / H100_BF16_PEAK:.4%} "
+        f"of {H100_BF16_PEAK / 1e12:.0f} TFLOP/s dense bf16; peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{name}]")
+    _, wall_us, busy, ops = traced_steps(step, 10, [ProfilerActivity.CUDA])
+    log(f"device busy (10 micro-steps traced with device activity only): "
+        f"{busy / 1e4:.2f} ms/micro-step of {wall_us / 1e4:.2f} ms traced wall "
+        f"= {busy / wall_us:.1%} measured; traced wall / untraced median "
+        f"{wall_us / 1e7 / med:.3f}; derived estimate, traced device time over "
+        f"the untraced median: {busy / 1e7 / med:.1%}; {ops / 10:.0f} device "
+        f"ops/micro-step [{name}]")
+
+
+def profile_train_step(dev, name, steps: int = 4):
+    """``--profile-train``: host and device torch.profiler over ``steps``
+    micro-steps at bench.py's point. Prints the top kernels by device time;
+    the host-op records slow the host, so the busy share it prints is lower
+    than the untraced step's (time_train_step measures that one)."""
+    from torch.profiler import ProfilerActivity
+
+    step, _ = bench_step(dev)
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    prof, wall_us, busy, ops = traced_steps(
+        step, steps, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    log(f"profile: {steps} micro-steps, wall {wall_us / 1e3 / steps:.2f} ms/step "
+        f"(under the host+device profiler), device busy {busy / 1e3 / steps:.2f} "
+        f"ms/step = {busy / wall_us:.1%}, {ops / steps:.0f} device ops/step [{name}]")
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30,
+                                  max_name_column_width=60))
+
+
+def check_train_parity(dev, name):
+    """One fp32 train step, 2 + 1 layers at full width, dropout 0: GPU
+    (kernels) vs CPU (plain path)."""
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
+    from liteasr_tpu_torch.trainer import to_device
+
+    rng = np.random.default_rng(SEED + 2)
+    B, T, U = 4, 400, 24
+    batch = {"xs": rng.normal(size=(B, T, FEAT)).astype(np.float32),
+             "xlens": np.array([T, 350, 280, 200], np.int32),
+             "ys": rng.integers(1, VOCAB - 1, size=(B, U)).astype(np.int32),
+             "ylens": np.array([U, 20, 16, 10], np.int32),
+             "valid": np.ones(B, np.float32)}
+    crit = HybridCTCLoss(DotDict(vocab_size=VOCAB, padding_idx=-1,
+                                 smoothing=0.1, ctc_weight=0.3))
+    res = []
+    for device in (dev, torch.device("cpu")):
+        model = build_model(torch.float32, device, enc_layers=2, dec_layers=1)
+        loss, _ = crit(model, to_device(batch, device), train=True)
+        loss.backward()
+        res.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (g_loss, g_grads), (c_loss, c_grads) = res
+    # leaf error = max abs diff / the leaf's own max abs value, except for
+    # the leaves whose gradient is 0 in exact arithmetic: the depthwise-conv
+    # bias (train-mode BatchNorm subtracts the batch mean) and every
+    # attention key bias (it shifts a query's scores over all keys alike,
+    # which softmax ignores). Their gradient is rounding noise, so they are
+    # held to max abs diff <= 1e-3 x the largest gradient of the step, and
+    # their CPU gradient must itself be below that.
+    top = max(c.abs().max().item() for c in c_grads.values())
+    errs, zero_leaves = {}, {}
+    for n, c in c_grads.items():
+        diff, peak = (g_grads[n] - c).abs().max().item(), c.abs().max().item()
+        errs[n] = diff / peak if peak > 0 else (0.0 if diff == 0 else float("inf"))
+        if n.endswith((".conv.depthwise_conv.bias", ".linear_k.bias")):
+            zero_leaves[n] = (diff / top, peak / top)
+    rel = sorted((n for n in errs if n not in zero_leaves), key=errs.get)
+    loss_err = abs(g_loss - c_loss) / abs(c_loss)
+    zero_worst = max(d for d, _ in zero_leaves.values())
+    zero_peak = max(p for _, p in zero_leaves.values())
+    log(f"train parity fp32 GPU vs CPU (2+1 layers, B={B}, T={T}): loss "
+        f"{g_loss:.6f} vs {c_loss:.6f} (rel {loss_err:.3g}); worst grads of "
+        f"{len(rel)} leaves held to their own max: "
+        f"{', '.join(f'{n} {errs[n]:.3g}' for n in rel[:-4:-1])}; "
+        f"{len(zero_leaves)} leaves with an exactly-0 gradient (depthwise-conv "
+        f"and key biases) held to the largest gradient: diff {zero_worst:.3g}, "
+        f"own max {zero_peak:.3g} of it (diff over own max up to "
+        f"{max(errs[n] for n in zero_leaves):.3g}); bound {PARITY_TOL} [{name}]")
+    worst = rel[-1]
+    if (loss_err > PARITY_TOL or errs[worst] > PARITY_TOL
+            or zero_worst > PARITY_TOL or zero_peak > PARITY_TOL):
+        raise RuntimeError("GPU and CPU train steps disagree beyond the bound")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -248,15 +653,22 @@ def main() -> int:
     log(name)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    if "--profile-train" in sys.argv[1:]:
+        fa.build_libraries()
+        profile_train_step(dev, name)
+        return 0
 
     t0 = time.perf_counter()
-    lib = fa.build_library()
-    fa.load_library()
-    log(f"K1 build: {time.perf_counter() - t0:.2f} s ({lib.name})")
+    libs = fa.build_libraries()
+    for lib in libs:
+        fa.load_library(lib)
+    log(f"kernel build (parallel nvcc): {time.perf_counter() - t0:.2f} s "
+        f"({', '.join(p.name for p in libs.values())})")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     k1 = check_kernel(fa, dev, name)
+    k2 = check_train_kernels(fa, dev, name)
 
     with tempfile.TemporaryDirectory() as root:
         write_corpus(root)
@@ -265,18 +677,39 @@ def main() -> int:
         task.load_dataset("test", os.path.join(root, "test"))
         if task.vocab_size != VOCAB:
             raise RuntimeError(f"vocab size {task.vocab_size} != {VOCAB}")
-        launches = run_slice(fa, task, dev, name)
+        decode_fwd = run_slice(fa, task, dev, name)
         check_parity(task, dev, name)
+        train_fwd, train_lse, train_bwd, ckpt_fwd = run_training(
+            fa, root, dev, name)
 
+    time_train_step(dev, name)
+    check_train_parity(dev, name)
+
+    # rel_attention_fwd: ms / plain_ms are K1's per decoded batch (as since
+    # the decode slice); the lse_* keys are K1' (lse + dropout) per call at
+    # the training shape and its launches in the training run
     log(json.dumps({"kernels": [{
         "name": "rel_attention_fwd",
         "route": "cuda",
         "source": "liteasr_tpu_torch/csrc/rel_attention_fwd.cu",
         "replaces": "liteasr_tpu/ops/flash_attention.py:177",
-        "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
+        "launches": decode_fwd + train_fwd + ckpt_fwd,
+        "max_abs_err": max(k1["max_abs_err"], k2["fwd_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
+        "lse_launches": train_lse,
+        "lse_max_abs_err": k2["fwd_err"],
+        "lse_ms": k2["fwd_ms"],
+        "lse_plain_ms": k2["fwd_plain_ms"],
+    }, {
+        "name": "rel_attention_bwd",
+        "route": "cuda",
+        "source": "liteasr_tpu_torch/csrc/rel_attention_bwd.cu",
+        "replaces": "liteasr_tpu/ops/flash_attention.py:566",
+        "launches": train_bwd,
+        "max_abs_err": k2["bwd_err"],
+        "ms": k2["bwd_ms"],
+        "plain_ms": k2["bwd_plain_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

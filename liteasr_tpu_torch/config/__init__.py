@@ -1,9 +1,10 @@
 """Config schema + composition engine (copy of liteasr_tpu/config).
 
-Only the schema that inference reads is ported: ``common``, ``dataset`` and
-``inference``. Sections a training run writes into its ``config.yaml``
-(``postprocess``, ``optimization``, ...) still pass through composition as
-plain dicts.
+The schema is the reference's, for training and inference, so that a
+config written by either package composes here unchanged. Options the port
+has not ported raise where they are read (train.py, trainer.py,
+models/u2.py), naming their ROADMAP item; ``common.prng_impl`` and
+``common.compile_cache_dir`` are JAX settings, accepted and without effect.
 """
 
 from liteasr_tpu_torch.config.core import (  # noqa: F401
@@ -19,7 +20,7 @@ from liteasr_tpu_torch.config.core import (  # noqa: F401
 )
 
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 
 @dataclass
@@ -28,10 +29,26 @@ class LiteasrDataclass:
 
 
 @dataclass
+class TriggerConfig(LiteasrDataclass):
+    """One trainer event: run method ``name`` every ``interval`` ``unit``s."""
+
+    interval: int = 1
+    unit: str = "epoch"  # epoch | iteration
+
+
+@dataclass
 class CommonConfig(LiteasrDataclass):
     seed: int = 1
-    run_dir: str = "."  # where infer.log lands
+    trigger: List[TriggerConfig] = field(default_factory=list)
+    memory_save: bool = False  # not ported: raises
+    run_dir: str = "."  # where train.log / infer.log / config.yaml land
     log_level: str = "INFO"
+    profile_dir: Optional[str] = None  # not ported: raises
+    resume: Optional[str] = None  # not ported: raises
+    prng_impl: str = "rbg"  # a JAX PRNG setting: no effect here
+    compile_cache_dir: Optional[str] = None  # a JAX setting: no effect here
+    # JSONL rows: one run_meta row at startup, one row per validation
+    results_file: Optional[str] = None
 
 
 @dataclass
@@ -49,9 +66,58 @@ class DatasetConfig(LiteasrDataclass):
     # pad each decode batch's time axis up to a multiple of this
     pad_time_multiple: int = 128
     pad_label_multiple: int = 16
+    bucket_ladder: bool = False
+    num_workers: int = 2  # host-side prefetch threads
+    crop_multiple: int = 8000
+    pad_batch_multiple: int = 4
     # on-the-fly features from wav.scp waveforms: not ported (raises)
     fbank: bool = False
     num_mel_bins: int = 80
+
+
+@dataclass
+class SpecAugmentConfig:
+    time_warp: int = 80
+    time_warp_mode: str = "bicubic"
+    freq_mask: int = 27
+    freq_mask_times: int = 1
+    time_mask: int = 100
+    time_mask_times: int = 1
+    inplace: bool = True
+    replace_with_zero: bool = False
+
+
+@dataclass
+class PostProcessConfig(LiteasrDataclass):
+    spec_aug: SpecAugmentConfig = field(default_factory=SpecAugmentConfig)
+    workflow: List[str] = field(default_factory=lambda: ["spec_aug"])
+    # true: augment on the device inside the step (not ported: raises when
+    # the workflow has spec_aug); false: per utterance on the host
+    on_device: bool = True
+
+
+@dataclass
+class DistributedConfig(LiteasrDataclass):
+    """Device layout; the port trains on one device (dp, tp, sp > 1 raise)."""
+
+    dp: int = -1
+    tp: int = 1
+    sp: int = 1
+    num_workers: int = 2
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+
+
+@dataclass
+class OptimizationConfig(LiteasrDataclass):
+    max_epoch: int = -1
+    max_iter: int = -1
+    accum_grad: int = 1
+    clip_grad_norm: float = 0.0
+    dtype: str = "bfloat16"
+    # the port has one optimizer path (optims/fused_step.py), whatever this says
+    fused_step: bool = False
 
 
 @dataclass
@@ -72,6 +138,9 @@ class InferenceConfig(LiteasrDataclass):
 class LiteasrConfig(LiteasrDataclass):
     common: CommonConfig = field(default_factory=CommonConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    postprocess: PostProcessConfig = field(default_factory=PostProcessConfig)
+    distributed: DistributedConfig = field(default_factory=DistributedConfig)
+    optimization: OptimizationConfig = field(default_factory=OptimizationConfig)
     inference: InferenceConfig = field(default_factory=InferenceConfig)
     task: Any = None
     model: Any = None

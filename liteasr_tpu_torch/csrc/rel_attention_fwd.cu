@@ -1,8 +1,10 @@
 // Fused attention forward with the in-kernel rel-pos term, for sm_90a.
 //
 // Replaces liteasr_tpu/ops/flash_attention.py:_attn_kernel (the Pallas TPU
-// kernel); liteasr_tpu_torch/ops/flash_attention.py holds the function it
-// computes, its plain PyTorch version and the ctypes wrapper.
+// kernel), with its training options: the per-row lse and the
+// attention-probability dropout (K1'). liteasr_tpu_torch/ops/
+// flash_attention.py holds the function it computes, its plain PyTorch
+// version and the ctypes wrapper.
 //
 // One block computes 64 query rows of one (batch x head) row `bh`. It walks
 // the keys in tiles of 64 with an online softmax, so the scores never reach
@@ -23,6 +25,11 @@
 //      the input type (as the TPU kernel does before its P V product) and
 //      stored in shared memory.
 //   3. out += P V with V staged in shared memory.
+// Dropout (training) zeroes a probability before P V where the TPU kernel's
+// counter hash says so (keep_elem below); the normalizer keeps the
+// undropped mass and the output is divided by 1 - rate, as on the TPU. The
+// hash is keyed by the TPU kernel's tiles (tqe x tke), not by this kernel's
+// 64 x 64 tiles, so both draw the same mask.
 // What bounds it: at the decode shapes everything a block reads is reused
 // 64 times from shared memory, so it is bound by shared-memory loads and
 // fp32 FMA issue, not by HBM. Tensor-core (wgmma) tiles are later work.
@@ -50,6 +57,23 @@ constexpr int LDP = PW + 2;
 constexpr int LDS = BN + 1;
 constexpr float NEG_INF = -1e30f;
 
+// _dropout_keep (liteasr_tpu/ops/flash_attention.py:149-174) for global
+// query t and key j: a murmur3 finalizer over the in-tile row/column and the
+// (bh, q-tile, k-tile, seed) tile id, uint32 with wraparound.
+__device__ __forceinline__ bool keep_elem(uint32_t bh, int t, int j, int tqe, int tke,
+                                          uint32_t seed, uint32_t thr) {
+  const uint32_t qi = (uint32_t)(t / tqe), row = (uint32_t)(t % tqe);
+  const uint32_t kj = (uint32_t)(j / tke), col = (uint32_t)(j % tke);
+  const uint32_t tile = ((bh * 65537u + qi) * 8191u + kj) * 131071u + seed;
+  uint32_t u = row * 0x9E3779B1u + col * 0x85EBCA77u + tile * 0xC2B2AE3Du;
+  u ^= u >> 16;
+  u *= 0x7FEB352Du;
+  u ^= u >> 15;
+  u *= 0x846CA68Bu;
+  u ^= u >> 16;
+  return u < thr;
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -74,7 +98,9 @@ rel_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ qv,
                     const T* __restrict__ p, const uint8_t* __restrict__ mask,
                     const int32_t* __restrict__ kv_lens, T* __restrict__ out,
-                    int Tq, int Tk, int D, int mask_div, int p_mod, float scale) {
+                    float* __restrict__ lse, int Tq, int Tk, int D, int mask_div,
+                    int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
+                    float keep_div, int tqe, int tke) {
   extern __shared__ float smem[];
   float* sQ = smem;              // [DC][LDQ]  Q^T chunk
   float* sQv = sQ + DC * LDQ;    // [DC][LDQV] q_v^T chunk
@@ -202,8 +228,10 @@ rel_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float pe = expf(s_ac[i][j] - m_new);
-        rs += pe;
-        sS[(ty + 16 * i) * LDS + tx + 16 * j] = to_f(from_f<T>(pe));
+        rs += pe;  // the normalizer sums the undropped mass
+        const bool drop =
+            dropout && !keep_elem((uint32_t)bh, t, k0 + tx + 16 * j, tqe, tke, seed, thr);
+        sS[(ty + 16 * i) * LDS + tx + 16 * j] = drop ? 0.f : to_f(from_f<T>(pe));
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
@@ -242,16 +270,23 @@ rel_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) ob[(size_t)t * D + d] = from_f<T>(acc[i][c] / l);
+      float o = acc[i][c] / l;
+      if (dropout) o = o / keep_div;
+      if (d < D) ob[(size_t)t * D + d] = from_f<T>(o);
     }
+    // a row with no key (kv_len == 0) keeps m = NEG_INF; NEG_INF + log(l)
+    // rounds to NEG_INF in fp32, and the backward zeroes such a row
+    if (lse && tx == 0)
+      lse[(size_t)bh * Tq + t] = l_i[i] > 0.f ? m_i[i] + logf(l) : NEG_INF;
   }
 }
 
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* qv,
                    const void* p, const uint8_t* mask, const int32_t* kv_lens,
-                   void* out, int BH, int Tq, int Tk, int D, int mask_div,
-                   int p_mod, float scale, cudaStream_t stream) {
+                   void* out, float* lse, int BH, int Tq, int Tk, int D, int mask_div,
+                   int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
+                   float keep_div, int tqe, int tke, cudaStream_t stream) {
   constexpr size_t smem = Smem<DMAX>::kBytes;
   auto kernel = rel_attn_fwd_kernel<T, DMAX>;
   cudaError_t err =
@@ -261,30 +296,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* qv,
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(qv), static_cast<const T*>(p), mask, kv_lens,
-      static_cast<T*>(out), Tq, Tk, D, mask_div, p_mod, scale);
+      static_cast<T*>(out), lse, Tq, Tk, D, mask_div, p_mod, scale, dropout, seed, thr,
+      keep_div, tqe, tke);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. qv/p, mask and kv_lens may be null.
+// dtype: 0 = float32, 1 = bfloat16. qv/p, mask, kv_lens and lse may be null.
+// dropout != 0 applies the keep test u < thr with the TPU kernel's tiles
+// tqe x tke; keep_div = 1 - rate.
 extern "C" int rel_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                  const void* qv, const void* p, const void* mask,
-                                 const void* kv_lens, void* out, int BH, int Tq,
-                                 int Tk, int D, int mask_div, int p_mod, float scale,
-                                 void* stream) {
-  if (D < 1 || D > 128 || BH < 1 || BH > 65535 || mask_div < 1 || p_mod < 1)
+                                 const void* kv_lens, void* out, void* lse, int BH,
+                                 int Tq, int Tk, int D, int mask_div, int p_mod,
+                                 float scale, int dropout, uint32_t seed, uint32_t thr,
+                                 float keep_div, int tqe, int tke, void* stream) {
+  if (D < 1 || D > 128 || BH < 1 || BH > 65535 || mask_div < 1 || p_mod < 1 ||
+      tqe < 1 || tke < 1)
     return (int)cudaErrorInvalidValue;
+  auto ls = static_cast<float*>(lse);
   auto m = static_cast<const uint8_t*>(mask);
   auto kl = static_cast<const int32_t*>(kv_lens);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = D <= 64 ? launch<float, 64>(q, k, v, qv, p, m, kl, out, BH, Tq, Tk, D, mask_div, p_mod, scale, s)
-                  : launch<float, 128>(q, k, v, qv, p, m, kl, out, BH, Tq, Tk, D, mask_div, p_mod, scale, s);
+    err = D <= 64 ? launch<float, 64>(q, k, v, qv, p, m, kl, out, ls, BH, Tq, Tk, D, mask_div, p_mod, scale, dropout, seed, thr, keep_div, tqe, tke, s)
+                  : launch<float, 128>(q, k, v, qv, p, m, kl, out, ls, BH, Tq, Tk, D, mask_div, p_mod, scale, dropout, seed, thr, keep_div, tqe, tke, s);
   } else if (dtype == 1) {
-    err = D <= 64 ? launch<__nv_bfloat16, 64>(q, k, v, qv, p, m, kl, out, BH, Tq, Tk, D, mask_div, p_mod, scale, s)
-                  : launch<__nv_bfloat16, 128>(q, k, v, qv, p, m, kl, out, BH, Tq, Tk, D, mask_div, p_mod, scale, s);
+    err = D <= 64 ? launch<__nv_bfloat16, 64>(q, k, v, qv, p, m, kl, out, ls, BH, Tq, Tk, D, mask_div, p_mod, scale, dropout, seed, thr, keep_div, tqe, tke, s)
+                  : launch<__nv_bfloat16, 128>(q, k, v, qv, p, m, kl, out, ls, BH, Tq, Tk, D, mask_div, p_mod, scale, dropout, seed, thr, keep_div, tqe, tke, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

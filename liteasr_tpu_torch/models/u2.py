@@ -1,8 +1,10 @@
-"""U2: hybrid CTC/attention Conformer ASR model, eval mode
-(liteasr_tpu/models/u2.py). Special ids: blank=0, sos=eos=V-1, ignore=-1.
+"""U2: hybrid CTC/attention Conformer ASR model (liteasr_tpu/models/u2.py).
+Special ids: blank=0, sos=eos=V-1, ignore=-1.
 
-Training modes are not ported: there is no dropout, no dynamic or static
-chunk masks and no remat. Decoding lives in :mod:`liteasr_tpu_torch.decode`.
+``forward(..., train=True)`` is the training forward, with every dropout of
+the reference and BatchNorm on batch statistics. Dynamic and static chunk
+masks and remat are not ported and raise. Decoding lives in
+:mod:`liteasr_tpu_torch.decode`.
 """
 
 from dataclasses import dataclass, field
@@ -14,7 +16,7 @@ from torch import nn
 from liteasr_tpu_torch.config import II, MISSING, LiteasrDataclass
 from liteasr_tpu_torch.models import LiteasrModel, register_model
 from liteasr_tpu_torch.nets.attention import RelativeMultiHeadAttention
-from liteasr_tpu_torch.nets.common import Dense, lecun_normal_
+from liteasr_tpu_torch.nets.common import Dense, dropout, lecun_normal_
 from liteasr_tpu_torch.nets.decoder import TransformerDecoder
 from liteasr_tpu_torch.nets.encoder import TransformerEncoder, subsample_mask
 from liteasr_tpu_torch.ops.masks import padding_mask, triangle_mask
@@ -66,6 +68,12 @@ class U2Config(LiteasrDataclass):
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+_DROPOUTS = ("dropout_rate", "enc_dropout_rate", "enc_pos_dropout_rate",
+             "enc_attn_dropout_rate", "enc_ff_dropout_rate", "dec_dropout_rate",
+             "dec_pos_dropout_rate", "dec_self_attn_dropout_rate",
+             "dec_src_attn_dropout_rate", "dec_ff_dropout_rate")
+
+
 @register_model("U2", dataclass=U2Config)
 class U2(LiteasrModel):
     def __init__(self, input_dim: int = 80, vocab_size: int = 0,
@@ -74,7 +82,16 @@ class U2(LiteasrModel):
                  enc_attn_heads: int = 4, enc_layers: int = 12,
                  activation: str = "swish", normalize_before: bool = True,
                  dec_dim: int = 256, dec_ff_dim: int = 2048,
-                 dec_attn_heads: int = 4, dec_layers: int = 6, *,
+                 dec_attn_heads: int = 4, dec_layers: int = 6,
+                 dropout_rate: float = 0.0, enc_dropout_rate: float = 0.0,
+                 enc_pos_dropout_rate: float = 0.0,
+                 enc_attn_dropout_rate: float = 0.0,
+                 enc_ff_dropout_rate: float = 0.0,
+                 dec_dropout_rate: float = 0.0,
+                 dec_pos_dropout_rate: float = 0.0,
+                 dec_self_attn_dropout_rate: float = 0.0,
+                 dec_src_attn_dropout_rate: float = 0.0,
+                 dec_ff_dropout_rate: float = 0.0, *,
                  dtype: torch.dtype = torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -82,17 +99,29 @@ class U2(LiteasrModel):
             raise ValueError("the decoder attends to the encoder output: "
                              f"enc_dim {enc_dim} != dec_dim {dec_dim}")
         self.vocab_size = vocab_size
+        self.dropout_rate = dropout_rate
         # parameters are drawn on the CPU, so one seed gives the same
         # weights on every device
         kw = dict(dtype=dtype)
         self.encoder = TransformerEncoder(
             input_dim, use_rel, enc_dim, enc_ff_dim, enc_attn_heads,
             enc_layers, activation, enc_arch,
-            normalize_before=normalize_before, **kw)
+            normalize_before=normalize_before, dropout_rate=enc_dropout_rate,
+            pos_dropout_rate=enc_pos_dropout_rate,
+            attn_dropout_rate=enc_attn_dropout_rate,
+            ff_dropout_rate=enc_ff_dropout_rate, **kw)
         self.decoder = TransformerDecoder(
             vocab_size, dec_dim, dec_ff_dim, dec_attn_heads, dec_layers,
-            normalize_before, **kw)
+            normalize_before, dec_dropout_rate, dec_pos_dropout_rate,
+            dec_self_attn_dropout_rate, dec_src_attn_dropout_rate,
+            dec_ff_dropout_rate, **kw)
         self.ctc_lo = Dense(enc_dim, vocab_size, **kw)
+        # one CPU generator draws the seeds of every rel-pos attention's
+        # in-kernel dropout (the other dropouts use the device's generator)
+        self.dropout_generator = torch.Generator()
+        for module in self.modules():
+            if isinstance(module, RelativeMultiHeadAttention):
+                module.generator = self.dropout_generator
         self.init_params(generator)
         if device is not None:
             self.to(device)
@@ -123,6 +152,11 @@ class U2(LiteasrModel):
             elif isinstance(module, RelativeMultiHeadAttention):
                 module.reset_pos_bias(generator)
 
+    def seed_dropout(self, seed: int):
+        """Seed the attention kernels' dropout seeds (the other dropouts
+        follow ``torch.manual_seed``)."""
+        self.dropout_generator.manual_seed(seed)
+
     def encode(self, xs, xlens):
         """Encoder forward for decoding. Returns (h_enc, enc_mask (B, T'))."""
         xs_mask = padding_mask(xlens, xs.shape[1])
@@ -136,9 +170,10 @@ class U2(LiteasrModel):
         return self.decoder(ys_in, h_enc, mask=mask, memory_mask=enc_mask,
                             memory_mask_presubsampled=True)
 
-    def forward(self, xs, xlens, ys, ylens):
-        """Eval-mode training forward: (h_attn (B, L+1, V), h_ctc (B, T', V))
-        (liteasr_tpu/models/u2.py:149-172)."""
+    def forward(self, xs, xlens, ys, ylens, train: bool = False):
+        """Training forward: (h_attn (B, L+1, V), h_ctc (B, T', V))
+        (liteasr_tpu/models/u2.py:149-173): ignore -> eos, sos prepended,
+        pad | causal decoder mask, CTC head on the dropped encoder output."""
         B, T = xs.shape[0], xs.shape[1]
         L = ys.shape[1]
         xs_mask = padding_mask(xlens, T)
@@ -146,26 +181,41 @@ class U2(LiteasrModel):
         sos_col = torch.full((B, 1), self.sos, dtype=ys.dtype, device=ys.device)
         ys_in = torch.cat([sos_col, ys_], dim=1)
         ys_mask = padding_mask(ylens + 1, L + 1)
-        h_enc = self.encoder(xs, mask=xs_mask)
+        h_enc = self.encoder(xs, mask=xs_mask, train=train)
         causal = triangle_mask(L + 1, device=ys.device)
         h_attn = self.decoder(ys_in, h_enc, mask=ys_mask[:, None, :] | causal[None],
-                              memory_mask=xs_mask)
-        return h_attn, self.ctc_lo(h_enc)
+                              memory_mask=xs_mask, train=train)
+        return h_attn, self.ctc_lo(dropout(h_enc, self.dropout_rate, train))
+
+    # ---- criterion hooks (liteasr_tpu/models/u2.py:213-225) ----
 
     def get_pred_len(self, xlens):
         return ((xlens - 1) // 2 - 1) // 2
 
+    def get_target(self, ys, ylens):
+        """(attention target (B, L+1): ys with eos at ylen and ignore after,
+        CTC target: ys)."""
+        B = ys.shape[0]
+        ignore_col = torch.full((B, 1), IGNORE, dtype=ys.dtype, device=ys.device)
+        tgt_attn = torch.cat([ys, ignore_col], dim=1)
+        tgt_attn[torch.arange(B, device=ys.device), ylens.long()] = self.eos
+        return tgt_attn, ys
+
     @classmethod
     def build_model(cls, cfg, task=None, device=None, generator=None):
-        """Build from the composed config. Raises on the training-mode and
-        streaming options this package has not ported."""
+        """Build from the composed config. Raises on the streaming and remat
+        options this package has not ported."""
         if task is not None:
             cfg.input_dim = task.feat_dim
             cfg.vocab_size = task.vocab_size
         for key in ("static_chunk_size", "dynamic_chunk"):
             if cfg.get(key):
                 raise NotImplementedError(
-                    f"model.{key}: streaming encoders are not ported yet")
+                    f"model.{key}: streaming encoders are not ported yet "
+                    "(ROADMAP queue item 6)")
+        if cfg.get("remat"):
+            raise NotImplementedError(
+                "model.remat: rematerialized encoder layers are not ported")
         if str(cfg.get("dec_arch", "transformer")) != "transformer":
             raise NotImplementedError(f"dec_arch {cfg.dec_arch!r} is not ported")
         dtype = str(cfg.get("dtype", "float32"))
@@ -186,6 +236,7 @@ class U2(LiteasrModel):
             dec_ff_dim=int(cfg.dec_ff_dim),
             dec_attn_heads=int(cfg.dec_attn_heads),
             dec_layers=int(cfg.dec_layers),
+            **{key: float(cfg.get(key, 0.0)) for key in _DROPOUTS},
             dtype=_DTYPES[dtype],
             device=device,
             generator=generator,

@@ -1,11 +1,21 @@
 """Multi-head attention, absolute and relative-position (Transformer-XL),
 full mode (liteasr_tpu/nets/attention.py).
 
-Every attention goes through :func:`ops.flash_attention.flash_attention`:
-on the card that is the CUDA kernel, on the CPU its plain version. The
-reference's masks keep their shapes at this interface: (B, 1, 1, Tk)
-suffix padding becomes per-row ``kv_lens``; any other mask is a structured
-mask handed to the kernel per batch row (or per head, if it has H heads).
+Eval mode: every attention goes through
+:func:`ops.flash_attention.flash_attention` (K1): on the card that is the
+CUDA kernel, on the CPU its plain version. The reference's masks keep their
+shapes at this interface: (B, 1, 1, Tk) suffix padding becomes per-row
+``kv_lens``; any other mask is a structured mask handed to the kernel per
+batch row (or per head, if it has H heads).
+
+Train mode: rel-pos self-attention with a padding mask (or none) goes
+through K3, :func:`ops.flash_attention.flash_rel_attention_train` (the
+kernels K1' and K2 on the card), with attention dropout from the kernel's
+counter hash seeded from the layer's ``generator``. The absolute-position
+attention of the decoder, like the reference, computes its scores, fp32
+softmax, dropout and context in plain PyTorch (``apply_attention``,
+liteasr_tpu/nets/attention.py:35-44). A train-mode rel-pos attention with
+any other mask (the streaming encoders' chunk masks) raises.
 """
 
 from typing import Optional
@@ -13,18 +23,23 @@ from typing import Optional
 import torch
 from torch import nn
 
-from liteasr_tpu_torch.nets.common import Dense, xavier_uniform_
-from liteasr_tpu_torch.ops.flash_attention import flash_attention
+from liteasr_tpu_torch.nets.common import Dense, dropout, xavier_uniform_
+from liteasr_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_rel_attention_train)
+
+MASK_FILL = -1e38  # the reference's masked score in plain attention
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, n_head: int, *,
-                 dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, d_model: int, n_head: int, dropout_rate: float = 0.0,
+                 *, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         if d_model % n_head:
             raise ValueError(f"d_model {d_model} is not a multiple of {n_head} heads")
         self.n_head = n_head
         self.d_k = d_model // n_head
+        self.dropout_rate = dropout_rate
+        self.compute_dtype = dtype
         self.linear_q = Dense(d_model, d_model, dtype=dtype, device=device)
         self.linear_k = Dense(d_model, d_model, dtype=dtype, device=device)
         self.linear_v = Dense(d_model, d_model, dtype=dtype, device=device)
@@ -64,34 +79,81 @@ class MultiHeadAttention(nn.Module):
         out = out.reshape(B, H, Tq, Dk).transpose(1, 2).reshape(B, Tq, H * Dk)
         return self.linear_o(out)
 
-    def forward(self, query, key, value, mask: Optional[torch.Tensor] = None):
+    def apply_attention(self, scores, v, mask: Optional[torch.Tensor],
+                        train: bool):
+        """scores (B, H, Tq, Tk) fp32, v (B, Tk, H, Dk) -> masked softmax ->
+        dropout -> context -> out proj (liteasr_tpu/nets/attention.py:35-44)."""
+        if mask is not None:
+            scores = scores.masked_fill(mask, MASK_FILL)
+        attn = torch.softmax(scores, dim=-1).to(self.compute_dtype)
+        attn = dropout(attn, self.dropout_rate, train)
+        x = torch.einsum("bhqk,bkhd->bqhd", attn, v.to(self.compute_dtype))
+        return self.linear_o(x.reshape(x.shape[0], x.shape[1], -1))
+
+    def forward(self, query, key, value, mask: Optional[torch.Tensor] = None,
+                train: bool = False):
         q, k, v = self.project_qkv(query, key, value)
-        return self._attend(q, k, v, mask)
+        if not train:
+            return self._attend(q, k, v, mask)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        return self.apply_attention(scores * self.d_k ** -0.5, v, mask, train)
 
 
 class RelativeMultiHeadAttention(MultiHeadAttention):
     """Rel-pos MHA with learnable content/position biases u, v
-    (liteasr_tpu/nets/attention.py:228-381)."""
+    (liteasr_tpu/nets/attention.py:228-381). ``generator`` (CPU) draws the
+    int32 seed of the kernels' dropout hash, one per train-mode call."""
 
-    def __init__(self, d_model: int, n_head: int, *,
-                 dtype: torch.dtype = torch.float32, device=None):
-        super().__init__(d_model, n_head, dtype=dtype, device=device)
+    def __init__(self, d_model: int, n_head: int, dropout_rate: float = 0.0,
+                 *, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(d_model, n_head, dropout_rate, dtype=dtype,
+                         device=device)
         self.linear_pos = Dense(d_model, d_model, bias=False, dtype=dtype,
                                 device=device)
         self.pos_bias_u = nn.Parameter(
             torch.zeros(n_head, self.d_k, device=device))
         self.pos_bias_v = nn.Parameter(
             torch.zeros(n_head, self.d_k, device=device))
+        self.generator = torch.Generator()
 
     def reset_pos_bias(self, generator: Optional[torch.Generator]):
         xavier_uniform_(self.pos_bias_u, generator)
         xavier_uniform_(self.pos_bias_v, generator)
 
+    def _flash_train(self, q_u, q_v, k, v, p, mask):
+        """(B, T, H, Dk) heads -> K3 -> out proj (``_flash_train``,
+        liteasr_tpu/nets/attention.py:248-293). ``mask`` is None or
+        (B, 1, 1, Tk) suffix padding, compressed to per-row lengths."""
+        B, Tq, H, Dk = q_u.shape
+
+        def fold(x):
+            return x.transpose(1, 2).reshape(B * H, -1, Dk)
+
+        kv_lens = None
+        if mask is not None:
+            kv_lens = (~mask[:, 0, 0, :]).sum(dim=-1, dtype=torch.int32)
+            kv_lens = kv_lens.repeat_interleave(H)
+        seed = 0
+        if self.dropout_rate > 0.0:
+            seed = int(torch.randint(-2 ** 31, 2 ** 31, (), generator=self.generator))
+        out = flash_rel_attention_train(
+            fold(q_u), fold(q_v), fold(k), fold(v), p, kv_lens, seed,
+            Dk ** -0.5, self.dropout_rate)
+        out = out.reshape(B, H, Tq, Dk).transpose(1, 2)
+        return self.linear_o(out.to(self.compute_dtype).reshape(B, Tq, H * Dk))
+
     def forward(self, query, key, value, pos_emb,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None, train: bool = False):
         q, k, v = self.project_qkv(query, key, value)
         # pos_emb is (1, T, D), shared across the batch: table (H, T, Dk)
         p = self._heads(self.linear_pos(pos_emb))[0].transpose(0, 1)
         q_u = q + self.pos_bias_u.to(q.dtype)
         q_v = q + self.pos_bias_v.to(q.dtype)
-        return self._attend(q_u, k, v, mask, rel_qv=q_v, rel_p=p.contiguous())
+        if not train:
+            return self._attend(q_u, k, v, mask, rel_qv=q_v,
+                                rel_p=p.contiguous())
+        if mask is not None and mask.shape[1:3] != (1, 1):
+            raise NotImplementedError(
+                "train-mode rel-pos attention with a chunk mask: streaming "
+                "encoders are not ported yet (ROADMAP queue item 6)")
+        return self._flash_train(q_u, q_v, k, v, p.contiguous(), mask)

@@ -1,8 +1,10 @@
-"""LayerNorm(eps=1e-12), swish, FFN, positional encodings
+"""LayerNorm(eps=1e-12), swish, FFN, positional encodings, dropout
 (liteasr_tpu/nets/common.py).
 
 Every layer keeps fp32 parameters and computes in its ``dtype``, casting
 inputs and parameters explicitly where flax's ``dtype=`` promotes them.
+Forwards take ``train`` explicitly, as the reference's do: dropout runs only
+when it is true, and draws from the device's default torch generator.
 """
 
 import math
@@ -52,6 +54,14 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype).to(self.compute_dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
+    """flax ``nn.Dropout(rate, deterministic=not train)``: keep with
+    probability 1 - rate, scale kept values by 1 / (1 - rate)."""
+    if not train or rate == 0.0:
+        return x
+    return F.dropout(x, rate, training=True)
+
+
 def swish(x):
     return x * torch.sigmoid(x)
 
@@ -68,17 +78,20 @@ def get_activation(name: str):
 
 
 class PositionwiseFeedForward(nn.Module):
-    """fc1 -> act -> fc2 (dropout is a training-mode op; not ported)."""
+    """fc1 -> act -> dropout -> fc2 (liteasr_tpu/nets/common.py:62-76)."""
 
-    def __init__(self, d: int, h_units: int, activation: str = "relu", *,
+    def __init__(self, d: int, h_units: int, activation: str = "relu",
+                 dropout_rate: float = 0.0, *,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.fc1 = Dense(d, h_units, dtype=dtype, device=device)
         self.fc2 = Dense(h_units, d, dtype=dtype, device=device)
         self.act = get_activation(activation)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x):
-        return self.fc2(self.act(self.fc1(x)))
+    def forward(self, x, train: bool = False):
+        x = dropout(self.act(self.fc1(x)), self.dropout_rate, train)
+        return self.fc2(x)
 
 
 def sinusoidal_pe(length: int, dim: int, dtype=torch.float32,
@@ -94,17 +107,24 @@ def sinusoidal_pe(length: int, dim: int, dtype=torch.float32,
     return pe.reshape(length, dim)[None].to(dtype)
 
 
-def positional_encoding(x: torch.Tensor) -> torch.Tensor:
-    """x * sqrt(d) + PE (PositionalEncoding in eval mode)."""
+def positional_encoding(x: torch.Tensor, dropout_rate: float = 0.0,
+                        train: bool = False) -> torch.Tensor:
+    """x * sqrt(d) + PE, then dropout (PositionalEncoding,
+    liteasr_tpu/nets/common.py:102-112)."""
     d = x.shape[-1]
-    return x * math.sqrt(d) + sinusoidal_pe(x.shape[1], d, x.dtype, x.device)
+    x = x * math.sqrt(d) + sinusoidal_pe(x.shape[1], d, x.dtype, x.device)
+    return dropout(x, dropout_rate, train)
 
 
 def relative_positional_encoding(
-        x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(x * sqrt(d), pos_emb) (RelativePositionalEncoding in eval mode)."""
+        x: torch.Tensor, dropout_rate: float = 0.0,
+        train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x * sqrt(d), pos_emb), both dropped (RelativePositionalEncoding,
+    liteasr_tpu/nets/common.py:115-127)."""
     d = x.shape[-1]
-    return x * math.sqrt(d), sinusoidal_pe(x.shape[1], d, x.dtype, x.device)
+    pos_emb = sinusoidal_pe(x.shape[1], d, x.dtype, x.device)
+    return (dropout(x * math.sqrt(d), dropout_rate, train),
+            dropout(pos_emb, dropout_rate, train))
 
 
 def xavier_uniform_(t: torch.Tensor, generator: Optional[torch.Generator]):

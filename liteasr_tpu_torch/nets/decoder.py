@@ -17,30 +17,38 @@ from liteasr_tpu_torch.nets.layers import DecoderLayer
 
 class TransformerDecoder(nn.Module):
     def __init__(self, vocab_size: int, h_dim: int, ff_dim: int, n_head: int,
-                 n_layer: int, normalize_before: bool = True, *,
+                 n_layer: int, normalize_before: bool = True,
+                 dropout_rate: float = 0.0, pos_dropout_rate: float = 0.0,
+                 self_attn_dropout_rate: float = 0.0,
+                 src_attn_dropout_rate: float = 0.0,
+                 ff_dropout_rate: float = 0.0, *,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.compute_dtype = dtype
         self.n_layer = n_layer
+        self.pos_dropout_rate = pos_dropout_rate
         self.embed = nn.Embedding(vocab_size, h_dim, device=device,
                                   dtype=torch.float32)
         for i in range(n_layer):
             self.add_module(f"layer_{i}", DecoderLayer(
-                h_dim, n_head, ff_dim, normalize_before, **kw))
+                h_dim, n_head, ff_dim, normalize_before, dropout_rate,
+                self_attn_dropout_rate, src_attn_dropout_rate,
+                ff_dropout_rate, **kw))
         self.after_norm = LayerNorm(h_dim, **kw)
         self.linear_out = Dense(h_dim, vocab_size, **kw)
 
     def forward(self, y, memory, mask: Optional[torch.Tensor] = None,
                 memory_mask: Optional[torch.Tensor] = None,
-                memory_mask_presubsampled: bool = False):
+                memory_mask_presubsampled: bool = False, train: bool = False):
         """:param y: (B, L) token ids; ``memory``: (B, T', D)
         :param mask: (B, L, L) self-attention mask (True = masked)
         :param memory_mask: (B, T) padding mask, subsampled here — or
             already (B, T') if ``memory_mask_presubsampled``
         """
         dt = self.compute_dtype
-        y = positional_encoding(F.embedding(y, self.embed.weight.to(dt)))
+        y = positional_encoding(F.embedding(y, self.embed.weight.to(dt)),
+                                self.pos_dropout_rate, train)
         if mask is not None:
             mask = mask[:, None, :, :]  # (B, 1, L, L)
         if memory_mask is not None:
@@ -48,5 +56,6 @@ class TransformerDecoder(nn.Module):
                 memory_mask = subsample_mask(memory_mask)
             memory_mask = memory_mask[:, None, None, :]  # (B, 1, 1, T')
         for i in range(self.n_layer):
-            y = getattr(self, f"layer_{i}")(y, memory, mask, memory_mask)
+            y = getattr(self, f"layer_{i}")(y, memory, mask, memory_mask,
+                                            train)
         return self.linear_out(self.after_norm(y))

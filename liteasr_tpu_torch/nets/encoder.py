@@ -26,37 +26,44 @@ class TransformerEncoder(nn.Module):
     def __init__(self, input_dim: int, use_rel: bool, h_dim: int, ff_dim: int,
                  n_head: int, n_layer: int, activation: str = "swish",
                  arch: str = "conformer", conv_kernel: int = 15,
-                 normalize_before: bool = True, *,
+                 normalize_before: bool = True, dropout_rate: float = 0.0,
+                 pos_dropout_rate: float = 0.0, attn_dropout_rate: float = 0.0,
+                 ff_dropout_rate: float = 0.0, *,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         if arch not in ("conformer", "transformer"):
             raise ValueError(f"unknown encoder arch {arch!r}")
         kw = dict(dtype=dtype, device=device)
+        rates = (dropout_rate, attn_dropout_rate, ff_dropout_rate)
         self.use_rel = use_rel
         self.n_layer = n_layer
+        self.pos_dropout_rate = pos_dropout_rate
         self.embed = Conv2DSubsampling(input_dim, h_dim, **kw)
         for i in range(n_layer):
             if arch == "conformer":
                 layer = ConformerLayer(h_dim, n_head, ff_dim, conv_kernel,
                                        activation, use_rel, normalize_before,
-                                       **kw)
+                                       *rates, **kw)
             else:
                 layer = EncoderLayer(h_dim, n_head, ff_dim, activation,
-                                     use_rel, normalize_before, **kw)
+                                     use_rel, normalize_before, *rates, **kw)
             self.add_module(f"layer_{i}", layer)
         self.after_norm = LayerNorm(h_dim, **kw)
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None):
+    def forward(self, x, mask: Optional[torch.Tensor] = None,
+                train: bool = False):
         """:param x: (B, T, F); ``mask``: (B, T) True = padding.
         Returns (B, T', h_dim)."""
         x = self.embed(x)
         if self.use_rel:
-            x, pos_emb = relative_positional_encoding(x)
+            x, pos_emb = relative_positional_encoding(
+                x, self.pos_dropout_rate, train)
         else:
-            x, pos_emb = positional_encoding(x), None
+            x, pos_emb = positional_encoding(x, self.pos_dropout_rate,
+                                             train), None
         attn_mask = None
         if mask is not None:
             attn_mask = subsample_mask(mask)[:, None, None, :]  # (B, 1, 1, T')
         for i in range(self.n_layer):
-            x = getattr(self, f"layer_{i}")(x, pos_emb, attn_mask)
+            x = getattr(self, f"layer_{i}")(x, pos_emb, attn_mask, train)
         return self.after_norm(x)

@@ -1,8 +1,8 @@
-"""Transformer / Conformer residual sublayers in eval mode
-(liteasr_tpu/nets/layers.py).
+"""Transformer / Conformer residual sublayers (liteasr_tpu/nets/layers.py).
 
-``normalize_before=True``: ``x + sublayer(LN(x))``; False:
-``LN(x + sublayer(x))``. Dropout is a training-mode op and is not ported.
+``normalize_before=True``: ``x + drop(sublayer(LN(x)))``; False:
+``LN(x + drop(sublayer(x)))``. ``train`` turns on the dropouts and the
+batch statistics of the conformer's BatchNorm.
 """
 
 from typing import Optional
@@ -14,13 +14,21 @@ from torch import nn
 from liteasr_tpu_torch.nets.attention import (
     MultiHeadAttention, RelativeMultiHeadAttention)
 from liteasr_tpu_torch.nets.common import (
-    Dense, LayerNorm, PositionwiseFeedForward, get_activation)
+    Dense, LayerNorm, PositionwiseFeedForward, dropout, get_activation)
+from liteasr_tpu_torch.ops.batch_norm import train_batch_norm
 
 
-class BatchNormEval(nn.Module):
-    """BatchNorm from the running statistics, in fp32, eps 1e-5
-    (liteasr_tpu/nets/layers.py:43-47). Parameters and buffers match the
-    flax variables one to one: scale/bias, batch_stats mean/var."""
+class BatchNorm(nn.Module):
+    """``FusedBatchNorm`` (liteasr_tpu/nets/layers.py:22-53), eps 1e-5.
+
+    Eval: the running statistics, in fp32. Train: the batch statistics over
+    all B x T frames (biased variance, closed-form backward,
+    ops/batch_norm.py) and the running update ``0.99 old + 0.01 batch``
+    with that same biased variance (torch's BatchNorm1d would fold in the
+    unbiased one). Parameters and buffers match the flax variables one to
+    one: scale/bias, batch_stats mean/var."""
+
+    momentum = 0.99
 
     def __init__(self, channels: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -30,7 +38,14 @@ class BatchNormEval(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels, device=device))
         self.register_buffer("running_var", torch.ones(channels, device=device))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        if train:
+            y, mean, var = train_batch_norm(x, self.weight, self.bias, self.eps)
+            m = self.momentum
+            with torch.no_grad():  # in place, like flax's mutable batch_stats
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            return y
         y = ((x.float() - self.running_mean)
              * torch.rsqrt(self.running_var + self.eps) * self.weight + self.bias)
         return y.to(x.dtype)
@@ -52,27 +67,28 @@ class ConformerConvolution(nn.Module):
         self.depthwise_conv = nn.Conv1d(
             channels, channels, kernel_size, padding=(kernel_size - 1) // 2,
             groups=channels, device=device, dtype=torch.float32)
-        self.norm = BatchNormEval(channels, device=device)
+        self.norm = BatchNorm(channels, device=device)
         self.act = get_activation(activation)
         self.pointwise_conv2 = Dense(channels, channels, dtype=dtype,
                                      device=device)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         dt = self.compute_dtype
         x = F.glu(self.pointwise_conv1(x), dim=-1)
         x = F.conv1d(x.transpose(1, 2), self.depthwise_conv.weight.to(dt),
                      self.depthwise_conv.bias.to(dt),
                      padding=self.depthwise_conv.padding,
                      groups=self.depthwise_conv.groups).transpose(1, 2)
-        x = self.norm(x)
+        x = self.norm(x, train)
         return self.pointwise_conv2(self.act(x.to(dt)))
 
 
-def _residual(x, norm, fn, pre_ln: bool, scale: float = 1.0):
-    """One residual sublayer under either LN placement
-    (liteasr_tpu/nets/layers.py:110-114)."""
+def _residual(x, norm, fn, pre_ln: bool, rate: float, train: bool,
+              scale: float = 1.0):
+    """One residual sublayer under either LN placement, with the residual
+    dropout (liteasr_tpu/nets/layers.py:110-114)."""
     y = fn(norm(x) if pre_ln else x)
-    x = x + scale * y
+    x = x + scale * dropout(y, rate, train)
     return x if pre_ln else norm(x)
 
 
@@ -81,28 +97,36 @@ class EncoderLayer(nn.Module):
 
     def __init__(self, d: int, n_head: int, ff_dim: int,
                  activation: str = "relu", use_rel: bool = False,
-                 normalize_before: bool = True, *,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 normalize_before: bool = True, dropout_rate: float = 0.0,
+                 attn_dropout_rate: float = 0.0, ff_dropout_rate: float = 0.0,
+                 *, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.use_rel = use_rel
         self.pre = normalize_before
+        self.dropout_rate = dropout_rate
         attn_cls = RelativeMultiHeadAttention if use_rel else MultiHeadAttention
         self.self_attn_norm = LayerNorm(d, **kw)
-        self.self_attn = attn_cls(d, n_head, **kw)
+        self.self_attn = attn_cls(d, n_head, attn_dropout_rate, **kw)
         self.feed_forward_norm = LayerNorm(d, **kw)
-        self.feed_forward = PositionwiseFeedForward(d, ff_dim, activation, **kw)
+        self.feed_forward = PositionwiseFeedForward(d, ff_dim, activation,
+                                                    ff_dropout_rate, **kw)
 
-    def _attn(self, y, pos_emb, mask):
+    def _attn(self, y, pos_emb, mask, train):
         if self.use_rel:
-            return self.self_attn(y, y, y, pos_emb, mask)
-        return self.self_attn(y, y, y, mask)
+            return self.self_attn(y, y, y, pos_emb, mask, train)
+        return self.self_attn(y, y, y, mask, train)
 
-    def forward(self, x, pos_emb=None, mask: Optional[torch.Tensor] = None):
-        x = _residual(x, self.self_attn_norm,
-                      lambda y: self._attn(y, pos_emb, mask), self.pre)
-        return _residual(x, self.feed_forward_norm, self.feed_forward,
-                         self.pre)
+    def _res(self, x, norm, fn, train, scale=1.0):
+        return _residual(x, norm, fn, self.pre, self.dropout_rate, train,
+                         scale)
+
+    def forward(self, x, pos_emb=None, mask: Optional[torch.Tensor] = None,
+                train: bool = False):
+        x = self._res(x, self.self_attn_norm,
+                      lambda y: self._attn(y, pos_emb, mask, train), train)
+        return self._res(x, self.feed_forward_norm,
+                         lambda y: self.feed_forward(y, train), train)
 
 
 class ConformerLayer(EncoderLayer):
@@ -111,27 +135,31 @@ class ConformerLayer(EncoderLayer):
 
     def __init__(self, d: int, n_head: int, ff_dim: int,
                  conv_kernel: int = 15, activation: str = "swish",
-                 use_rel: bool = True, normalize_before: bool = True, *,
+                 use_rel: bool = True, normalize_before: bool = True,
+                 dropout_rate: float = 0.0, attn_dropout_rate: float = 0.0,
+                 ff_dropout_rate: float = 0.0, *,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__(d, n_head, ff_dim, activation, use_rel,
-                         normalize_before, dtype=dtype, device=device)
+                         normalize_before, dropout_rate, attn_dropout_rate,
+                         ff_dropout_rate, dtype=dtype, device=device)
         kw = dict(dtype=dtype, device=device)
         self.feed_forward_macaron_norm = LayerNorm(d, **kw)
         self.feed_forward_macaron = PositionwiseFeedForward(
-            d, ff_dim, activation, **kw)
+            d, ff_dim, activation, ff_dropout_rate, **kw)
         self.conv_norm = LayerNorm(d, **kw)
         self.conv = ConformerConvolution(d, conv_kernel, activation, **kw)
         self.final_norm = LayerNorm(d, **kw)
 
-    def forward(self, x, pos_emb=None, mask: Optional[torch.Tensor] = None):
-        pre = self.pre
-        x = _residual(x, self.feed_forward_macaron_norm,
-                      self.feed_forward_macaron, pre, scale=0.5)
-        x = _residual(x, self.self_attn_norm,
-                      lambda y: self._attn(y, pos_emb, mask), pre)
-        x = _residual(x, self.conv_norm, self.conv, pre)
-        x = _residual(x, self.feed_forward_norm, self.feed_forward, pre,
+    def forward(self, x, pos_emb=None, mask: Optional[torch.Tensor] = None,
+                train: bool = False):
+        x = self._res(x, self.feed_forward_macaron_norm,
+                      lambda y: self.feed_forward_macaron(y, train), train,
                       scale=0.5)
+        x = self._res(x, self.self_attn_norm,
+                      lambda y: self._attn(y, pos_emb, mask, train), train)
+        x = self._res(x, self.conv_norm, lambda y: self.conv(y, train), train)
+        x = self._res(x, self.feed_forward_norm,
+                      lambda y: self.feed_forward(y, train), train, scale=0.5)
         return self.final_norm(x)
 
 
@@ -139,23 +167,34 @@ class DecoderLayer(nn.Module):
     """Self-attn + src-attn + FF, full mode."""
 
     def __init__(self, d: int, n_head: int, ff_dim: int,
-                 normalize_before: bool = True, *,
+                 normalize_before: bool = True, dropout_rate: float = 0.0,
+                 self_attn_dropout_rate: float = 0.0,
+                 src_attn_dropout_rate: float = 0.0,
+                 ff_dropout_rate: float = 0.0, *,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.pre = normalize_before
+        self.dropout_rate = dropout_rate
         self.self_attn_norm = LayerNorm(d, **kw)
-        self.self_attn = MultiHeadAttention(d, n_head, **kw)
+        self.self_attn = MultiHeadAttention(d, n_head, self_attn_dropout_rate,
+                                            **kw)
         self.src_attn_norm = LayerNorm(d, **kw)
-        self.src_attn = MultiHeadAttention(d, n_head, **kw)
+        self.src_attn = MultiHeadAttention(d, n_head, src_attn_dropout_rate,
+                                           **kw)
         self.feed_forward_norm = LayerNorm(d, **kw)
-        self.feed_forward = PositionwiseFeedForward(d, ff_dim, **kw)
+        self.feed_forward = PositionwiseFeedForward(
+            d, ff_dim, dropout_rate=ff_dropout_rate, **kw)
 
-    def forward(self, y, memory, mask=None, memory_mask=None):
+    def forward(self, y, memory, mask=None, memory_mask=None,
+                train: bool = False):
+        rate, pre = self.dropout_rate, self.pre
         y = _residual(y, self.self_attn_norm,
-                      lambda z: self.self_attn(z, z, z, mask), self.pre)
+                      lambda z: self.self_attn(z, z, z, mask, train), pre,
+                      rate, train)
         y = _residual(y, self.src_attn_norm,
-                      lambda z: self.src_attn(z, memory, memory, memory_mask),
-                      self.pre)
-        return _residual(y, self.feed_forward_norm, self.feed_forward,
-                         self.pre)
+                      lambda z: self.src_attn(z, memory, memory, memory_mask,
+                                              train), pre, rate, train)
+        return _residual(y, self.feed_forward_norm,
+                         lambda z: self.feed_forward(z, train), pre, rate,
+                         train)

@@ -4,7 +4,8 @@
 The reference convolves channel-last, (B, T, F, 1), and flattens
 (B, T', F', C) with F' major. torch convolves channel-first, so the
 (B, C, T', F') output is permuted to (B, T', F', C) before the flatten;
-otherwise ``out`` would see its input columns permuted.
+otherwise ``out`` would see its input columns permuted. The reference's
+``dropout_rate`` field is never applied, so the train forward is this one.
 """
 
 import torch

@@ -1,31 +1,40 @@
-"""Fused attention forward with the in-kernel rel-pos term: the CUDA port
-of the Pallas kernel ``liteasr_tpu/ops/flash_attention.py:_attn_kernel``
-(wrapper ``flash_attention``, helpers ``_bd_full`` and ``_row_roll_left``).
+"""Fused rel-pos attention, forward and backward: the CUDA port of the Pallas
+kernels in ``liteasr_tpu/ops/flash_attention.py``.
 
-It computes, for each folded (batch x head) row ``bh``,
+K1 / K1' (``flash_attention``, CUDA source ``csrc/rel_attention_fwd.cu``)
+replace ``_attn_kernel``. For each folded (batch x head) row ``bh`` it
+computes
 
     S = (Q K^T + relshift(Q_v P^T)) * scale
     S[mask] = S[key >= kv_len] = NEG_INF
-    out = softmax(S) V
+    out = dropout(softmax(S)) V          (+ lse = logsumexp(S) per row)
 
 where ``relshift`` is the legacy Transformer-XL alignment of
 ``liteasr_tpu/nets/attention.py:191-202`` read from the compact (Tk, D)
 position table: for key j <= t it reads R[t, Tk-1-t+j], at j == t+1 it
 gives 0, and for j > t+1 it reads R[t+1, j-t-2] (the next query's row).
+The training options (K1') add the per-row lse and attention-probability
+dropout with the TPU kernel's counter hash (``_dropout_keep`` :149), so the
+keep mask is the same bit for bit; the normalizer sums the undropped mass
+and ``out /= 1 - rate``.
 
-On the card, ``csrc/rel_attention_fwd.cu`` does this in one pass per
-64-row query tile: the (Tq, Tk) score matrix never reaches device memory,
-which is what the TPU kernel was written for. What bounds it on the H100:
-a block reads each K, V and position-table row once per 64 queries, so
-device-memory traffic is small and the dot products bound it. This first
-version computes them with fp32 FMAs from shared memory, not on the tensor
-cores, so it is bound by shared-memory loads and FMA issue; the rel-pos
-term reuses the same register blocking (a thread's 4x4 scores share 7
-diagonals of the position window). ``wgmma``/TMA tiles are the next step.
+K2 (``flash_rel_attention_bwd``, CUDA source ``csrc/rel_attention_bwd.cu``)
+replaces ``_bwd_kernel``: A = exp(S - lse) (0 for masked keys and dead
+rows), dV = A_v^T dO, dS = A (dP_eff - rowsum(dO O)) scale, dK = dS^T Q_u,
+dQ_u = dS K, dR = relshift^-1(dS), dQ_v = dR P, dP = dR^T Q_v summed over
+the batch. K3 (``flash_rel_attention_train``) is the custom VJP joining
+them (``flash_rel_attention_train`` :469), a ``torch.autograd.Function``.
 
-The plain PyTorch version (``flash_attention_plain``) computes the same
-function with einsums and ``rel_shift``. The wrapper takes it only for CPU
-tensors; a CUDA tensor launches the kernel or raises.
+On the card each kernel works on 64-row query tiles so the (Tq, Tk) score
+matrix never reaches device memory, which is what the TPU kernels were
+written for. These first versions compute their dot products with fp32
+FMAs from shared memory, not on the tensor cores, so they are bound by
+shared-memory loads and FMA issue; ``wgmma``/TMA tiles are later work.
+
+Beside each kernel is its plain PyTorch version (``flash_attention_plain``,
+``flash_rel_attention_bwd_plain``, ``dropout_keep_plain``). The wrappers
+take them only for CPU tensors; a CUDA tensor launches the kernel or
+raises.
 """
 
 import ctypes
@@ -35,21 +44,28 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
+# the TPU kernel's default tiles (liteasr_tpu/ops/flash_attention.py:34-35):
+# the dropout hash is keyed by (tile, row and column inside the tile)
+HASH_TQ = 128
+HASH_TK = 128
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "rel_attention_fwd.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = {"rel_attention_fwd": _CSRC / "rel_attention_fwd.cu",
+           "rel_attention_bwd": _CSRC / "rel_attention_bwd.cu"}
 # build output lives beside the package, in the repository's build/ tree
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "liteasr_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LIB: Optional[ctypes.CDLL] = None
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_MASK32 = 0xFFFFFFFF
 
 
 def rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -62,20 +78,91 @@ def rel_shift(x: torch.Tensor) -> torch.Tensor:
     return x_padded[..., 1:, :].reshape(*lead, t1, t2)
 
 
+def rel_shift_adjoint(d: torch.Tensor) -> torch.Tensor:
+    """Adjoint of :func:`rel_shift`: the same reshapes in reverse, with the
+    dropped row and the padded column as the zero and the cut. dR[t, Tk-1-t+j]
+    gets dS[t, j] for j <= t and dR[t+1, j-t-2] gets it for j > t+1
+    (``_dbd_to_dR``, liteasr_tpu/ops/flash_attention.py:123-146)."""
+    *lead, t1, t2 = d.shape
+    d = d.reshape(*lead, t2, t1)
+    d = torch.cat([d.new_zeros(*lead, 1, t1), d], dim=-2)
+    return d.reshape(*lead, t1, t2 + 1)[..., 1:]
+
+
 def _group_rows(bh: int, n: int, what: str) -> int:
     if n <= 0 or bh % n:
         raise ValueError(f"{what} has {n} rows, which do not divide BH={bh}")
     return bh // n
 
 
-def flash_attention_plain(q, k, v, mask=None, kv_lens=None, rel_qv=None,
-                          rel_p=None, scale: float = 1.0):
-    """Plain PyTorch version of the kernel: fp32 scores and softmax.
+def hash_tiles(tq: int, tk: int):
+    """The TPU kernel's (tq_eff, tk_eff) for these lengths
+    (liteasr_tpu/ops/flash_attention.py:318-319)."""
+    return min(HASH_TQ, -(-tq // 8) * 8), min(HASH_TK, -(-tk // 128) * 128)
 
-    Same arguments as :func:`flash_attention`; follows
-    ``_ref_rel_attention`` (liteasr_tpu/ops/flash_attention.py:450-466)
-    plus the mask input.
-    """
+
+def keep_threshold(rate: float) -> int:
+    """uint32 threshold of the keep test ``u < thr``, clamped (not wrapped)
+    at 2**32 - 1 (liteasr_tpu/ops/flash_attention.py:169-173)."""
+    if rate <= 0.0:
+        return _MASK32
+    return min(int(round((1.0 - rate) * 4294967296.0)), _MASK32)
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2**32 for int64 ``a`` in [0, 2**32): the product is split
+    at 16 bits so that no intermediate leaves int64's positive range."""
+    lo = a & 0xFFFF
+    hi = a >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _MASK32
+
+
+def _murmur_keep(rows, cols, tile, rate):
+    u = (_mul32(rows, 0x9E3779B1) + _mul32(cols, 0x85EBCA77)
+         + _mul32(tile, 0xC2B2AE3D)) & _MASK32
+    u = u ^ (u >> 16)
+    u = _mul32(u, 0x7FEB352D)
+    u = u ^ (u >> 15)
+    u = _mul32(u, 0x846CA68B)
+    u = u ^ (u >> 16)
+    return u < keep_threshold(rate)
+
+
+def _tile_id(b, qi, kj, seed: int):
+    tile = (_mul32(b, 65537) + qi) & _MASK32
+    tile = (_mul32(tile, 8191) + kj) & _MASK32
+    return (_mul32(tile, 131071) + (int(seed) & _MASK32)) & _MASK32
+
+
+def dropout_keep_plain(tq: int, tk: int, b: int, qi: int, kj: int, seed: int,
+                       rate: float) -> torch.Tensor:
+    """Torch port of ``_dropout_keep`` (liteasr_tpu/ops/flash_attention.py
+    :149-174): the (tq, tk) keep mask of one (batch-head, q-tile, k-tile),
+    a murmur3 finalizer over uint32 row/column/tile ids, kept in int64 and
+    masked to 32 bits after every multiply and add."""
+    rows = torch.arange(tq, dtype=torch.int64)[:, None].expand(tq, tk)
+    cols = torch.arange(tk, dtype=torch.int64)[None, :].expand(tq, tk)
+    tile = _tile_id(torch.tensor(b, dtype=torch.int64),
+                    torch.tensor(qi, dtype=torch.int64),
+                    torch.tensor(kj, dtype=torch.int64), seed)
+    return _murmur_keep(rows, cols, tile, rate)
+
+
+def dropout_keep_global(bh: int, t_q: int, t_k: int, seed: int, rate: float,
+                        device=None) -> torch.Tensor:
+    """(BH, Tq, Tk) keep mask of the whole call, with the TPU kernel's tile
+    coordinates: query t is row t % tq_eff of q-tile t // tq_eff, key j is
+    column j % tk_eff of k-tile j // tk_eff, and ``b`` is the folded row."""
+    tqe, tke = hash_tiles(t_q, t_k)
+    t = torch.arange(t_q, dtype=torch.int64, device=device)[None, :, None]
+    j = torch.arange(t_k, dtype=torch.int64, device=device)[None, None, :]
+    b = torch.arange(bh, dtype=torch.int64, device=device)[:, None, None]
+    tile = _tile_id(b, t // tqe, j // tke, seed)
+    return _murmur_keep(t % tqe, j % tke, tile, rate)
+
+
+def _scores_plain(q, k, mask, kv_lens, rel_qv, rel_p, scale):
+    """fp32 (BH, Tq, Tk) masked scores."""
     bh = q.shape[0]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
     if rel_qv is not None:
@@ -89,13 +176,39 @@ def flash_attention_plain(q, k, v, mask=None, kv_lens=None, rel_qv=None,
     if kv_lens is not None:
         j = torch.arange(s.shape[-1], device=s.device)
         s = s.masked_fill(j[None, None, :] >= kv_lens[:, None, None], NEG_INF)
+    return s
+
+
+def flash_attention_plain(q, k, v, mask=None, kv_lens=None, rel_qv=None,
+                          rel_p=None, scale: float = 1.0,
+                          return_lse: bool = False, dropout_rate: float = 0.0,
+                          dropout_seed: int = 0):
+    """Plain PyTorch version of the kernel: fp32 scores and softmax.
+
+    Same arguments as :func:`flash_attention`; follows
+    ``_ref_rel_attention`` (liteasr_tpu/ops/flash_attention.py:450-466)
+    plus the mask input, the per-row lse and the dropout of ``_attn_kernel``.
+    """
+    s = _scores_plain(q, k, mask, kv_lens, rel_qv, rel_p, scale)
     attn = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", attn, v.float()).to(q.dtype)
+    if dropout_rate > 0.0:
+        keep = dropout_keep_global(q.shape[0], q.shape[1], k.shape[1],
+                                   dropout_seed, dropout_rate, q.device)
+        attn = torch.where(keep, attn, 0.0)
+    out = torch.einsum("bqk,bkd->bqd", attn, v.float())
+    if dropout_rate > 0.0:
+        out = out / (1.0 - dropout_rate)
+    out = out.to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1)
+    return out, torch.where(lse <= NEG_INF / 2, NEG_INF, lse)
 
 
 def flash_attention(q, k, v, mask=None, kv_lens=None, rel_qv=None,
-                    rel_p=None, scale: float = 1.0):
-    """Fused attention forward.
+                    rel_p=None, scale: float = 1.0, return_lse: bool = False,
+                    dropout_rate: float = 0.0, dropout_seed: int = 0):
+    """Fused attention forward (K1; K1' with ``return_lse``/dropout).
 
     :param q: (BH, Tq, D); ``k``/``v``: (BH, Tk, D); float32 or bfloat16
     :param mask: optional (M, Tq, Tk) bool, True = masked; row ``bh`` reads
@@ -107,22 +220,142 @@ def flash_attention(q, k, v, mask=None, kv_lens=None, rel_qv=None,
     :param rel_p: (P, Tk, D) compact position table; row ``bh`` reads
         ``rel_p[bh % P]`` (P = H shares it across the batch). Needs
         Tq == Tk.
-    :return: (BH, Tq, D) in q's dtype
+    :param return_lse: also return the (BH, Tq) fp32 per-row logsumexp of
+        the masked scores, NEG_INF for a row with no key
+    :param dropout_rate: attention-probability dropout with the TPU
+        kernel's counter hash, keyed by ``dropout_seed`` (an int32)
+    :return: (BH, Tq, D) in q's dtype [, lse]
 
     A CPU tensor takes :func:`flash_attention_plain`; a CUDA tensor launches
-    the kernel (``flash_attention.launches`` counts those launches).
+    the kernel. ``flash_attention.launches`` counts those launches and
+    ``flash_attention.lse_launches`` the ones with ``return_lse`` (K1').
     """
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"flash_attention: dropout_rate {dropout_rate} not in [0, 1)")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask, kv_lens, rel_qv, rel_p,
-                                     scale)
+                                     scale, return_lse, dropout_rate,
+                                     dropout_seed)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    out = _launch(q, k, v, mask, kv_lens, rel_qv, rel_p, scale)
+    out, lse = _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale,
+                           return_lse, dropout_rate, dropout_seed)
     flash_attention.launches += 1
+    if return_lse:
+        flash_attention.lse_launches += 1
+        return out, lse
     return out
 
 
 flash_attention.launches = 0
+flash_attention.lse_launches = 0
+
+
+def flash_rel_attention_bwd_plain(q_u, qv, k, v, p, kv_lens, out, lse, dout,
+                                  scale: float, dropout_rate: float = 0.0,
+                                  dropout_seed: int = 0):
+    """Plain PyTorch version of K2: the closed form of ``_bwd_kernel``
+    (liteasr_tpu/ops/flash_attention.py:566-680) on the full (Tq, Tk) score
+    matrix. Inputs as :func:`flash_rel_attention_bwd`; returns fp32
+    (dq_u, dqv, dk, dv, dp)."""
+    bh = q_u.shape[0]
+    s = _scores_plain(q_u, k, None, kv_lens, qv, p, scale)
+    lse = lse.float()[:, :, None]
+    dead = lse <= NEG_INF / 2
+    a = torch.where(dead | (s <= NEG_INF / 2), 0.0,
+                    torch.exp(s - torch.where(dead, 0.0, lse)))
+    dout = dout.float()
+    vf = v.float()
+    dp_ = torch.einsum("bqd,bkd->bqk", dout, vf)
+    if dropout_rate > 0.0:
+        keep = dropout_keep_global(bh, q_u.shape[1], k.shape[1], dropout_seed,
+                                   dropout_rate, q_u.device)
+        inv_keep = 1.0 / (1.0 - dropout_rate)
+        a_v = torch.where(keep, a, 0.0) * inv_keep
+        dp_ = torch.where(keep, dp_, 0.0) * inv_keep
+    else:
+        a_v = a
+    dvec = (dout * out.float()).sum(-1, keepdim=True)
+    ds = a * (dp_ - dvec) * scale
+    dv = torch.einsum("bqk,bqd->bkd", a_v, dout)
+    dk = torch.einsum("bqk,bqd->bkd", ds, q_u.float())
+    dq_u = torch.einsum("bqk,bkd->bqd", ds, k.float())
+    dr = rel_shift_adjoint(ds)
+    p_rows = p.shape[0]
+    p_rep = p.float().repeat(_group_rows(bh, p_rows, "p"), 1, 1)
+    dqv = torch.einsum("bqk,bkd->bqd", dr, p_rep)
+    dp = torch.einsum("bqk,bqd->bkd", dr, qv.float())
+    dp = dp.reshape(bh // p_rows, p_rows, *dp.shape[1:]).sum(0)
+    return dq_u, dqv, dk, dv, dp
+
+
+def flash_rel_attention_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout,
+                            scale: float, dropout_rate: float = 0.0,
+                            dropout_seed: int = 0):
+    """K2: gradients of the rel-pos attention forward.
+
+    :param q_u, qv: (BH, T, D); ``k``/``v``: (BH, T, D); ``p``: (P, T, D)
+        shared as in :func:`flash_attention`; all float32 or bfloat16
+    :param kv_lens: (BH,) int32 or None
+    :param out: the forward's output as returned, in fp32 (BH, T, D)
+    :param lse: the forward's (BH, T) fp32 lse
+    :param dout: (BH, T, D) fp32 cotangent of ``out``
+    :return: fp32 (dq_u, dqv, dk, dv, dp), dp summed over the batch rows
+
+    A CPU tensor takes :func:`flash_rel_attention_bwd_plain`; a CUDA tensor
+    launches the kernel (``flash_rel_attention_bwd.launches`` counts them).
+    """
+    if q_u.device.type == "cpu":
+        return flash_rel_attention_bwd_plain(
+            q_u, qv, k, v, p, kv_lens, out, lse, dout, scale, dropout_rate,
+            dropout_seed)
+    if q_u.device.type != "cuda":
+        raise ValueError(f"flash_rel_attention_bwd: unsupported device {q_u.device}")
+    grads = _launch_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout, scale,
+                        dropout_rate, dropout_seed)
+    flash_rel_attention_bwd.launches += 1
+    return grads
+
+
+flash_rel_attention_bwd.launches = 0
+
+
+class FlashRelAttentionTrain(torch.autograd.Function):
+    """K3: differentiable fused rel-pos attention (the custom VJP
+    ``flash_rel_attention_train``, liteasr_tpu/ops/flash_attention.py
+    :469-522). Forward = K1' with lse and dropout, returned in fp32;
+    backward = K2 with the regenerated keep mask, grads in the inputs'
+    dtypes."""
+
+    @staticmethod
+    def forward(ctx, q_u, qv, k, v, p, kv_lens, seed: int, scale: float,
+                dropout_rate: float):
+        out, lse = flash_attention(
+            q_u, k, v, kv_lens=kv_lens, rel_qv=qv, rel_p=p, scale=scale,
+            return_lse=True, dropout_rate=dropout_rate, dropout_seed=seed)
+        out = out.float()
+        ctx.save_for_backward(q_u, qv, k, v, p, kv_lens, out, lse)
+        ctx.seed, ctx.scale, ctx.rate = seed, scale, dropout_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q_u, qv, k, v, p, kv_lens, out, lse = ctx.saved_tensors
+        grads = flash_rel_attention_bwd(
+            q_u, qv, k, v, p, kv_lens, out, lse, dout.float().contiguous(),
+            ctx.scale, ctx.rate, ctx.seed)
+        cast = [g.to(x.dtype) for g, x in zip(grads, (q_u, qv, k, v, p))]
+        return (*cast, None, None, None, None)
+
+
+def flash_rel_attention_train(q_u, qv, k, v, p, kv_lens, seed: int,
+                              scale: float, dropout_rate: float = 0.0):
+    """Differentiable fused rel-pos attention (conformer self-attention in
+    train mode). ``q_u``/``qv``/``k``/``v`` (BH, T, D), ``p`` (P, T, D),
+    ``kv_lens`` (BH,) int32 or None, ``seed`` an int32 for the dropout hash.
+    Returns fp32 (BH, T, D)."""
+    return FlashRelAttentionTrain.apply(q_u, qv, k, v, p, kv_lens, int(seed),
+                                        float(scale), float(dropout_rate))
 
 
 def _check(name, t, dtype, shape, device):
@@ -137,7 +370,19 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"flash_attention: {name} must be contiguous")
 
 
-def _launch(q, k, v, mask, kv_lens, rel_qv, rel_p, scale):
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _dropout_args(dropout_rate: float, seed: int):
+    """(enabled, seed as uint32, threshold) for the kernels' hash."""
+    on = dropout_rate > 0.0
+    return (int(on), ctypes.c_uint32(int(seed) & _MASK32),
+            ctypes.c_uint32(keep_threshold(dropout_rate)))
+
+
+def _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse,
+                dropout_rate, dropout_seed):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention: unsupported dtype {q.dtype}")
     if q.dim() != 3:
@@ -167,21 +412,67 @@ def _launch(q, k, v, mask, kv_lens, rel_qv, rel_p, scale):
         _check("rel_qv", rel_qv, q.dtype, (bh, tq, d), dev)
         _check("rel_p", rel_p, q.dtype, (p_mod, tk, d), dev)
     out = torch.empty_like(q)
+    lse = (torch.empty((bh, tq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if bh == 0 or tq == 0:
-        return out
-
-    def ptr(t):
-        return ctypes.c_void_p(None if t is None else t.data_ptr())
-
+        return out, lse
+    on, seed, thr = _dropout_args(dropout_rate, dropout_seed)
+    tqe, tke = hash_tiles(tq, tk)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = load_library().rel_attention_fwd(
-            _DTYPE_CODE[q.dtype], ptr(q), ptr(k), ptr(v), ptr(rel_qv),
-            ptr(rel_p), ptr(mask), ptr(kv_lens), ptr(out), bh, tq, tk, d,
-            mask_div, p_mod, ctypes.c_float(scale), ctypes.c_void_p(stream))
+        err = load_library("rel_attention_fwd").rel_attention_fwd(
+            _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(rel_qv),
+            _ptr(rel_p), _ptr(mask), _ptr(kv_lens), _ptr(out), _ptr(lse),
+            bh, tq, tk, d, mask_div, p_mod, ctypes.c_float(scale), on, seed,
+            thr, ctypes.c_float(1.0 - dropout_rate), tqe, tke,
+            ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"rel_attention_fwd launch failed: CUDA error {err}")
-    return out
+    return out, lse
+
+
+def _launch_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout, scale,
+                dropout_rate, dropout_seed):
+    if q_u.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_rel_attention_bwd: unsupported dtype {q_u.dtype}")
+    if q_u.dim() != 3:
+        raise ValueError(f"flash_rel_attention_bwd: q_u must be (BH, T, D), "
+                         f"got {tuple(q_u.shape)}")
+    bh, t, d = q_u.shape
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_rel_attention_bwd: head dim {d} not in 1..{MAX_HEAD_DIM}")
+    dev, dt = q_u.device, q_u.dtype
+    p_mod = p.shape[0]
+    _group_rows(bh, p_mod, "p")
+    for name, x in (("q_u", q_u), ("qv", qv), ("k", k), ("v", v)):
+        _check(name, x, dt, (bh, t, d), dev)
+    _check("p", p, dt, (p_mod, t, d), dev)
+    _check("out", out, torch.float32, (bh, t, d), dev)
+    _check("dout", dout, torch.float32, (bh, t, d), dev)
+    _check("lse", lse, torch.float32, (bh, t), dev)
+    if kv_lens is not None:
+        _check("kv_lens", kv_lens, torch.int32, (bh,), dev)
+    dq_u = torch.empty((bh, t, d), dtype=torch.float32, device=dev)
+    # accumulated with atomics across query tiles (and batch rows for dp)
+    dqv, dk, dv, dp_rows = (torch.zeros((bh, t, d), dtype=torch.float32,
+                                        device=dev) for _ in range(4))
+    if bh and t:
+        on, seed, thr = _dropout_args(dropout_rate, dropout_seed)
+        tqe, tke = hash_tiles(t, t)
+        inv_keep = 1.0 / (1.0 - dropout_rate) if on else 1.0
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = load_library("rel_attention_bwd").rel_attention_bwd(
+                _DTYPE_CODE[dt], _ptr(q_u), _ptr(qv), _ptr(k), _ptr(v), _ptr(p),
+                _ptr(kv_lens), _ptr(out), _ptr(lse), _ptr(dout), _ptr(dq_u),
+                _ptr(dqv), _ptr(dk), _ptr(dv), _ptr(dp_rows), bh, t, d, p_mod,
+                ctypes.c_float(scale), on, seed, thr, ctypes.c_float(inv_keep),
+                tqe, tke, ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"rel_attention_bwd launch failed: CUDA error {err}")
+    # the kernel writes dP per folded row; rows sharing a table sum here
+    dp = dp_rows.view(bh // p_mod, p_mod, t, d).sum(0)
+    return dq_u, dqv, dk, dv, dp
 
 
 def _find_nvcc() -> str:
@@ -191,48 +482,74 @@ def _find_nvcc() -> str:
             return cand
     raise RuntimeError(
         "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
-        f"kernel {_SRC.name} cannot be built")
+        "kernels of liteasr_tpu_torch cannot be built")
 
 
-def library_path() -> Path:
-    """Where the kernel library for the current source lives."""
+def library_path(name: str) -> Path:
+    """Where the library of kernel ``name`` for the current source lives."""
     digest = hashlib.sha256(
-        _SRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"librel_attention_fwd.{digest}.so"
+        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}.{digest}.so"
 
 
-def build_library() -> Path:
-    """Compile ``csrc/rel_attention_fwd.cu`` for sm_90a if it is not built."""
-    path = library_path()
-    if path.is_file():
-        return path
+def build_libraries(names=tuple(SOURCES)) -> Dict[str, Path]:
+    """Compile the named ``csrc/*.cu`` sources for sm_90a that are not built
+    yet, one nvcc process per source, all started together."""
+    paths = {name: library_path(name) for name in names}
+    todo = [name for name, path in paths.items() if not path.is_file()]
+    if not todo:
+        return paths
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    jobs = []
     try:
-        subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(_SRC)], check=True)
-        os.replace(tmp, path)  # atomic: concurrent builders never see a half file
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp,
+                                     str(SOURCES[name])])
+            jobs.append((name, tmp, proc))
+        failed = [name for name, _, proc in jobs if proc.wait() != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed to build {failed}")
+        for name, tmp, _ in jobs:
+            os.replace(tmp, paths[name])  # atomic: no half-written library
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
+        for _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return paths
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (once) and load the kernel library. Raises when there is no
-    CUDA device or no nvcc; there is no fallback."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
+_ARGTYPES = {
+    "rel_attention_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                          + [ctypes.c_int] * 6
+                          + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
+                             ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_void_p]),
+    "rel_attention_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 14
+                          + [ctypes.c_int] * 4
+                          + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
+                             ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_void_p]),
+}
+
+
+def load_library(name: str = "rel_attention_fwd") -> ctypes.CDLL:
+    """Build (once) and load the library of kernel ``name``. Raises when
+    there is no CUDA device or no nvcc; there is no fallback."""
+    if name in _LIBS:
+        return _LIBS[name]
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA is not available: the rel_attention_fwd kernel needs an "
-            "NVIDIA GPU (sm_90a) and nvcc")
-    lib = ctypes.CDLL(str(build_library()))
-    fn = lib.rel_attention_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+            f"CUDA is not available: the {name} kernel needs an NVIDIA GPU "
+            "(sm_90a) and nvcc")
+    lib = ctypes.CDLL(str(build_libraries((name,))[name]))
+    fn = getattr(lib, name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
-    _LIB = lib
+    _LIBS[name] = lib
     return lib

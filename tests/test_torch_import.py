@@ -1,5 +1,6 @@
-"""liteasr_tpu_torch imports without jax, flax or liteasr_tpu, and its CUDA
-kernel loader raises (no fallback) where there is no CUDA device."""
+"""liteasr_tpu_torch, training modules included, imports without jax, flax
+or liteasr_tpu, and its CUDA kernel loader raises (no fallback) where there
+is no CUDA device."""
 
 import os
 import subprocess
@@ -27,22 +28,27 @@ def test_port_imports_without_jax():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "flax", "liteasr_tpu"))
         assert not bad, bad
-        assert "liteasr_tpu_torch.ops.flash_attention" in names, names
+        for name in ("ops.flash_attention", "ops.batch_norm", "ops.ctc",
+                     "criterions.hybrid_ctc_attn", "optims.fused_step",
+                     "optims.noam", "optims.adam", "trainer", "train",
+                     "utils.trigger", "data.loader"):
+            assert "liteasr_tpu_torch." + name in names, (name, names)
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 25
+    assert int(proc.stdout.split()[-1]) >= 38
 
 
 def test_kernel_loader_raises_without_cuda():
     proc = _run("""
         from liteasr_tpu_torch.ops import flash_attention as fa
-        try:
-            fa.load_library()
-        except RuntimeError as e:
-            print("raised:", e)
-        else:
-            raise SystemExit("the loader returned without a CUDA device")
+        for name in fa.SOURCES:
+            try:
+                fa.load_library(name)
+            except RuntimeError as e:
+                print("raised:", e)
+            else:
+                raise SystemExit(f"the loader returned {name} without a CUDA device")
     """)
     assert proc.returncode == 0, proc.stderr
-    assert "raised: CUDA is not available" in proc.stdout
+    assert proc.stdout.count("raised: CUDA is not available") == 2
