@@ -3,14 +3,23 @@
     python3 chip_smoke.py
 
 1. builds the CUDA kernels (csrc/rel_attention_fwd.cu and
-   csrc/rel_attention_bwd.cu, one nvcc each, in parallel, sm_90a);
+   csrc/rel_attention_bwd.cu, one nvcc each, in parallel, sm_90a) and
+   prints ptxas's registers, shared memory and spills per kernel and the
+   libraries' tensor-core (HGMMA, HMMA) and cp.async (LDGSTS) instruction
+   counts from cuobjdump -sass;
 2. K1: holds the forward kernel against its plain PyTorch version at the
    three attention shapes of the decode slice, in fp32 (tol 1e-4, TF32
-   off) and bf16 (tol 2e-2), and times both with CUDA events;
+   off) and bf16 (tol 2e-2), and times both with CUDA events, beside the
+   call's bound (bytes over 3.35 TB/s or operations over the type's peak,
+   whichever is larger) and, for the two decoder shapes, one
+   scaled_dot_product_attention call with the same mask (a yardstick the
+   port never calls);
 3. K1' and K2: holds the training forward (lse, dropout 0.1) and the
    backward against their plain versions at the training shape (BH=128,
    T'=199, D=64, a kv_len=0 row), fp32 (tol 1e-4 forward, 1e-3 grads) and
-   bf16 (2e-2, 5e-2), and times kernel and plain forward+backward;
+   bf16 (2e-2, 5e-2), and times kernel and plain forward+backward beside
+   their bounds; then K1' and K2 in bf16 at a long utterance (BH=32,
+   T'=1499), checked and timed;
 4. decodes a generated Kaldi corpus (32 utterances of 1000-1600 frames x 80
    fbank, 5000-token vocab) with the full-width U2 (12 conformer layers,
    256-d, 6 decoder layers, bf16 compute, random weights from a seed)
@@ -46,10 +55,18 @@ rel_attention_fwd, ``ms``/``plain_ms`` are K1 per decoded batch and the
 
 runs only a host+device torch.profiler window over the train micro-step
 of 7 and prints the top kernels by device time.
+
+    python3 chip_smoke.py --kernels-only
+    python3 chip_smoke.py --baseline DIR
+
+stop after steps 1-3, or after step 1 time every bf16 kernel call of the
+main paths against the checkout in DIR (another commit unpacked with git
+archive), in the order DIR, this tree, this tree, DIR.
 """
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -75,6 +92,10 @@ TRAIN_BH, TRAIN_T, TRAIN_D, TRAIN_RATE, TRAIN_SEED = 128, 199, 64, 0.1, 1234
 N_TRAIN, N_VALID, TRAIN_MIN_T, TRAIN_MAX_T = 80, 16, 400, 800
 TRAIN_BATCH, TRAIN_EPOCHS, ACCUM = 32, 2, 2
 H100_BF16_PEAK = 989e12  # dense, SXM, at 700 W (NVIDIA data sheet)
+H100_FP32_PEAK = 67e12  # outside the tensor cores
+H100_HBM_RATE = 3.35e12  # bytes/s
+# K1'/K2 at a long utterance (6000 frames -> T' = 1499), timed only
+LONG_BH, LONG_T = 32, 1499
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -89,8 +110,11 @@ def card() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` single-call times from CUDA events."""
+def cuda_time_ms(fn, reps: int = 20, warmup: int = 3, inner: int = 10) -> float:
+    """Time of one call from CUDA events: the median over ``reps`` of the
+    mean of ``inner`` back-to-back calls (so the host's launch latency,
+    ctypes and allocation included, hides behind the device's work unless
+    it is longer than the call)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -98,10 +122,11 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -114,6 +139,77 @@ def reset_counts(fa):
 def counts(fa):
     return (fa.flash_attention.launches, fa.flash_attention.lse_launches,
             fa.flash_rel_attention_bwd.launches)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(flops: float, nbytes_: float, dtype):
+    """(bound_ms, bound_by): the larger of the work at the card's peak rate
+    for the operands' type and the bytes at its memory rate."""
+    peak = H100_BF16_PEAK if dtype == torch.bfloat16 else H100_FP32_PEAK
+    t_ops, t_bytes = flops / peak, nbytes_ / H100_HBM_RATE
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def live_keys(bh: int, tk: int, kv_lens) -> torch.Tensor:
+    """Keys each row needs: kv_len (capped at Tk), or all Tk for a row with
+    no key (kv_len 0, whose output is the mean of V) or without kv_lens."""
+    if kv_lens is None:
+        return torch.full((bh,), tk, dtype=torch.int64)
+    kv = kv_lens.cpu().long().clamp(max=tk)
+    return torch.where(kv > 0, kv, tk)
+
+
+def fwd_bound(q, k, v, mask=None, kv_lens=None, rel_qv=None, rel_p=None,
+              lse=False):
+    """Bound of one K1/K1' call from its shapes: Q K^T, P V and (with the
+    rel-pos term) Q_v P^T over the keys the data needs; each input read once
+    and each output written once (K and V only up to kv_len)."""
+    bh, tq, d = q.shape
+    keys = live_keys(bh, k.shape[1], kv_lens).sum().item()
+    flops = (3 if rel_qv is not None else 2) * 2.0 * tq * keys * d
+    kv_bytes = 2 * keys * d * k.element_size()
+    out = bh * tq * d * q.element_size() + (4 * bh * tq if lse else 0)
+    return bound(flops, nbytes(q, rel_qv, rel_p, mask, kv_lens) + kv_bytes + out,
+                 q.dtype)
+
+
+def bwd_bound(q_u, qv, k, v, p, kv_lens, out, lse, dout):
+    """Bound of one K2 call: eight (T x T_live x D) products, the inputs read
+    once, the five fp32 gradients written once."""
+    bh, t, d = q_u.shape
+    keys = live_keys(bh, t, kv_lens).sum().item()
+    flops = 8 * 2.0 * t * keys * d
+    grads = 4 * (4 * bh * t * d + p.numel())
+    return bound(flops, nbytes(q_u, qv, k, v, p, kv_lens, out, lse, dout) + grads,
+                 q_u.dtype)
+
+
+def library_call(args, scale):
+    """One torch.nn.functional.scaled_dot_product_attention call computing
+    a decoder shape's function (no rel-pos term, no dropout): the bool mask
+    (True = masked) broadcast over the heads, or kv_lens as a key-padding
+    mask. Returns the call; the masks are built outside it. A yardstick
+    only: the port never calls it."""
+    import torch.nn.functional as F
+
+    q, k, v = args["q"], args["k"], args["v"]
+    bh, tq, d = q.shape
+    scale = float(scale)
+    if "mask" in args:
+        m = args["mask"].shape[0]
+        keep = ~args["mask"][:, None]  # (M, 1, Tq, Tk), True = attend
+        shp = (m, bh // m)
+    else:
+        j = torch.arange(k.shape[1], device=q.device)
+        keep = (j[None, :] < args["kv_lens"][:, None])[:, None, None, :]
+        shp = (bh, 1)
+    q4, k4, v4 = (x.view(*shp, x.shape[1], d) for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep,
+                                                  scale=scale)
 
 
 def within(got, ref, tol) -> bool:
@@ -158,7 +254,7 @@ def check_kernel(fa, dev, name):
     gen = torch.Generator().manual_seed(SEED)
     per_batch = {"encoder_rel": ENC_LAYERS, "decoder_self_mask": DEC_LAYERS,
                  "decoder_src_kv_lens": DEC_LAYERS}
-    report = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    report = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for shape, args in slice_shapes(gen, dev, dtype).items():
             scale = args["q"].shape[-1] ** -0.5
@@ -173,23 +269,39 @@ def check_kernel(fa, dev, name):
             ms = cuda_time_ms(lambda: fa.flash_attention(scale=scale, **args))
             plain_ms = cuda_time_ms(
                 lambda: fa.flash_attention_plain(scale=scale, **args))
+            bound_ms, bound_by = fwd_bound(**args)
+            lib = ""
+            if "rel_qv" not in args:
+                lib_ms = cuda_time_ms(library_call(args, scale))
+                lib = f", library (SDPA) {lib_ms:.4f} ms"
+                if dtype == torch.bfloat16:
+                    report[f"{shape}_library_ms"] = lib_ms
             log(f"K1 {shape} {str(dtype)[6:]} shape={tuple(args['q'].shape)}x"
                 f"{args['k'].shape[1]}: max_abs_err={err:.3g} (tol {tol}) "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{name}]")
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
+                f"{bound_ms:.4f} ms ({bound_by}) = {bound_ms / ms:.2%} of it [{name}]")
             if dtype == torch.bfloat16:
+                n = per_batch[shape]
                 report["max_abs_err"] = max(report["max_abs_err"], err)
-                report["ms"] += per_batch[shape] * ms
-                report["plain_ms"] += per_batch[shape] * plain_ms
+                report["ms"] += n * ms
+                report["plain_ms"] += n * plain_ms
+                report["bound_ms"] += n * bound_ms
+                if n * bound_ms > report.get("top_bound", 0.0):
+                    report["top_bound"], report["bound_by"] = n * bound_ms, bound_by
+                report[f"{shape}_ms"] = ms
+                report[f"{shape}_bound_ms"] = bound_ms
     log(f"K1 per decode batch (12 + 6 + 6 calls, bf16): kernel "
-        f"{report['ms']:.3f} ms, plain {report['plain_ms']:.3f} ms [{name}]")
+        f"{report['ms']:.3f} ms, plain {report['plain_ms']:.3f} ms, bound "
+        f"{report['bound_ms']:.4f} ms = {report['bound_ms'] / report['ms']:.2%} "
+        f"of it [{name}]")
     return report
 
 
-def train_slice_inputs(gen, dev, dtype):
+def train_slice_inputs(gen, dev, dtype, bh=TRAIN_BH, t=TRAIN_T):
     """One conformer self-attention call of a training micro-batch: B=32 x
-    4 heads, T'=199, Dk=64, the table shared over the batch; row 5 has
-    kv_len 0."""
-    bh, t, d = TRAIN_BH, TRAIN_T, TRAIN_D
+    4 heads (bh / 4 x 4 heads), T'=199 (t), Dk=64, the table shared over
+    the batch; row 5 has kv_len 0."""
+    d = TRAIN_D
 
     def rnd(*shape):
         return (0.5 * torch.randn(*shape, generator=gen)).to(dev, dtype)
@@ -260,17 +372,71 @@ def check_train_kernels(fa, dev, name):
         bwd_ms = cuda_time_ms(lambda: bwd(out32, lse))
         bwd_plain = cuda_time_ms(lambda: bwd(out32, ref_lse, plain=True))
         step_ms, step_plain = cuda_time_ms(kernel_step), cuda_time_ms(plain_step)
+        fb, fb_by = fwd_bound(ins[0], ins[2], ins[3], kv_lens=kv, rel_qv=ins[1],
+                              rel_p=ins[4], lse=True)
+        bb, bb_by = bwd_bound(*ins, kv, out32, lse, dout)
         log(f"K1'/K2 {str(dtype)[6:]} BH={TRAIN_BH} T'={TRAIN_T} D={TRAIN_D} "
             f"dropout {TRAIN_RATE}: {line} (tol {ftol}/{gtol}); fwd kernel "
-            f"{fwd_ms:.4f} ms plain {fwd_plain:.4f}; bwd kernel {bwd_ms:.4f} "
-            f"ms plain {bwd_plain:.4f}; fwd+bwd kernel {step_ms:.4f} ms plain "
-            f"{step_plain:.4f} [{name}]")
+            f"{fwd_ms:.4f} ms plain {fwd_plain:.4f} bound {fb:.4f} ({fb_by}, "
+            f"{fb / fwd_ms:.2%}); bwd kernel {bwd_ms:.4f} ms plain {bwd_plain:.4f} "
+            f"bound {bb:.4f} ({bb_by}, {bb / bwd_ms:.2%}); fwd+bwd kernel "
+            f"{step_ms:.4f} ms plain {step_plain:.4f} [{name}]")
         if dtype == torch.bfloat16:
             report = {"fwd_err": max(errs["out"], errs["lse"]),
                       "bwd_err": max(errs[g] for g in ("dq_u", "dqv", "dk", "dv", "dp")),
                       "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain,
-                      "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain}
+                      "fwd_bound_ms": fb, "fwd_bound_by": fb_by,
+                      "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain,
+                      "bwd_bound_ms": bb, "bwd_bound_by": bb_by}
     return report
+
+
+def time_long_kernels(fa, dev, name):
+    """K1' and K2 in bf16 at a long utterance (BH=32, T'=1499, D=64,
+    dropout 0.1), held against the plain versions and timed."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    bh, t, d = LONG_BH, LONG_T, TRAIN_D
+    scale = d ** -0.5
+    x = train_slice_inputs(gen, dev, torch.bfloat16, bh, t)
+    ins = [x[n] for n in ("q_u", "qv", "k", "v", "p")]
+    kv, dout = x["kv_lens"], x["dout"]
+    live = kv > 0
+
+    def fwd(plain=False):
+        f = fa.flash_attention_plain if plain else fa.flash_attention
+        return f(ins[0], ins[2], ins[3], kv_lens=kv, rel_qv=ins[1], rel_p=ins[4],
+                 scale=scale, return_lse=True, dropout_rate=TRAIN_RATE,
+                 dropout_seed=TRAIN_SEED)
+
+    out, lse = fwd()
+    ref_out, ref_lse = fwd(plain=True)
+    out32 = out.float()
+    grads = fa.flash_rel_attention_bwd(*ins, kv, out32, lse, dout, scale,
+                                       TRAIN_RATE, TRAIN_SEED)
+    ref_grads = fa.flash_rel_attention_bwd_plain(*ins, kv, out32, ref_lse, dout,
+                                                 scale, TRAIN_RATE, TRAIN_SEED)
+    torch.cuda.synchronize()
+    ok = within(out, ref_out, KERNEL_TOL[torch.bfloat16]) and within(
+        lse[live], ref_lse[live], KERNEL_TOL[torch.bfloat16])
+    gerr = 0.0
+    for g, r in zip(grads, ref_grads):
+        g = g.to(torch.bfloat16).float()
+        gerr = max(gerr, (g - r).abs().max().item())
+        ok = ok and within(g, r, GRAD_TOL[torch.bfloat16])
+    ferr = (out.float() - ref_out.float()).abs().max().item()
+    if not ok:
+        raise RuntimeError(f"K1'/K2 at T'={t}: out err {ferr}, grad err {gerr}")
+    del ref_out, ref_lse, ref_grads
+    fwd_ms = cuda_time_ms(fwd)
+    bwd_ms = cuda_time_ms(lambda: fa.flash_rel_attention_bwd(
+        *ins, kv, out32, lse, dout, scale, TRAIN_RATE, TRAIN_SEED))
+    fb, fb_by = fwd_bound(ins[0], ins[2], ins[3], kv_lens=kv, rel_qv=ins[1],
+                          rel_p=ins[4], lse=True)
+    bb, bb_by = bwd_bound(*ins, kv, out32, lse, dout)
+    log(f"K1'/K2 bf16 long BH={bh} T'={t} D={d} dropout {TRAIN_RATE}: out err "
+        f"{ferr:.3g} grad err {gerr:.3g}; fwd kernel {fwd_ms:.4f} ms bound {fb:.4f} "
+        f"({fb_by}, {fb / fwd_ms:.2%}); bwd kernel {bwd_ms:.4f} ms bound {bb:.4f} "
+        f"({bb_by}, {bb / bwd_ms:.2%}) [{name}]")
 
 
 def write_split(root, split, n, min_t, max_t, min_u, max_u, rng):
@@ -641,6 +807,76 @@ def check_train_parity(dev, name):
         raise RuntimeError("GPU and CPU train steps disagree beyond the bound")
 
 
+def load_baseline(root):
+    """The flash_attention module of another checkout (the parent commit,
+    unpacked with git archive), loaded on its own: it builds that
+    checkout's csrc/ into that checkout's build/."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "baseline_flash_attention",
+        os.path.join(root, "liteasr_tpu_torch", "ops", "flash_attention.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def compare_kernels(fa, base, dev, name):
+    """``--baseline DIR``: each bf16 kernel call of the main paths timed in
+    the order baseline, this tree, this tree, baseline, in one process."""
+    cases = []
+    gen = torch.Generator().manual_seed(SEED)
+    for shape, args in slice_shapes(gen, dev, torch.bfloat16).items():
+        s = args["q"].shape[-1] ** -0.5
+        cases.append((f"K1 {shape}", lambda m, a=args, s=s: m.flash_attention(scale=s, **a)))
+    for label, seed, bh, t in (("train", SEED + 1, TRAIN_BH, TRAIN_T),
+                               ("long", SEED + 3, LONG_BH, LONG_T)):
+        x = train_slice_inputs(torch.Generator().manual_seed(seed), dev, torch.bfloat16,
+                               bh, t)
+        ins = [x[n] for n in ("q_u", "qv", "k", "v", "p")]
+        kv, dout = x["kv_lens"], x["dout"]
+        s = TRAIN_D ** -0.5
+
+        def fwd(m, ins=ins, kv=kv, s=s):
+            return m.flash_attention(ins[0], ins[2], ins[3], kv_lens=kv, rel_qv=ins[1],
+                                     rel_p=ins[4], scale=s, return_lse=True,
+                                     dropout_rate=TRAIN_RATE, dropout_seed=TRAIN_SEED)
+
+        out, lse = fwd(fa)
+        cases.append((f"K1' {label} BH={bh} T'={t}", fwd))
+        cases.append((f"K2 {label} BH={bh} T'={t}",
+                      lambda m, ins=ins, kv=kv, o=out.float(), l=lse, d=dout, s=s:
+                      m.flash_rel_attention_bwd(*ins, kv, o, l, d, s, TRAIN_RATE,
+                                                TRAIN_SEED)))
+    for label, f in cases:
+        ms = [cuda_time_ms(lambda m=m: f(m)) for m in (base, fa, fa, base)]
+        log(f"A/B {label} bf16: baseline {ms[0]:.4f} {ms[3]:.4f} ms, this tree "
+            f"{ms[1]:.4f} {ms[2]:.4f} ms [{name}]")
+
+
+def report_build(path):
+    """Prints ptxas's registers / shared memory / spills per kernel (from
+    the build log beside the library) and the library's tensor-core and
+    asynchronous-copy instructions as cuobjdump -sass lists them."""
+    log_path = path.with_suffix(".log")
+    if log_path.is_file():
+        kernel = "?"
+        for ln in log_path.read_text().splitlines():
+            m = re.search(r"\d+(rel_attn_\w+?_kernel|bwd_prep_kernel)(I(?:L[a-z]+\d+E|[a-z])+E)?",
+                          ln)
+            if m:
+                kernel = m.group(1) + (m.group(2) or "")
+            elif "Used" in ln or "spill" in ln:
+                log(f"ptxas {path.name} {kernel}: {ln.split(':', 1)[-1].strip()}")
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
+                             "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300).stdout
+    ops = {op: len(re.findall(rf"\s{op}[.\s]", sass))
+           for op in ("HGMMA", "HMMA", "LDSM", "LDGSTS", "FFMA")}
+    log(f"sass {path.name}: " + ", ".join(f"{k} {v}" for k, v in ops.items()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -664,11 +900,21 @@ def main() -> int:
         fa.load_library(lib)
     log(f"kernel build (parallel nvcc): {time.perf_counter() - t0:.2f} s "
         f"({', '.join(p.name for p in libs.values())})")
+    for path in libs.values():
+        report_build(path)
+    if "--baseline" in sys.argv[1:]:
+        base = load_baseline(sys.argv[sys.argv.index("--baseline") + 1])
+        base.build_libraries()
+        compare_kernels(fa, base, dev, name)
+        return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     k1 = check_kernel(fa, dev, name)
     k2 = check_train_kernels(fa, dev, name)
+    time_long_kernels(fa, dev, name)
+    if "--kernels-only" in sys.argv[1:]:
+        return 0
 
     with tempfile.TemporaryDirectory() as root:
         write_corpus(root)
@@ -697,10 +943,22 @@ def main() -> int:
         "max_abs_err": max(k1["max_abs_err"], k2["fwd_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],  # of the call with the largest bound
+        "library_ms": None,  # no single call computes the rel-pos shape
+        "decoder_self_mask_ms": k1["decoder_self_mask_ms"],
+        "decoder_self_mask_bound_ms": k1["decoder_self_mask_bound_ms"],
+        "decoder_self_mask_library_ms": k1["decoder_self_mask_library_ms"],
+        "decoder_src_kv_lens_ms": k1["decoder_src_kv_lens_ms"],
+        "decoder_src_kv_lens_bound_ms": k1["decoder_src_kv_lens_bound_ms"],
+        "decoder_src_kv_lens_library_ms": k1["decoder_src_kv_lens_library_ms"],
         "lse_launches": train_lse,
         "lse_max_abs_err": k2["fwd_err"],
         "lse_ms": k2["fwd_ms"],
         "lse_plain_ms": k2["fwd_plain_ms"],
+        "lse_bound_ms": k2["fwd_bound_ms"],
+        "lse_bound_by": k2["fwd_bound_by"],
+        "lse_library_ms": None,
     }, {
         "name": "rel_attention_bwd",
         "route": "cuda",
@@ -710,6 +968,9 @@ def main() -> int:
         "max_abs_err": k2["bwd_err"],
         "ms": k2["bwd_ms"],
         "plain_ms": k2["bwd_plain_ms"],
+        "bound_ms": k2["bwd_bound_ms"],
+        "bound_by": k2["bwd_bound_by"],
+        "library_ms": None,  # no single call computes the rel-pos backward
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,7 +61,7 @@ SOURCES = {"rel_attention_fwd": _CSRC / "rel_attention_fwd.cu",
 # build output lives beside the package, in the repository's build/ tree
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "liteasr_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -452,10 +452,20 @@ def _launch_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout, scale,
     _check("lse", lse, torch.float32, (bh, t), dev)
     if kv_lens is not None:
         _check("kv_lens", kv_lens, torch.int32, (bh,), dev)
-    dq_u = torch.empty((bh, t, d), dtype=torch.float32, device=dev)
-    # accumulated with atomics across query tiles (and batch rows for dp)
-    dqv, dk, dv, dp_rows = (torch.zeros((bh, t, d), dtype=torch.float32,
-                                        device=dev) for _ in range(4))
+    # the fp32 body owns dQ_u per query tile and sums dK, dV, dQ_v and dP
+    # with atomics; the bf16 body owns dK, dV per key tile and sums dQ_u,
+    # dQ_v and dP. dP is the shared table's gradient, summed over the rows
+    # bh that share it, in both.
+    tc = dt == torch.bfloat16
+    f32 = dict(dtype=torch.float32, device=dev)
+    dq_u = (torch.zeros if tc else torch.empty)((bh, t, d), **f32)
+    dk, dv = ((torch.empty if tc else torch.zeros)((bh, t, d), **f32)
+              for _ in range(2))
+    dqv = torch.zeros((bh, t, d), **f32)
+    dp = torch.zeros((p_mod, t, d), **f32)
+    # bf16 scratch: dO in bf16 and Dvec = rowsum(dO * O), from a pre-pass
+    dob = torch.empty((bh, t, d), dtype=torch.bfloat16, device=dev) if tc else None
+    dvec = torch.empty((bh, t), dtype=torch.float32, device=dev) if tc else None
     if bh and t:
         on, seed, thr = _dropout_args(dropout_rate, dropout_seed)
         tqe, tke = hash_tiles(t, t)
@@ -465,13 +475,11 @@ def _launch_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout, scale,
             err = load_library("rel_attention_bwd").rel_attention_bwd(
                 _DTYPE_CODE[dt], _ptr(q_u), _ptr(qv), _ptr(k), _ptr(v), _ptr(p),
                 _ptr(kv_lens), _ptr(out), _ptr(lse), _ptr(dout), _ptr(dq_u),
-                _ptr(dqv), _ptr(dk), _ptr(dv), _ptr(dp_rows), bh, t, d, p_mod,
-                ctypes.c_float(scale), on, seed, thr, ctypes.c_float(inv_keep),
-                tqe, tke, ctypes.c_void_p(stream))
+                _ptr(dqv), _ptr(dk), _ptr(dv), _ptr(dp), _ptr(dob), _ptr(dvec),
+                bh, t, d, p_mod, ctypes.c_float(scale), on, seed, thr,
+                ctypes.c_float(inv_keep), tqe, tke, ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"rel_attention_bwd launch failed: CUDA error {err}")
-    # the kernel writes dP per folded row; rows sharing a table sum here
-    dp = dp_rows.view(bh // p_mod, p_mod, t, d).sum(0)
     return dq_u, dqv, dk, dv, dp
 
 
@@ -486,15 +494,19 @@ def _find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of kernel ``name`` for the current source lives."""
-    digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where the library of kernel ``name`` for the current source (and the
+    shared ``csrc/*.cuh`` headers it includes) lives."""
+    text = SOURCES[name].read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}.{digest}.so"
 
 
 def build_libraries(names=tuple(SOURCES)) -> Dict[str, Path]:
     """Compile the named ``csrc/*.cu`` sources for sm_90a that are not built
-    yet, one nvcc process per source, all started together."""
+    yet, one nvcc process per source, all started together. nvcc's output
+    (ptxas's registers, shared memory and spills per kernel) goes to a
+    ``.log`` beside each library."""
     paths = {name: library_path(name) for name in names}
     todo = [name for name, path in paths.items() if not path.is_file()]
     if not todo:
@@ -506,12 +518,16 @@ def build_libraries(names=tuple(SOURCES)) -> Dict[str, Path]:
         for name in todo:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp,
-                                     str(SOURCES[name])])
+            with open(paths[name].with_suffix(".log"), "w") as log:
+                proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp,
+                                         str(SOURCES[name])],
+                                        stdout=log, stderr=subprocess.STDOUT)
             jobs.append((name, tmp, proc))
         failed = [name for name, _, proc in jobs if proc.wait() != 0]
         if failed:
-            raise RuntimeError(f"nvcc failed to build {failed}")
+            logs = "\n".join(paths[n].with_suffix(".log").read_text()[-4000:]
+                             for n in failed)
+            raise RuntimeError(f"nvcc failed to build {failed}:\n{logs}")
         for name, tmp, _ in jobs:
             os.replace(tmp, paths[name])  # atomic: no half-written library
     finally:
@@ -530,7 +546,7 @@ _ARGTYPES = {
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
                              ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
                              ctypes.c_int, ctypes.c_void_p]),
-    "rel_attention_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 14
+    "rel_attention_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 16
                           + [ctypes.c_int] * 4
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
                              ctypes.c_uint32, ctypes.c_float, ctypes.c_int,

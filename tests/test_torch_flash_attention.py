@@ -105,7 +105,8 @@ DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("case", sorted(KERNEL_CASES))
-@pytest.mark.parametrize("tq,d", [(50, 32), (130, 64), (64, 100)])
+@pytest.mark.parametrize("tq,d", [(50, 32), (130, 64), (64, 100), (64, 64), (65, 128),
+                                  (128, 32), (129, 128), (399, 64)])
 def test_kernel_matches_plain(cuda, dtype, tol, case, tq, d):
     x = _inputs(3, tq, tq, d)
     used = KERNEL_CASES[case]
@@ -120,3 +121,48 @@ def test_kernel_matches_plain(cuda, dtype, tol, case, tq, d):
     ref = fa.flash_attention_plain(scale=d ** -0.5, **args)
     assert out.dtype == dtype
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("rel", [False, True])
+def test_kernel_skips_key_tiles_past_kv_len(cuda, dtype, tol, rel):
+    """The kernel walks a row's keys only up to kv_len (a kv_len=0 row walks
+    them all: its output is the mean of V); every row equals the plain
+    version."""
+    t, d = 399, 64
+    x = _inputs(4, t, t, d)
+    kv = torch.tensor([t, 1, 0, 64, 65, 200], dtype=torch.int32, device=cuda)
+    args = {n: torch.from_numpy(x[n]).to(cuda, dtype)
+            for n in ("q", "k", "v") + (("rel_qv", "rel_p") if rel else ())}
+    out, lse = fa.flash_attention(scale=d ** -0.5, kv_lens=kv, return_lse=True, **args)
+    ref, ref_lse = fa.flash_attention_plain(scale=d ** -0.5, kv_lens=kv,
+                                            return_lse=True, **args)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=tol, atol=tol)
+    assert (lse[2] == fa.NEG_INF).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("rel", [False, True])
+def test_kernel_skips_key_tiles_the_mask_hides(cuda, dtype, tol, rel):
+    """Key tiles that the bool mask hides from every row of a query tile are
+    skipped. Batch 0 is causal; in batch 1 the rows of the second query tile
+    see only keys >= 140 (their first real score comes after two skipped
+    tiles) and row 5 sees no key (its output is the mean of V, so its block
+    walks every tile again). Every row equals the plain version."""
+    t, d = 200, 64
+    x = _inputs(5, t, t, d)
+    j = np.arange(t)
+    mask = np.zeros((B, t, t), bool)
+    mask[0] = j[None, :] > j[:, None]
+    mask[1, 64:128, :140] = True
+    mask[1, 5] = True
+    args = {n: torch.from_numpy(x[n]).to(cuda, dtype)
+            for n in ("q", "k", "v") + (("rel_qv", "rel_p") if rel else ())}
+    args["mask"] = torch.from_numpy(mask).to(cuda)
+    out, lse = fa.flash_attention(scale=d ** -0.5, return_lse=True, **args)
+    ref, ref_lse = fa.flash_attention_plain(scale=d ** -0.5, return_lse=True, **args)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=tol, atol=tol)

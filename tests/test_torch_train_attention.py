@@ -216,9 +216,13 @@ DTYPES = [(torch.float32, 1e-4, 1e-3), (torch.bfloat16, 2e-2, 5e-2)]
 @pytest.mark.parametrize("dtype,ftol,gtol", DTYPES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("t,d,b,h", [(48, 32, 2, 2), (199, 64, 2, 4),
-                                     (130, 100, 1, 2)])
+                                     (130, 100, 1, 2), (64, 64, 2, 2),
+                                     (65, 128, 2, 2), (128, 32, 2, 2),
+                                     (129, 128, 1, 4), (399, 64, 2, 2)])
 def test_kernels_match_plain(cuda, dtype, ftol, gtol, rate, t, d, b, h):
     x = _inputs(17, t, d, b, h)
+    if b * h > 3:  # a kv_len=1 row beside the kv_len=0 row (row 2)
+        x["kv_lens"][3] = 1
     scale, seed = d ** -0.5, 2024
     f0, l0 = fa.flash_attention.launches, fa.flash_attention.lse_launches
     b0 = fa.flash_rel_attention_bwd.launches
