@@ -46,10 +46,42 @@
    depthwise-conv and attention key biases, whose gradient is 0 in exact
    arithmetic, within 1e-3 of the largest gradient).
 
+The rest of the U2 recipe, at the same full width:
+
+a. front end: a generated raw-wave corpus (``kaldi_io.write_wav`` and
+   wav.scp; 80 train and 16 valid utterances of 4-8 s at 16 kHz, 398-798
+   fbank frames, 24-48 tokens); ``log_mel_fbank`` of one batch of 32 on the
+   card against the CPU (fp32, within 2e-2, the two empty mel filters
+   which must be 0); device
+   SpecAugment with the recipe's settings: padding untouched outside the
+   frequency masks, the draws in their ranges, one result per (seed, step),
+   the card against the CPU at the same draws within 1e-5; both timed;
+b. the recipe trained through ``train.main`` from the raw waves
+   (``dataset.fbank=true``, device SpecAugment, ``model.remat=true``,
+   dropout 0.1, my_hybrid_ctc, my_noam, clip 5, accum 2, batch 32): 1
+   epoch, then ``common.resume=auto`` to 3 epochs: ``iter``/``epoch``
+   continue from the ``.meta``, no ``valid``/``save_model`` event repeats,
+   3 ``valid loss:`` lines, ``model.ep.{1,2,3}.pt``, finite losses, 24 K1'
+   (12 more in the recompute) and 12 K2 launches per micro-batch;
+c. ``infer.infer`` of that run with ``model_avg=true avg_num=2`` and the
+   run dir as the N-best policy, ``mode=attention``, beam 10, on the
+   raw-wave valid set: the averaged epochs are the two best of
+   ``parse_valid_history``, 12 K1 launches per batch (the encoder; the
+   cached beam's step attention is plain);
+d. attention-mode decoding timed on the corpus of 4, beside 4's
+   attention_rescore figures;
+e. the attention beam of 2 utterances in fp32 on the card and on the CPU
+   (peaked decoder posteriors): the same hypotheses, best scores within
+   1e-3;
+f. remat at bench.py's point: one fp32 step (dropout 0.1, same seed and
+   weights) with remat on and off, every gradient within the rule of 8;
+   then the bf16 micro-step's time and peak memory with remat off and on.
+
 Every failure raises, so the exit code is not 0. The last line is the JSON
 device record; the line before it lists the kernels (for
 rel_attention_fwd, ``ms``/``plain_ms`` are K1 per decoded batch and the
-``lse_*`` keys K1' per training call).
+``lse_*`` keys K1' per training call; ``launches`` sum the main paths 4,
+6, b, c and d).
 
     python3 chip_smoke.py --profile-train
 
@@ -64,7 +96,9 @@ main paths against the checkout in DIR (another commit unpacked with git
 archive), in the order DIR, this tree, this tree, DIR.
 """
 
+import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -96,6 +130,18 @@ H100_FP32_PEAK = 67e12  # outside the tensor cores
 H100_HBM_RATE = 3.35e12  # bytes/s
 # K1'/K2 at a long utterance (6000 frames -> T' = 1499), timed only
 LONG_BH, LONG_T = 32, 1499
+# the recipe on raw waves (phases a-c)
+WAVE_RATE, N_WAVE_TRAIN, N_WAVE_VALID, WAVE_MIN_S, WAVE_MAX_S = 16000, 80, 16, 4.0, 8.0
+RECIPE_EPOCHS = 3
+# card (cuFFT) against CPU (pocketfft), after CMVN: preemphasis leaves the
+# lowest mel bins ~1e-3 of a frame's power, and in frames where that power
+# is near 0 the log amplifies the two FFTs' rounding (6.6e-3 seen at this
+# seed, NVIDIA H100 80GB HBM3, 700 W)
+FBANK_TOL = 2e-2
+SPEC_AUG = dict(time_warp=5, freq_mask=30, freq_mask_times=2, time_mask=40,
+                time_mask_times=2)  # config.yaml's postprocess.spec_aug
+SPEC_AUG_TOL = 1e-5
+BEAM_SCORE_TOL = 1e-3
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -473,7 +519,7 @@ def write_corpus(root: str) -> None:
 
 
 def build_model(dtype, device, enc_layers=ENC_LAYERS, dec_layers=DEC_LAYERS,
-                dropout_rate=0.0):
+                dropout_rate=0.0, remat=False):
     from liteasr_tpu_torch.models.u2 import U2
 
     gen = torch.Generator().manual_seed(SEED)
@@ -485,16 +531,18 @@ def build_model(dtype, device, enc_layers=ENC_LAYERS, dec_layers=DEC_LAYERS,
     return U2(input_dim=FEAT, vocab_size=VOCAB, enc_dim=DIM, enc_ff_dim=2048,
               enc_attn_heads=HEADS, enc_layers=enc_layers, dec_dim=DIM,
               dec_ff_dim=2048, dec_attn_heads=HEADS, dec_layers=dec_layers,
-              dtype=dtype, device=device, generator=gen, **rates)
+              remat=remat, dtype=dtype, device=device, generator=gen, **rates)
 
 
-def run_slice(fa, task, dev, name):
+def run_slice(fa, task, dev, name, mode="attention_rescore"):
+    """Decodes the test corpus in ``mode`` (a warm-up pass, then the timed
+    pass with the counts reset); returns the K1 launches and s/batch."""
     from liteasr_tpu_torch.infer import infer_dataset
 
     dataset = task.dataset("test")
     model = build_model(torch.bfloat16, dev)
     cfg = {"batch_size": BATCH, "beam_size": BEAM, "ctc_weight": CTC_WEIGHT,
-           "mode": "attention_rescore"}
+           "mode": mode}
     n_batches = -(-len(dataset.data) // BATCH)
     audio_s = sum(a.xlen for a in dataset.data) * FRAME_S
 
@@ -508,18 +556,20 @@ def run_slice(fa, task, dev, name):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = fa.flash_attention.launches
-    per_batch = ENC_LAYERS + 2 * DEC_LAYERS
+    # attention_rescore: the encoder and the rescoring decoder; attention:
+    # the encoder only (the cached beam's step attention is plain)
+    per_batch = ENC_LAYERS + (2 * DEC_LAYERS if mode == "attention_rescore" else 0)
     if launches != per_batch * n_batches:
         raise RuntimeError(f"K1 launched {launches} times for {n_batches} "
                            f"batches, expected {per_batch} per batch")
     if len(pairs) != len(dataset.data) or length <= 0:
         raise RuntimeError("infer_dataset did not score every utterance")
-    log(f"slice: {n_batches} batches of <= {BATCH} utts (longest padded to "
-        f"1600 frames), {secs / n_batches:.4f} s/batch, "
+    log(f"slice {mode}: {n_batches} batches of <= {BATCH} utts (longest padded "
+        f"to 1600 frames), {secs / n_batches:.4f} s/batch, "
         f"{len(pairs) / secs:.2f} utt/s, RTF {secs / audio_s:.5f}, "
         f"K1 launches {launches} ({per_batch}/batch), "
         f"error count {err}/{length} (random weights) [{name}]")
-    return launches
+    return launches, secs / n_batches
 
 
 def check_parity(task, dev, name):
@@ -640,7 +690,7 @@ def bench_batch(dev):
     return to_device(batch, dev), B
 
 
-def bench_step(dev):
+def bench_step(dev, remat=False):
     """The full-width bf16 train micro-step (dropout 0.1, hybrid loss, Noam
     Adam, clip 5, accum 2) on bench_batch; returns (step, B)."""
     from liteasr_tpu_torch.config.core import DotDict
@@ -649,7 +699,7 @@ def bench_step(dev):
     from liteasr_tpu_torch.optims.noam import noam_schedule
 
     torch.manual_seed(SEED)
-    model = build_model(torch.bfloat16, dev, dropout_rate=0.1)
+    model = build_model(torch.bfloat16, dev, dropout_rate=0.1, remat=remat)
     crit = HybridCTCLoss(DotDict(vocab_size=VOCAB, padding_idx=-1,
                                  smoothing=0.1, ctc_weight=0.3))
     params = list(model.parameters())
@@ -775,13 +825,20 @@ def check_train_parity(dev, name):
         loss.backward()
         res.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}))
     (g_loss, g_grads), (c_loss, c_grads) = res
-    # leaf error = max abs diff / the leaf's own max abs value, except for
-    # the leaves whose gradient is 0 in exact arithmetic: the depthwise-conv
-    # bias (train-mode BatchNorm subtracts the batch mean) and every
-    # attention key bias (it shifts a query's scores over all keys alike,
-    # which softmax ignores). Their gradient is rounding noise, so they are
-    # held to max abs diff <= 1e-3 x the largest gradient of the step, and
-    # their CPU gradient must itself be below that.
+    what = grad_agreement(g_loss, g_grads, c_loss, c_grads)
+    log(f"train parity fp32 GPU vs CPU (2+1 layers, B={B}, T={T}): {what} [{name}]")
+
+
+def grad_agreement(g_loss, g_grads, c_loss, c_grads) -> str:
+    """The train-parity rule: loss and every gradient leaf within
+    PARITY_TOL of the reference leaf's own max, except the leaves whose
+    gradient is 0 in exact arithmetic: the depthwise-conv bias (train-mode
+    BatchNorm subtracts the batch mean) and every attention key bias (it
+    shifts a query's scores over all keys alike, which softmax ignores).
+    Their gradient is rounding noise, so they are held to max abs diff <=
+    PARITY_TOL x the largest gradient of the step, and their reference
+    gradient must itself be below that. Raises beyond the bound; returns
+    the summary."""
     top = max(c.abs().max().item() for c in c_grads.values())
     errs, zero_leaves = {}, {}
     for n, c in c_grads.items():
@@ -793,18 +850,312 @@ def check_train_parity(dev, name):
     loss_err = abs(g_loss - c_loss) / abs(c_loss)
     zero_worst = max(d for d, _ in zero_leaves.values())
     zero_peak = max(p for _, p in zero_leaves.values())
-    log(f"train parity fp32 GPU vs CPU (2+1 layers, B={B}, T={T}): loss "
-        f"{g_loss:.6f} vs {c_loss:.6f} (rel {loss_err:.3g}); worst grads of "
-        f"{len(rel)} leaves held to their own max: "
-        f"{', '.join(f'{n} {errs[n]:.3g}' for n in rel[:-4:-1])}; "
-        f"{len(zero_leaves)} leaves with an exactly-0 gradient (depthwise-conv "
-        f"and key biases) held to the largest gradient: diff {zero_worst:.3g}, "
-        f"own max {zero_peak:.3g} of it (diff over own max up to "
-        f"{max(errs[n] for n in zero_leaves):.3g}); bound {PARITY_TOL} [{name}]")
+    what = (f"loss {g_loss:.6f} vs {c_loss:.6f} (rel {loss_err:.3g}); worst grads of "
+            f"{len(rel)} leaves held to their own max: "
+            f"{', '.join(f'{n} {errs[n]:.3g}' for n in rel[:-4:-1])}; "
+            f"{len(zero_leaves)} leaves with an exactly-0 gradient (depthwise-conv "
+            f"and key biases) held to the largest gradient: diff {zero_worst:.3g}, "
+            f"own max {zero_peak:.3g} of it (diff over own max up to "
+            f"{max(errs[n] for n in zero_leaves):.3g}); bound {PARITY_TOL}")
     worst = rel[-1]
     if (loss_err > PARITY_TOL or errs[worst] > PARITY_TOL
             or zero_worst > PARITY_TOL or zero_peak > PARITY_TOL):
-        raise RuntimeError("GPU and CPU train steps disagree beyond the bound")
+        raise RuntimeError(f"the train steps disagree beyond the bound: {what}")
+    return what
+
+
+# ------------------------------------------- the recipe on raw waves (a-f)
+
+
+def write_wave_corpus(root: str) -> str:
+    """80 train and 16 valid utterances of noise at varied loudness, 4-8 s
+    at 16 kHz (398-798 fbank frames), 24-48 tokens, as wav files with a
+    wav.scp and a text each; the vocabulary of write_corpus."""
+    from liteasr_tpu_torch.data import kaldi_io
+
+    rng = np.random.default_rng(SEED + 4)
+    out = os.path.join(root, "waves")
+    lo, hi = int(WAVE_MIN_S * WAVE_RATE), int(WAVE_MAX_S * WAVE_RATE)
+    for split, n in (("train", N_WAVE_TRAIN), ("valid", N_WAVE_VALID)):
+        d = os.path.join(out, split)
+        os.makedirs(d)
+        lens = rng.integers(lo, hi + 1, n)
+        lens[0] = hi
+        scp, text = [], []
+        for i, length in enumerate(lens):
+            uttid = f"{split}{i:03d}"
+            path = os.path.join(d, f"{uttid}.wav")
+            amp = 10.0 ** rng.uniform(-2.5, -0.7)
+            kaldi_io.write_wav(path, (rng.normal(size=int(length)) * amp).astype(np.float32),
+                               WAVE_RATE)
+            scp.append(f"{uttid} {path}")
+            words = rng.integers(0, VOCAB - 3, int(rng.integers(24, 49)))
+            text.append(f"{uttid} " + " ".join(f"w{w}" for w in words))
+        with open(os.path.join(d, "wav.scp"), "w") as f:
+            f.write("\n".join(scp) + "\n")
+        with open(os.path.join(d, "text"), "w") as f:
+            f.write("\n".join(text) + "\n")
+    return out
+
+
+def check_frontend(wave_root, dev, name):
+    """Phase a: fbank and SpecAugment of one train batch of 32 on the card
+    against the CPU, SpecAugment's contract, and both timed."""
+    from liteasr_tpu_torch.data import kaldi_io
+    from liteasr_tpu_torch.ops import fbank
+    from liteasr_tpu_torch.ops import spec_augment as sa
+    from liteasr_tpu_torch.utils.misc import round_up
+
+    with open(os.path.join(wave_root, "train", "wav.scp")) as f:
+        paths = [ln.split()[1] for ln in f][:TRAIN_BATCH]
+    waves = [kaldi_io.read_wav(p)[0].astype(np.float32) for p in paths]
+    x = np.zeros((len(waves), round_up(max(map(len, waves)), 128)), np.float32)
+    for i, w in enumerate(waves):
+        x[i, :len(w)] = w
+    xc = torch.from_numpy(x)
+    lc = torch.tensor([len(w) for w in waves], dtype=torch.int32)
+    xg, lg = xc.to(dev), lc.to(dev)
+    cpu_f, cpu_l = fbank.log_mel_fbank(xc, lc)
+    feats, flens = fbank.log_mel_fbank(xg, lg)
+    torch.cuda.synchronize()
+    empty = torch.from_numpy(fbank.mel_filterbank(FEAT, 512, WAVE_RATE).sum(0) == 0)
+    got = feats.cpu()
+    diff = (got - cpu_f).abs()
+    f_err = diff.max().item()
+    over = (diff > 1e-4).float().mean().item()
+    worst_bin = int(diff.amax(dim=(0, 1)).argmax())
+    if not (torch.equal(flens.cpu(), cpu_l) and f_err <= FBANK_TOL
+            and bool((got[..., empty] == 0).all()) and bool(torch.isfinite(got).all())):
+        raise RuntimeError(f"fbank card vs CPU: max abs err {f_err} (bound {FBANK_TOL}, "
+                           f"worst mel bin {worst_bin}), or an empty mel bin is not 0")
+    fbank_ms = cuda_time_ms(lambda: fbank.log_mel_fbank(xg, lg), reps=10, inner=5)
+
+    def augment(step):
+        return sa.spec_augment(feats, flens, sa.step_generator(SEED, step, dev), **SPEC_AUG)
+
+    a = augment(7)
+    if not torch.equal(a, augment(7)) or torch.equal(a, augment(8)):
+        raise RuntimeError("SpecAugment is not one result per (seed, step)")
+    draws = sa.draw(flens, FEAT, sa.step_generator(SEED, 7, dev),
+                    SPEC_AUG["time_warp"], SPEC_AUG["freq_mask"],
+                    SPEC_AUG["freq_mask_times"], SPEC_AUG["time_mask"],
+                    SPEC_AUG["time_mask_times"])
+    xl, W = flens.long(), SPEC_AUG["time_warp"]
+    in_range = [
+        (draws["center"] >= W) & (draws["center"] < torch.clamp(xl - W, min=W + 1)),
+        (draws["warped"] >= 1) & (draws["warped"] <= xl - 1),
+        (draws["freq_width"] < SPEC_AUG["freq_mask"]) & (draws["freq_start"] < FEAT),
+        (draws["time_width"] < SPEC_AUG["time_mask"]) & (draws["time_start"] < xl[:, None])]
+    if not all(bool(c.all()) for c in in_range):
+        raise RuntimeError("SpecAugment draws out of their ranges")
+    out = sa.apply(feats, flens, draws, W)
+    ref = sa.apply(feats.cpu(), flens.cpu(), {k: v.cpu() for k, v in draws.items()}, W)
+    sa_err = (out.cpu() - ref).abs().max().item()
+    if not within(out.cpu(), ref, SPEC_AUG_TOL):
+        raise RuntimeError(f"SpecAugment card vs CPU at the same draws: {sa_err}")
+    f_idx = torch.arange(FEAT, device=dev)
+    band = ((f_idx >= draws["freq_start"][..., None])
+            & (f_idx < (draws["freq_start"] + draws["freq_width"])[..., None])).any(1)
+    pad = torch.arange(feats.shape[1], device=dev)[None, :, None] >= xl[:, None, None]
+    keep = pad & ~band[:, None, :]
+    if not torch.equal(out[keep], feats[keep]) or torch.equal(out, feats):
+        raise RuntimeError("SpecAugment touched the padding outside its frequency "
+                           "masks, or did nothing")
+    sa_ms = cuda_time_ms(lambda: augment(7), reps=10, inner=5)
+    log(f"front end (batch of {len(waves)} waves of {x.shape[1]} samples -> "
+        f"{tuple(feats.shape)} fbank): card vs CPU max abs err {f_err:.3g} (bound "
+        f"{FBANK_TOL}; worst in mel bin {worst_bin}; {over:.3%} of the values differ "
+        f"by more than 1e-4; the {int(empty.sum())} empty mel filters 0); SpecAugment card vs CPU at the same draws "
+        f"{sa_err:.3g} (bound {SPEC_AUG_TOL}), draws in range, padding untouched "
+        f"outside the frequency masks, one result per (seed, step); fbank "
+        f"{fbank_ms:.4f} ms/batch, SpecAugment {sa_ms:.4f} ms/batch [{name}]")
+
+
+def valid_epochs(log_path):
+    with open(log_path) as f:
+        return [int(re.search(r"(\d+) / \S+ epochs - valid loss", ln).group(1))
+                for ln in f if "valid loss:" in ln]
+
+
+def run_recipe(fa, root, wave_root, dev, name):
+    """Phase b: the recipe through train.main, 1 epoch then a resume to 3.
+    Returns the run dir and the (K1, K1', K2) launches of both runs."""
+    from liteasr_tpu_torch import train
+
+    run = os.path.join(root, "recipe")
+    overrides = [
+        "task=asr", "model=my_U2", "criterion=my_hybrid_ctc", "optimizer=my_noam",
+        f"task.vocab={root}/vocab.txt", f"task.train={wave_root}/train",
+        f"task.valid={wave_root}/valid", f"task.test=[{wave_root}/valid]",
+        "task.delimiter=' '", f"task.save_dir={run}/ckpts", f"common.run_dir={run}",
+        f"common.seed={SEED}", "model.dtype=bfloat16", "model.dropout_rate=0.1",
+        "model.remat=true", "dataset.fbank=true", f"dataset.batch_size={TRAIN_BATCH}",
+        "dataset.max_len_in=200000", f"optimization.accum_grad={ACCUM}",
+        "optimization.clip_grad_norm=5.0"]  # postprocess: the default spec_aug on device
+    totals = [0, 0, 0]
+    trainers = []
+    for extra in (["optimization.max_epoch=1"],
+                  [f"optimization.max_epoch={RECIPE_EPOCHS}", "common.resume=auto"]):
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        trainer = train.main(overrides + extra, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        fwd, lse, bwd = counts(fa)
+        epochs = trainer.epoch - (trainers[-1].epoch if trainers else 0)
+        micro = trainer.step - (trainers[-1].step if trainers else 0)
+        n_valid = epochs * len(trainer.valid_set)
+        if (trainer.spec_aug is None or trainer.fbank_bins != FEAT
+                or not trainer.model.encoder.remat):
+            raise RuntimeError("the recipe run lacks fbank, SpecAugment or remat")
+        if (lse, bwd, fwd - lse) != (2 * ENC_LAYERS * micro, ENC_LAYERS * micro,
+                                     (ENC_LAYERS + 2 * DEC_LAYERS) * n_valid):
+            raise RuntimeError(f"launches K1' {lse}, K2 {bwd}, K1 {fwd - lse} for "
+                               f"{micro} micro-batches (remat) and {n_valid} valid batches")
+        losses = torch.stack(trainer._loss_accum).float().cpu()
+        if len(losses) != micro or not bool(torch.isfinite(losses).all()):
+            raise RuntimeError(f"recipe losses {losses.tolist()}")
+        log(f"recipe {'resumed ' if trainers else ''}to epoch {trainer.epoch}: "
+            f"{micro} micro-batches (iter {trainer.iter}, step {trainer.step}, "
+            f"{int(trainer.tx.count)} optimizer steps, {int(trainer.tx.notfinite_count)} "
+            f"skipped) in {secs:.2f} s incl. validation and checkpoints; losses "
+            f"{[round(v, 3) for v in losses.tolist()]}; K1' {lse} ({lse // max(micro, 1)}"
+            f"/micro-batch with the recompute), K2 {bwd}, K1 {fwd - lse} [{name}]")
+        if not trainers:
+            with open(os.path.join(run, "ckpts", "train_state.pt.meta")) as f:
+                meta = json.load(f)
+            if meta != {"iter": trainer.iter, "epoch": 1}:
+                raise RuntimeError(f"train_state meta {meta}")
+        elif (trainer.epoch, trainer.step) != (RECIPE_EPOCHS, RECIPE_EPOCHS * trainers[0].step):
+            raise RuntimeError(f"the resumed run ended at epoch {trainer.epoch}, "
+                               f"step {trainer.step}")
+        totals = [a + b for a, b in zip(totals, (fwd - lse, lse, bwd))]
+        trainers.append(trainer)
+    epochs = valid_epochs(os.path.join(run, "train.log"))
+    missing = [e for e in range(1, RECIPE_EPOCHS + 1)
+               if not os.path.isfile(os.path.join(run, "ckpts", f"model.ep.{e}.pt"))]
+    if epochs != list(range(1, RECIPE_EPOCHS + 1)) or missing:
+        raise RuntimeError(f"valid lines for epochs {epochs}, missing checkpoints {missing}")
+    log(f"recipe resume: iter {trainers[0].iter} -> {trainers[1].iter}, epoch 1 -> "
+        f"{trainers[1].epoch}; valid lines for epochs {epochs}, no event repeated; "
+        f"model.ep.1-{RECIPE_EPOCHS}.pt written [{name}]")
+    return run, totals
+
+
+def run_averaged_attention(fa, run, dev, name):
+    """Phase c: infer.infer of the recipe run, averaged N-best, attention
+    mode. Returns the K1 launches."""
+    from liteasr_tpu_torch import checkpoint, infer
+    from liteasr_tpu_torch.config import compose
+    from liteasr_tpu_torch.config.core import load_yaml
+
+    cfg = compose([f"inference.ckpt_name={RECIPE_EPOCHS}", "inference.model_avg=true",
+                   "inference.avg_num=2", f"inference.avg_policy={run}",
+                   "inference.mode=attention", f"inference.batch_size={N_WAVE_VALID}",
+                   f"inference.beam_size={BEAM}"],
+                  base=load_yaml(os.path.join(run, "config.yaml")))
+    history = checkpoint.parse_valid_history(os.path.join(run, "train.log"))
+    loss = {e: checkpoint._loss_for_epoch(history, e) for e in range(1, RECIPE_EPOCHS + 1)}
+    expected = sorted(loss, key=lambda e: (math.isnan(loss[e]), loss[e]))[:2]
+    picked = [checkpoint._ckpt_epoch(p) for p in checkpoint.pick_checkpoints(cfg.inference)]
+    if picked != expected:
+        raise RuntimeError(f"averaged epochs {picked}, parse_valid_history predicts {expected}")
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    results = infer.infer(cfg, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k1 = counts(fa)[0]
+    if k1 != ENC_LAYERS or results[0][1] <= 0:
+        raise RuntimeError(f"averaged attention decode: {results}, K1 {k1}")
+    log(f"infer model_avg=true avg_num=2 (N-best by valid loss {loss}): epochs {picked}, "
+        f"mode=attention beam {BEAM} on the {N_WAVE_VALID} raw-wave valid utterances in "
+        f"{secs:.2f} s incl. loading: error count {results[0][0]}/{results[0][1]}, "
+        f"K1 launches {k1} [{name}]")
+    return k1
+
+
+def check_beam_parity(task, dev, name):
+    """Phase e: the cached attention beam of 2 utterances in fp32 on the
+    card (encoder through K1) and on the CPU (plain path), with the decoder
+    projection scaled by 8 in both so that the posteriors are peaked."""
+    from liteasr_tpu_torch import decode
+
+    data = task.dataset("test").data[:2]
+    T = max(a.xlen for a in data)
+    xs = np.zeros((2, T, FEAT), np.float32)
+    for i, a in enumerate(data):
+        xs[i, :a.xlen] = a.x
+    xs, xlens = torch.from_numpy(xs), torch.tensor([a.xlen for a in data])
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        model = build_model(torch.float32, device)
+        with torch.no_grad():
+            model.decoder.linear_out.weight.mul_(8.0)
+            model.decoder.linear_out.bias.mul_(8.0)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            h_enc, enc_mask = model.encode(xs.to(device), xlens.to(device))
+            hyp, lens, scores = decode.attention_beam_search(model, h_enc, enc_mask, BEAM)
+        outs.append((hyp.cpu(), lens.cpu(), scores.cpu(), time.perf_counter() - t0))
+    (g_hyp, g_len, g_sc, g_s), (c_hyp, c_len, c_sc, c_s) = outs
+    s_err = (g_sc - c_sc).abs().max().item()
+    same = torch.equal(g_hyp, c_hyp) and torch.equal(g_len, c_len)
+    log(f"attention beam parity fp32 card vs CPU (2 utts, L={g_hyp.shape[1]}, beam "
+        f"{BEAM}): hypotheses {'identical' if same else 'DIFFER'} (lens "
+        f"{g_len.tolist()}), best scores {g_sc.tolist()} vs {c_sc.tolist()}, max abs "
+        f"diff {s_err:.3g} (bound {BEAM_SCORE_TOL}); {g_s:.2f} s card, {c_s:.2f} s CPU "
+        f"[{name}]")
+    if not same or not s_err <= BEAM_SCORE_TOL or not bool(torch.isfinite(g_sc).all()):
+        raise RuntimeError("the attention beam differs between the card and the CPU")
+
+
+def check_remat(dev, name):
+    """Phase f: remat on against off at bench.py's point: one fp32 step
+    (dropout 0.1, same seed and weights) held to the train-parity rule,
+    then the bf16 micro-step's time and peak memory, off and on."""
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
+
+    batch, B = bench_batch(dev)
+    crit = HybridCTCLoss(DotDict(vocab_size=VOCAB, padding_idx=-1, smoothing=0.1,
+                                 ctc_weight=0.3))
+    res = []
+    for remat in (True, False):
+        model = build_model(torch.float32, dev, dropout_rate=0.1, remat=remat)
+        torch.manual_seed(SEED)
+        model.seed_dropout(SEED)
+        loss, _ = crit(model, batch, train=True)
+        loss.backward()
+        res.append((loss.item(), {n: p.grad.detach().clone() for n, p in
+                                  model.named_parameters()}))
+        del model, loss
+    what = grad_agreement(res[0][0], res[0][1], res[1][0], res[1][1])
+    log(f"remat parity fp32 (B={B}, T=800, U=48, dropout 0.1), remat on vs off: "
+        f"{what} [{name}]")
+    del res
+    for remat in (False, True):
+        gc.collect()  # the trainers of earlier phases are reference cycles
+        torch.cuda.empty_cache()
+        step, _ = bench_step(dev, remat=remat)
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                loss = step()
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) / 5)
+        if not bool(torch.isfinite(loss)):
+            raise RuntimeError("non-finite loss in the remat timing")
+        log(f"train step bf16 at bench.py's point, remat {'on' if remat else 'off'}: "
+            f"median {statistics.median(reps) * 1e3:.2f} ms/micro-step (of 3 x 5), "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{name}]")
+        del step
+        torch.cuda.empty_cache()
 
 
 def load_baseline(root):
@@ -923,13 +1274,23 @@ def main() -> int:
         task.load_dataset("test", os.path.join(root, "test"))
         if task.vocab_size != VOCAB:
             raise RuntimeError(f"vocab size {task.vocab_size} != {VOCAB}")
-        decode_fwd = run_slice(fa, task, dev, name)
+        decode_fwd, rescore_s = run_slice(fa, task, dev, name)
         check_parity(task, dev, name)
         train_fwd, train_lse, train_bwd, ckpt_fwd = run_training(
             fa, root, dev, name)
+        time_train_step(dev, name)
+        check_train_parity(dev, name)
 
-    time_train_step(dev, name)
-    check_train_parity(dev, name)
+        wave_root = write_wave_corpus(root)
+        check_frontend(wave_root, dev, name)  # a
+        run, (recipe_fwd, recipe_lse, recipe_bwd) = run_recipe(
+            fa, root, wave_root, dev, name)  # b
+        avg_fwd = run_averaged_attention(fa, run, dev, name)  # c
+        attention_fwd, attention_s = run_slice(fa, task, dev, name, "attention")  # d
+        log(f"decode s/batch: attention {attention_s:.4f}, attention_rescore "
+            f"{rescore_s:.4f} (phase 4) [{name}]")
+        check_beam_parity(task, dev, name)  # e
+        check_remat(dev, name)  # f
 
     # rel_attention_fwd: ms / plain_ms are K1's per decoded batch (as since
     # the decode slice); the lse_* keys are K1' (lse + dropout) per call at
@@ -939,7 +1300,8 @@ def main() -> int:
         "route": "cuda",
         "source": "liteasr_tpu_torch/csrc/rel_attention_fwd.cu",
         "replaces": "liteasr_tpu/ops/flash_attention.py:177",
-        "launches": decode_fwd + train_fwd + ckpt_fwd,
+        "launches": (decode_fwd + train_fwd + ckpt_fwd + recipe_fwd + recipe_lse
+                     + avg_fwd + attention_fwd),
         "max_abs_err": max(k1["max_abs_err"], k2["fwd_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -952,7 +1314,7 @@ def main() -> int:
         "decoder_src_kv_lens_ms": k1["decoder_src_kv_lens_ms"],
         "decoder_src_kv_lens_bound_ms": k1["decoder_src_kv_lens_bound_ms"],
         "decoder_src_kv_lens_library_ms": k1["decoder_src_kv_lens_library_ms"],
-        "lse_launches": train_lse,
+        "lse_launches": train_lse + recipe_lse,
         "lse_max_abs_err": k2["fwd_err"],
         "lse_ms": k2["fwd_ms"],
         "lse_plain_ms": k2["fwd_plain_ms"],
@@ -964,7 +1326,7 @@ def main() -> int:
         "route": "cuda",
         "source": "liteasr_tpu_torch/csrc/rel_attention_bwd.cu",
         "replaces": "liteasr_tpu/ops/flash_attention.py:566",
-        "launches": train_bwd,
+        "launches": train_bwd + recipe_bwd,
         "max_abs_err": k2["bwd_err"],
         "ms": k2["bwd_ms"],
         "plain_ms": k2["bwd_plain_ms"],

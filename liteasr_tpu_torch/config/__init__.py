@@ -2,8 +2,8 @@
 
 The schema is the reference's, for training and inference, so that a
 config written by either package composes here unchanged. Options the port
-has not ported raise where they are read (train.py, trainer.py,
-models/u2.py), naming their ROADMAP item; ``common.prng_impl`` and
+has not ported raise where they are read (train.py, models/u2.py),
+naming their ROADMAP item; ``common.prng_impl`` and
 ``common.compile_cache_dir`` are JAX settings, accepted and without effect.
 """
 
@@ -40,11 +40,12 @@ class TriggerConfig(LiteasrDataclass):
 class CommonConfig(LiteasrDataclass):
     seed: int = 1
     trigger: List[TriggerConfig] = field(default_factory=list)
-    memory_save: bool = False  # not ported: raises
+    # stage the batchified train set to <train dir>/.dump, read it back lazily
+    memory_save: bool = False
     run_dir: str = "."  # where train.log / infer.log / config.yaml land
     log_level: str = "INFO"
-    profile_dir: Optional[str] = None  # not ported: raises
-    resume: Optional[str] = None  # not ported: raises
+    profile_dir: Optional[str] = None  # torch.profiler Chrome trace of the run
+    resume: Optional[str] = None  # auto | path of a train_state.pt
     prng_impl: str = "rbg"  # a JAX PRNG setting: no effect here
     compile_cache_dir: Optional[str] = None  # a JAX setting: no effect here
     # JSONL rows: one run_meta row at startup, one row per validation
@@ -70,7 +71,7 @@ class DatasetConfig(LiteasrDataclass):
     num_workers: int = 2  # host-side prefetch threads
     crop_multiple: int = 8000
     pad_batch_multiple: int = 4
-    # on-the-fly features from wav.scp waveforms: not ported (raises)
+    # on-the-fly log-mel features of wav.scp waveforms, on the device
     fbank: bool = False
     num_mel_bins: int = 80
 
@@ -91,8 +92,8 @@ class SpecAugmentConfig:
 class PostProcessConfig(LiteasrDataclass):
     spec_aug: SpecAugmentConfig = field(default_factory=SpecAugmentConfig)
     workflow: List[str] = field(default_factory=lambda: ["spec_aug"])
-    # true: augment on the device inside the step (not ported: raises when
-    # the workflow has spec_aug); false: per utterance on the host
+    # true: augment on the device inside the train step
+    # (ops/spec_augment.py); false: per utterance on the host
     on_device: bool = True
 
 

@@ -46,9 +46,17 @@ def dummy_min_xlen(raw_wave: bool) -> int:
     contract)."""
     if not raw_wave:
         return MIN_SUBSAMPLE_FRAMES
-    raise NotImplementedError(
-        "raw-wave datasets need the on-device fbank, which liteasr_tpu_torch "
-        "has not ported yet")
+    from inspect import signature
+
+    from liteasr_tpu_torch.ops import fbank
+
+    # enough samples for MIN_SUBSAMPLE_FRAMES fbank frames
+    sig = signature(fbank.log_mel_fbank).parameters
+    frame_length = sig["frame_length"].default
+    frame_shift = sig["frame_shift"].default
+    n = frame_length + (MIN_SUBSAMPLE_FRAMES - 1) * frame_shift
+    assert fbank.num_frames(n, frame_length, frame_shift) >= MIN_SUBSAMPLE_FRAMES
+    return n
 
 
 def ladder_up(n: int, multiple: int, ratio: float = 1.25) -> int:

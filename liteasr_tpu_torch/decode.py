@@ -1,12 +1,12 @@
-"""U2 decoding: CTC greedy, CTC prefix beam search and attention rescoring
-(liteasr_tpu/decode.py).
+"""U2 decoding: CTC greedy, CTC prefix beam search, attention rescoring and
+attention beam search (liteasr_tpu/decode.py).
 
 The reference runs these as jitted ``lax.scan``/``vmap`` programs. Here
 they run eagerly under ``torch.inference_mode()``: a Python loop over
-frames in place of the scan, a batch dimension in place of the vmap. The
-prefix beam keeps the reference's dense (B, K, Lmax) hypotheses and its
-pair of 32-bit rolling hashes (emulated in int64, masked to 32 bits), so
-both packages merge and rank the same candidates.
+frames (or output positions) in place of the scan, a batch dimension in
+place of the vmap. The prefix beam keeps the reference's dense (B, K, Lmax)
+hypotheses and its pair of 32-bit rolling hashes (emulated in int64, masked
+to 32 bits), so both packages merge and rank the same candidates.
 """
 
 from typing import List, Optional, Tuple
@@ -220,6 +220,87 @@ def attention_rescore(model, h_enc, enc_mask, prefixes, plens, ctc_scores,
     return best_hyp, plens.gather(1, best[:, None])[:, 0]
 
 
+def attention_beam_search(model, h_enc, enc_mask, beam_size: int = 10,
+                          max_decode_len: Optional[int] = None,
+                          use_cache: bool = True):
+    """Batched attention beam search (liteasr_tpu/decode.py:286-406).
+
+    ``use_cache`` (default) primes every decoder layer's source K/V once
+    and carries a self-attention K/V cache of (B*K, L+1, H, Dk) per layer,
+    written in place at each step and re-gathered along with the beams; the
+    recompute path runs the whole decoder over the (B*K, L+1) prefixes at
+    every step (through K1 on the card). L = ``max_decode_len`` or the
+    padded T' of ``h_enc``. A finished beam's only candidate is (eos, +0);
+    top-k puts the lower index first on ties, as ``lax.top_k`` does. The
+    loop stops early once every beam has finished: later steps would only
+    append eos at +0 and keep the order of the finite scores.
+
+    Returns (tokens (B, L) without sos, lens (B,) = position of the first
+    eos, scores (B,) of the best beams)."""
+    B, T, _ = h_enc.shape
+    K = beam_size
+    L = max_decode_len or T
+    sos, eos = model.sos, model.eos
+    dev = h_enc.device
+
+    hyps = torch.full((B, K, L + 1), eos, dtype=torch.int64, device=dev)
+    hyps[:, :, 0] = sos
+    scores = torch.full((B, K), float("-inf"), device=dev)
+    scores[:, 0] = 0.0
+    end_flag = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    init_scores = torch.full((K,), float("-inf"), device=dev)
+    init_scores[0] = 0.0
+    mem = h_enc.repeat_interleave(K, dim=0)
+    mem_mask = enc_mask.repeat_interleave(K, dim=0)
+    # beam k of batch row b is row b*K + k of every (B*K, ...) tensor
+    row0 = (torch.arange(B, device=dev) * K)[:, None]
+
+    def merge(hyps, scores, end_flag, logp_i, i):
+        score_topk, index_topk = _top_k(logp_i, K)  # (B*K, K)
+        score_topk = score_topk.reshape(B, K, K)
+        index_topk = index_topk.reshape(B, K, K)
+        score_topk = torch.where(end_flag[:, :, None], init_scores, score_topk)
+        index_topk = torch.where(end_flag[:, :, None], eos, index_topk)
+        comb = (scores[:, :, None] + score_topk).reshape(B, K * K)
+        new_scores, idx = _top_k(comb, K)
+        src_beam = idx // K
+        new_tok = index_topk.reshape(B, K * K).gather(1, idx)
+        new_hyps = hyps.gather(1, src_beam[:, :, None].expand(B, K, L + 1))
+        new_hyps[:, :, i] = new_tok
+        return new_hyps, new_scores, new_tok == eos, src_beam
+
+    if use_cache:
+        src_kv = model.decode_prime(mem)
+        k0 = src_kv[0][0]
+        caches = [tuple(torch.zeros((B * K, L + 1) + k0.shape[2:], dtype=k0.dtype,
+                                    device=dev) for _ in range(2))
+                  for _ in src_kv]
+    else:
+        causal = triangle_mask(L + 1, device=dev)[None]  # (1, L+1, L+1)
+
+    for i in range(1, L + 1):
+        if use_cache:
+            tok = hyps[:, :, i - 1].reshape(B * K)
+            logits = model.decode_step(tok, src_kv, caches, i - 1, mem_mask)
+        else:
+            logits = model.decode_logits(hyps.reshape(B * K, L + 1), mem, causal,
+                                         mem_mask)[:, i - 1]
+        logp_i = torch.log_softmax(logits.float(), dim=-1)
+        hyps, scores, end_flag, src_beam = merge(hyps, scores, end_flag, logp_i, i)
+        if use_cache:  # beam-reorder the cache rows along with the hyps
+            rows = (src_beam + row0).reshape(B * K)
+            caches = [(k.index_select(0, rows), v.index_select(0, rows))
+                      for k, v in caches]
+        if i % 8 == 0 and bool(end_flag.all()):
+            break
+
+    best = torch.argmax(scores, dim=1)
+    body = hyps.gather(1, best[:, None, None].expand(B, 1, L + 1))[:, 0, 1:]
+    is_eos = body == eos
+    lens = torch.where(is_eos.any(dim=1), is_eos.int().argmax(dim=1), L)
+    return body, lens, scores.gather(1, best[:, None])[:, 0]
+
+
 def ctc_greedy(ctc_logp: torch.Tensor, enc_lens: torch.Tensor, blank: int = 0):
     """Argmax collapse decode. Returns (tokens (B, T'), keep mask (B, T'))."""
     ids = torch.argmax(ctc_logp, dim=-1)
@@ -234,10 +315,17 @@ def decode_batch(model, xs, xlens, beam_size: int = 10,
                  mode: str = "attention_rescore") -> List[List[int]]:
     """Decode a padded batch of utterances (on the model's device).
     Returns a list of token-id lists."""
-    if mode not in ("ctc_greedy", "ctc_prefix_beam_search", "attention_rescore"):
+    if mode not in ("ctc_greedy", "ctc_prefix_beam_search", "attention_rescore",
+                    "attention"):
         raise NotImplementedError(f"decode mode {mode!r} is not ported")
     with torch.inference_mode():
         h_enc, enc_mask = model.encode(xs, xlens)
+        if mode == "attention":
+            hyp, lens, _ = attention_beam_search(model, h_enc, enc_mask,
+                                                 beam_size=beam_size)
+            hyp, lens = hyp.cpu(), lens.cpu()
+            return [[t for t in hyp[b, :int(lens[b])].tolist() if t != model.eos]
+                    for b in range(hyp.shape[0])]
         enc_lens = model.get_pred_len(xlens)
         ctc_logp = torch.log_softmax(model.ctc_logits(h_enc).float(), dim=-1)
         if mode == "ctc_greedy":

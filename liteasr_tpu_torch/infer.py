@@ -4,7 +4,10 @@ liteasr/infer.py:25-129).
 Usage: ``python -m liteasr_tpu_torch.infer --config-dir <run_dir>
 [overrides]``, where run_dir holds the resolved ``config.yaml`` of a
 training run. The test set is decoded in length-sorted batches on one
-``torch.device``.
+``torch.device``, by ``inference.mode`` (default ``attention_rescore``),
+with the checkpoint, or the average of checkpoints, that
+``checkpoint.load_ckpt`` picks; raw-wave test sets (``dataset.fbank``) get
+their log-mel features on the device.
 """
 
 import logging
@@ -19,6 +22,7 @@ from liteasr_tpu_torch import decode, tasks
 from liteasr_tpu_torch.checkpoint import load_ckpt
 from liteasr_tpu_torch.config import compose
 from liteasr_tpu_torch.config.core import load_yaml
+from liteasr_tpu_torch.ops.fbank import log_mel_fbank
 from liteasr_tpu_torch.utils.misc import round_up
 from liteasr_tpu_torch.utils.score import levenshtein
 
@@ -55,9 +59,7 @@ def infer_dataset(task, model, dataset, infer_cfg, device: torch.device,
         device = torch.device("cuda", torch.cuda.current_device())
     if next(model.parameters()).device != device:
         raise ValueError(f"the model is not on {device}")
-    if bool(getattr(dataset, "fbank", False)):
-        raise NotImplementedError(
-            "dataset.fbank=true: on-device fbank features are not ported yet")
+    fbank = bool(getattr(dataset, "fbank", False))
 
     batch_size = int(infer_cfg.get("batch_size", 8))
     beam_size = int(infer_cfg.get("beam_size", 10))
@@ -68,13 +70,16 @@ def infer_dataset(task, model, dataset, infer_cfg, device: torch.device,
     for lo in range(0, len(data), batch_size):
         chunk = data[lo:lo + batch_size]
         T = round_up(max(a.xlen for a in chunk), pad_time_multiple)
-        xs = np.zeros((len(chunk), T, dataset.feat_dim), np.float32)
+        xs = np.zeros((len(chunk), T) if fbank else (len(chunk), T, dataset.feat_dim),
+                      np.float32)
         xlens = np.array([a.xlen for a in chunk], np.int64)
         for i, a in enumerate(chunk):
             xs[i, : a.xlen] = a.x
+        xs, xlens = torch.from_numpy(xs).to(device), torch.from_numpy(xlens).to(device)
+        if fbank:  # raw waves (samples) -> log-mel features on the device
+            xs, xlens = log_mel_fbank(xs, xlens, num_mel_bins=dataset.num_mel_bins)
         hyps = decode.decode_batch(
-            model, torch.from_numpy(xs).to(device),
-            torch.from_numpy(xlens).to(device), beam_size=beam_size,
+            model, xs, xlens.long(), beam_size=beam_size,
             ctc_weight=ctc_weight,
             mode=str(infer_cfg.get("mode", "attention_rescore")))
         for a, hyp_ids in zip(chunk, hyps):

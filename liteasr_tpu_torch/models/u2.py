@@ -2,9 +2,9 @@
 Special ids: blank=0, sos=eos=V-1, ignore=-1.
 
 ``forward(..., train=True)`` is the training forward, with every dropout of
-the reference and BatchNorm on batch statistics. Dynamic and static chunk
-masks and remat are not ported and raise. Decoding lives in
-:mod:`liteasr_tpu_torch.decode`.
+the reference and BatchNorm on batch statistics; ``remat=True`` recomputes
+the encoder layers in the backward pass. Dynamic and static chunk masks are
+not ported and raise. Decoding lives in :mod:`liteasr_tpu_torch.decode`.
 """
 
 from dataclasses import dataclass, field
@@ -91,7 +91,7 @@ class U2(LiteasrModel):
                  dec_pos_dropout_rate: float = 0.0,
                  dec_self_attn_dropout_rate: float = 0.0,
                  dec_src_attn_dropout_rate: float = 0.0,
-                 dec_ff_dropout_rate: float = 0.0, *,
+                 dec_ff_dropout_rate: float = 0.0, remat: bool = False, *,
                  dtype: torch.dtype = torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -109,7 +109,7 @@ class U2(LiteasrModel):
             normalize_before=normalize_before, dropout_rate=enc_dropout_rate,
             pos_dropout_rate=enc_pos_dropout_rate,
             attn_dropout_rate=enc_attn_dropout_rate,
-            ff_dropout_rate=enc_ff_dropout_rate, **kw)
+            ff_dropout_rate=enc_ff_dropout_rate, remat=remat, **kw)
         self.decoder = TransformerDecoder(
             vocab_size, dec_dim, dec_ff_dim, dec_attn_heads, dec_layers,
             normalize_before, dec_dropout_rate, dec_pos_dropout_rate,
@@ -170,6 +170,17 @@ class U2(LiteasrModel):
         return self.decoder(ys_in, h_enc, mask=mask, memory_mask=enc_mask,
                             memory_mask_presubsampled=True)
 
+    def decode_prime(self, h_enc):
+        """Every decoder layer's source K/V, projected once for the cached
+        beam search (liteasr_tpu/models/u2.py:200-202)."""
+        return self.decoder.prime(h_enc)
+
+    def decode_step(self, tok, src_kv, self_caches, index: int, enc_mask=None):
+        """One KV-cached decoder step: ``tok`` (B,) at position ``index``;
+        ``enc_mask`` (B, T') True = padding. Returns logits (B, V)."""
+        mem_mask = enc_mask[:, None, None, :] if enc_mask is not None else None
+        return self.decoder.step(tok, src_kv, self_caches, index, mem_mask)
+
     def forward(self, xs, xlens, ys, ylens, train: bool = False):
         """Training forward: (h_attn (B, L+1, V), h_ctc (B, T', V))
         (liteasr_tpu/models/u2.py:149-173): ignore -> eos, sos prepended,
@@ -203,8 +214,8 @@ class U2(LiteasrModel):
 
     @classmethod
     def build_model(cls, cfg, task=None, device=None, generator=None):
-        """Build from the composed config. Raises on the streaming and remat
-        options this package has not ported."""
+        """Build from the composed config. Raises on the streaming options
+        this package has not ported."""
         if task is not None:
             cfg.input_dim = task.feat_dim
             cfg.vocab_size = task.vocab_size
@@ -213,9 +224,6 @@ class U2(LiteasrModel):
                 raise NotImplementedError(
                     f"model.{key}: streaming encoders are not ported yet "
                     "(ROADMAP queue item 6)")
-        if cfg.get("remat"):
-            raise NotImplementedError(
-                "model.remat: rematerialized encoder layers are not ported")
         if str(cfg.get("dec_arch", "transformer")) != "transformer":
             raise NotImplementedError(f"dec_arch {cfg.dec_arch!r} is not ported")
         dtype = str(cfg.get("dtype", "float32"))
@@ -237,6 +245,7 @@ class U2(LiteasrModel):
             dec_attn_heads=int(cfg.dec_attn_heads),
             dec_layers=int(cfg.dec_layers),
             **{key: float(cfg.get(key, 0.0)) for key in _DROPOUTS},
+            remat=bool(cfg.get("remat", False)),
             dtype=_DTYPES[dtype],
             device=device,
             generator=generator,

@@ -18,7 +18,7 @@ liteasr_tpu/nets/attention.py:35-44). A train-mode rel-pos attention with
 any other mask (the streaming encoders' chunk masks) raises.
 """
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -90,19 +90,49 @@ class MultiHeadAttention(nn.Module):
         x = torch.einsum("bhqk,bkhd->bqhd", attn, v.to(self.compute_dtype))
         return self.linear_o(x.reshape(x.shape[0], x.shape[1], -1))
 
+    def _plain(self, q, k, v, mask: Optional[torch.Tensor], train: bool):
+        """The reference's XLA attention: fp32 scores by einsum, then
+        :meth:`apply_attention`."""
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        return self.apply_attention(scores * self.d_k ** -0.5, v, mask, train)
+
     def forward(self, query, key, value, mask: Optional[torch.Tensor] = None,
                 train: bool = False):
         q, k, v = self.project_qkv(query, key, value)
         if not train:
             return self._attend(q, k, v, mask)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-        return self.apply_attention(scores * self.d_k ** -0.5, v, mask, train)
+        return self._plain(q, k, v, mask, train)
+
+    # ---- cached decoding (liteasr_tpu/nets/attention.py:112-144), plain
+    # like the reference's; the same parameters as forward
+
+    def prime_kv(self, memory) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``mode="prime_kv"``: the memory's K and V, (B, Tk, H, Dk),
+        projected once for every decode step."""
+        return self._heads(self.linear_k(memory)), self._heads(self.linear_v(memory))
+
+    def step_src(self, query, src_kv, mask: Optional[torch.Tensor]):
+        """``mode="step_src"``: the (B, 1, D) query against the primed
+        ``src_kv``; ``mask`` (B, 1, 1, Tk) or None."""
+        return self._plain(self._heads(self.linear_q(query)), *src_kv, mask, False)
+
+    def step_self(self, query, cache, index: int):
+        """``mode="step_self"``: the (B, 1, D) token at position ``index``.
+        ``cache`` is (k, v), each (B, L, H, Dk); its row ``index`` is
+        written in place, and the rows past it (stale) are masked."""
+        q, k_t, v_t = self.project_qkv(query, query, query)
+        k, v = cache
+        k[:, index] = k_t[:, 0].to(k.dtype)
+        v[:, index] = v_t[:, 0].to(v.dtype)
+        future = (torch.arange(k.shape[1], device=k.device) > index)[None, None, None, :]
+        return self._plain(q, k, v, future, False)
 
 
 class RelativeMultiHeadAttention(MultiHeadAttention):
     """Rel-pos MHA with learnable content/position biases u, v
     (liteasr_tpu/nets/attention.py:228-381). ``generator`` (CPU) draws the
-    int32 seed of the kernels' dropout hash, one per train-mode call."""
+    int32 seed of the kernels' dropout hash, one per train-mode call
+    (:meth:`draw_seed`)."""
 
     def __init__(self, d_model: int, n_head: int, dropout_rate: float = 0.0,
                  *, dtype: torch.dtype = torch.float32, device=None):
@@ -120,10 +150,18 @@ class RelativeMultiHeadAttention(MultiHeadAttention):
         xavier_uniform_(self.pos_bias_u, generator)
         xavier_uniform_(self.pos_bias_v, generator)
 
-    def _flash_train(self, q_u, q_v, k, v, p, mask):
+    def draw_seed(self) -> int:
+        """The int32 seed of one train-mode call's dropout hash, from
+        ``generator`` (0 without dropout: nothing is drawn)."""
+        if self.dropout_rate <= 0.0:
+            return 0
+        return int(torch.randint(-2 ** 31, 2 ** 31, (), generator=self.generator))
+
+    def _flash_train(self, q_u, q_v, k, v, p, mask, seed: Optional[int]):
         """(B, T, H, Dk) heads -> K3 -> out proj (``_flash_train``,
         liteasr_tpu/nets/attention.py:248-293). ``mask`` is None or
-        (B, 1, 1, Tk) suffix padding, compressed to per-row lengths."""
+        (B, 1, 1, Tk) suffix padding, compressed to per-row lengths.
+        ``seed`` None draws one."""
         B, Tq, H, Dk = q_u.shape
 
         def fold(x):
@@ -133,9 +171,8 @@ class RelativeMultiHeadAttention(MultiHeadAttention):
         if mask is not None:
             kv_lens = (~mask[:, 0, 0, :]).sum(dim=-1, dtype=torch.int32)
             kv_lens = kv_lens.repeat_interleave(H)
-        seed = 0
-        if self.dropout_rate > 0.0:
-            seed = int(torch.randint(-2 ** 31, 2 ** 31, (), generator=self.generator))
+        if seed is None:
+            seed = self.draw_seed()
         out = flash_rel_attention_train(
             fold(q_u), fold(q_v), fold(k), fold(v), p, kv_lens, seed,
             Dk ** -0.5, self.dropout_rate)
@@ -143,7 +180,12 @@ class RelativeMultiHeadAttention(MultiHeadAttention):
         return self.linear_o(out.to(self.compute_dtype).reshape(B, Tq, H * Dk))
 
     def forward(self, query, key, value, pos_emb,
-                mask: Optional[torch.Tensor] = None, train: bool = False):
+                mask: Optional[torch.Tensor] = None, train: bool = False,
+                dropout_seed: Optional[int] = None):
+        """``dropout_seed``: the kernels' dropout seed of a train-mode call
+        drawn by the caller (a rematerialized layer draws it once, outside
+        the recomputed region, so that the recompute regenerates the same
+        mask); None draws it here."""
         q, k, v = self.project_qkv(query, key, value)
         # pos_emb is (1, T, D), shared across the batch: table (H, T, Dk)
         p = self._heads(self.linear_pos(pos_emb))[0].transpose(0, 1)
@@ -156,4 +198,5 @@ class RelativeMultiHeadAttention(MultiHeadAttention):
             raise NotImplementedError(
                 "train-mode rel-pos attention with a chunk mask: streaming "
                 "encoders are not ported yet (ROADMAP queue item 6)")
-        return self._flash_train(q_u, q_v, k, v, p.contiguous(), mask)
+        return self._flash_train(q_u, q_v, k, v, p.contiguous(), mask,
+                                 dropout_seed)

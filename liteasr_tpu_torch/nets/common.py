@@ -94,17 +94,29 @@ class PositionwiseFeedForward(nn.Module):
         return self.fc2(x)
 
 
+def _sinusoid(position: torch.Tensor, dim: int) -> torch.Tensor:
+    """(N, dim) sin and cos INTERLEAVED at the fp32 ``position`` (N,)."""
+    div_term = torch.exp(
+        torch.arange(0, dim, 2, dtype=torch.float32, device=position.device)
+        * -(math.log(10000.0) / dim))
+    rad = position[:, None] * div_term
+    return torch.stack([torch.sin(rad), torch.cos(rad)], dim=-1).reshape(-1, dim)
+
+
 def sinusoidal_pe(length: int, dim: int, dtype=torch.float32,
                   device=None) -> torch.Tensor:
-    """(1, length, dim) table with sin and cos INTERLEAVED
-    (liteasr_tpu/nets/common.py:79-89)."""
-    position = torch.arange(length, dtype=torch.float32, device=device)[:, None]
-    div_term = torch.exp(
-        torch.arange(0, dim, 2, dtype=torch.float32, device=device)
-        * -(math.log(10000.0) / dim))
-    rad = position * div_term
-    pe = torch.stack([torch.sin(rad), torch.cos(rad)], dim=-1)
-    return pe.reshape(length, dim)[None].to(dtype)
+    """(1, length, dim) table (liteasr_tpu/nets/common.py:79-89)."""
+    position = torch.arange(length, dtype=torch.float32, device=device)
+    return _sinusoid(position, dim)[None].to(dtype)
+
+
+def sinusoidal_pe_at(pos: int, dim: int, dtype=torch.float32,
+                     device=None) -> torch.Tensor:
+    """(1, 1, dim) embedding at one position, the single-step counterpart
+    of :func:`sinusoidal_pe` for cached decoding
+    (liteasr_tpu/nets/common.py:92-99)."""
+    position = torch.full((1,), float(pos), dtype=torch.float32, device=device)
+    return _sinusoid(position, dim)[None].to(dtype)
 
 
 def positional_encoding(x: torch.Tensor, dropout_rate: float = 0.0,

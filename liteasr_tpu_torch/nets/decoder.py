@@ -1,16 +1,20 @@
-"""Transformer decoder, full mode (liteasr_tpu/nets/decoder.py).
+"""Transformer decoder (liteasr_tpu/nets/decoder.py).
 
 embed -> PE -> N DecoderLayers (self + src attention) -> LayerNorm ->
-vocab projection.
+vocab projection. ``forward`` is full mode; ``prime`` and ``step`` are the
+KV-cached decode of the attention beam search (``mode="prime"`` /
+``"step"``, liteasr_tpu/nets/decoder.py:65-84).
 """
 
-from typing import Optional
+import math
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from liteasr_tpu_torch.nets.common import Dense, LayerNorm, positional_encoding
+from liteasr_tpu_torch.nets.common import (
+    Dense, LayerNorm, positional_encoding, sinusoidal_pe_at)
 from liteasr_tpu_torch.nets.encoder import subsample_mask
 from liteasr_tpu_torch.nets.layers import DecoderLayer
 
@@ -59,3 +63,24 @@ class TransformerDecoder(nn.Module):
             y = getattr(self, f"layer_{i}")(y, memory, mask, memory_mask,
                                             train)
         return self.linear_out(self.after_norm(y))
+
+    def prime(self, memory) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Every layer's source K/V of ``memory`` (B, T', D), each
+        (B, T', H, Dk), projected once."""
+        return [getattr(self, f"layer_{i}").src_attn.prime_kv(memory)
+                for i in range(self.n_layer)]
+
+    def step(self, tok, src_kv, self_caches, index: int,
+             memory_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One decode step: ``tok`` (B,) ids at position ``index``;
+        ``self_caches`` a per-layer list of (k, v), each (B, L, H, Dk),
+        written in place at ``index``; ``memory_mask`` (B, 1, 1, T') or None.
+        Returns the logits (B, V)."""
+        dt = self.compute_dtype
+        y = F.embedding(tok[:, None], self.embed.weight.to(dt))  # (B, 1, D)
+        d = y.shape[-1]
+        y = y * math.sqrt(d) + sinusoidal_pe_at(index, d, y.dtype, y.device)
+        for i in range(self.n_layer):
+            y = getattr(self, f"layer_{i}").step(y, src_kv[i], self_caches[i],
+                                                 index, memory_mask)
+        return self.linear_out(self.after_norm(y))[:, 0]

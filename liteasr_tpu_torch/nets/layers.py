@@ -33,6 +33,9 @@ class BatchNorm(nn.Module):
     def __init__(self, channels: int, eps: float = 1e-5, device=None):
         super().__init__()
         self.eps = eps
+        # False while a rematerialized layer recomputes its forward: the
+        # first forward already moved the running statistics
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("running_mean", torch.zeros(channels, device=device))
@@ -41,6 +44,8 @@ class BatchNorm(nn.Module):
     def forward(self, x, train: bool = False):
         if train:
             y, mean, var = train_batch_norm(x, self.weight, self.bias, self.eps)
+            if not self.update_stats:
+                return y
             m = self.momentum
             with torch.no_grad():  # in place, like flax's mutable batch_stats
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -112,9 +117,9 @@ class EncoderLayer(nn.Module):
         self.feed_forward = PositionwiseFeedForward(d, ff_dim, activation,
                                                     ff_dropout_rate, **kw)
 
-    def _attn(self, y, pos_emb, mask, train):
+    def _attn(self, y, pos_emb, mask, train, attn_seed):
         if self.use_rel:
-            return self.self_attn(y, y, y, pos_emb, mask, train)
+            return self.self_attn(y, y, y, pos_emb, mask, train, attn_seed)
         return self.self_attn(y, y, y, mask, train)
 
     def _res(self, x, norm, fn, train, scale=1.0):
@@ -122,9 +127,12 @@ class EncoderLayer(nn.Module):
                          scale)
 
     def forward(self, x, pos_emb=None, mask: Optional[torch.Tensor] = None,
-                train: bool = False):
+                train: bool = False, attn_seed: Optional[int] = None):
+        """``attn_seed``: the rel-pos attention's dropout seed, drawn by the
+        caller (see ``RelativeMultiHeadAttention.forward``)."""
         x = self._res(x, self.self_attn_norm,
-                      lambda y: self._attn(y, pos_emb, mask, train), train)
+                      lambda y: self._attn(y, pos_emb, mask, train, attn_seed),
+                      train)
         return self._res(x, self.feed_forward_norm,
                          lambda y: self.feed_forward(y, train), train)
 
@@ -151,12 +159,13 @@ class ConformerLayer(EncoderLayer):
         self.final_norm = LayerNorm(d, **kw)
 
     def forward(self, x, pos_emb=None, mask: Optional[torch.Tensor] = None,
-                train: bool = False):
+                train: bool = False, attn_seed: Optional[int] = None):
         x = self._res(x, self.feed_forward_macaron_norm,
                       lambda y: self.feed_forward_macaron(y, train), train,
                       scale=0.5)
         x = self._res(x, self.self_attn_norm,
-                      lambda y: self._attn(y, pos_emb, mask, train), train)
+                      lambda y: self._attn(y, pos_emb, mask, train, attn_seed),
+                      train)
         x = self._res(x, self.conv_norm, lambda y: self.conv(y, train), train)
         x = self._res(x, self.feed_forward_norm,
                       lambda y: self.feed_forward(y, train), train, scale=0.5)
@@ -164,7 +173,8 @@ class ConformerLayer(EncoderLayer):
 
 
 class DecoderLayer(nn.Module):
-    """Self-attn + src-attn + FF, full mode."""
+    """Self-attn + src-attn + FF: full mode (``forward``) and the cached
+    decode step (``step``; liteasr_tpu/nets/layers.py:246-276)."""
 
     def __init__(self, d: int, n_head: int, ff_dim: int,
                  normalize_before: bool = True, dropout_rate: float = 0.0,
@@ -198,3 +208,15 @@ class DecoderLayer(nn.Module):
         return _residual(y, self.feed_forward_norm,
                          lambda z: self.feed_forward(z, train), pre, rate,
                          train)
+
+    def step(self, y, src_kv, self_cache, index: int, memory_mask=None):
+        """One (B, 1, D) token at position ``index`` (``mode="step"``, pre-LN
+        only, as in the reference): ``self_cache`` (k, v) is written in
+        place at ``index``; ``src_kv`` is :meth:`MultiHeadAttention.prime_kv`
+        of the memory; ``memory_mask`` (B, 1, 1, T') or None."""
+        if not self.pre:
+            raise ValueError("cached decoding assumes pre-LN layers "
+                             "(normalize_before=True)")
+        y = y + self.self_attn.step_self(self.self_attn_norm(y), self_cache, index)
+        y = y + self.src_attn.step_src(self.src_attn_norm(y), src_kv, memory_mask)
+        return y + self.feed_forward(self.feed_forward_norm(y), False)

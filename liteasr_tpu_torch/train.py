@@ -10,7 +10,8 @@ Trains on ``cuda:0``; a caller of :func:`train` may pass another device
 --config-dir <run_dir>`` decodes the checkpoints it saves.
 
 Options the port has not ported raise ``NotImplementedError``, naming the
-ROADMAP item that ports them.
+ROADMAP item that ports them: multi-device layouts here, the streaming
+encoder options in ``models.u2.U2.build_model``.
 """
 
 import logging
@@ -49,29 +50,10 @@ def setup_logging(run_dir: str, level: str = "INFO",
 
 def check_ported(cfg) -> None:
     """Raise on the options the port does not have yet."""
-    common, dist = cfg.common, cfg.distributed
-    pp = cfg.get("postprocess") or {}
-    unported = [
-        (pp.get("on_device", False) and "spec_aug" in (pp.get("workflow") or []),
-         "postprocess.on_device=true with spec_aug: device SpecAugment is "
-         "ROADMAP item 3 (pass postprocess.on_device=false for the host "
-         "SpecAugment, or postprocess.workflow=[])"),
-        (cfg.dataset.get("fbank", False),
-         "dataset.fbank: on-the-fly fbank features are ROADMAP item 4"),
-        (common.get("resume"),
-         "common.resume: resuming a training state is ROADMAP item 2"),
-        (common.get("memory_save"),
-         "common.memory_save: staged dataset loading is ROADMAP item 2"),
-        (common.get("profile_dir"),
-         "common.profile_dir: profiling from the trainer is ROADMAP item 2"),
-        (any(int(dist.get(a) or 1) > 1 for a in ("dp", "tp", "sp")),
-         "distributed.dp/tp/sp > 1: multi-device training is ROADMAP item 9"),
-        ((cfg.model or {}).get("remat"),
-         "model.remat: rematerialized encoder layers are ROADMAP item 2"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(what)
+    dist = cfg.distributed
+    if any(int(dist.get(a) or 1) > 1 for a in ("dp", "tp", "sp")):
+        raise NotImplementedError(
+            "distributed.dp/tp/sp > 1: multi-device training is ROADMAP item 9")
 
 
 def train(cfg, device: Optional[torch.device] = None):
@@ -100,7 +82,11 @@ def train(cfg, device: Optional[torch.device] = None):
     logger.info("setting %s task...", task.__class__.__name__)
 
     logger.info("1. load data...")
-    task.load_dataset("train", task.cfg.train, cfg.dataset, cfg.postprocess)
+    # common.memory_save: the batchified train set is staged to
+    # <train dir>/.dump and read back one batch at a time (one process, so
+    # no barrier; liteasr_tpu/train.py:90-111)
+    task.load_dataset("train", task.cfg.train, cfg.dataset, cfg.postprocess,
+                      memory_save=bool(cfg.common.get("memory_save")))
     task.load_dataset("valid", task.cfg.valid, cfg.dataset, cfg.postprocess)
 
     generator = torch.Generator().manual_seed(seed)

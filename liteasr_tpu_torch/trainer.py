@@ -1,13 +1,24 @@
 """Trainer: the train step on one ``torch.device`` and the host event loop
 (liteasr_tpu/trainer.py; reference liteasr/trainer.py:28-227).
 
-One micro-step is the criterion's forward (dropout on, BatchNorm on batch
+One micro-step is the front end (log-mel fbank of raw-wave batches, then
+SpecAugment when ``postprocess.on_device`` and the workflow has
+``spec_aug``), the criterion's forward (dropout on, BatchNorm on batch
 statistics), ``backward`` and :class:`optims.fused_step.FusedAdam`'s update,
 which accumulates ``accum_grad`` micro-steps, clips the mean gradient's
 global norm and skips a non-finite step. As in the reference, BatchNorm's
 running statistics move on every micro-step, a skipped one included
 (liteasr_tpu/trainer.py:268-272). The trigger events ``report_loss``,
 ``valid``, ``save_model`` and ``inference`` run on the host between steps.
+
+``save_model`` also writes ``train_state.pt`` (and ``.meta`` with ``iter``
+and ``epoch``) to ``task.save_dir``: the model's state_dict, the
+optimizer's moments, counts and partial accumulation, the micro-step count
+that seeds SpecAugment, and the generators of every dropout.
+``common.resume`` (``auto`` or a path) restores it, so that a resumed run
+continues as the uninterrupted one would have (liteasr_tpu/trainer.py:
+314-375). ``common.profile_dir`` traces the run with ``torch.profiler``
+into a Chrome trace there.
 """
 
 import hashlib
@@ -22,8 +33,12 @@ import torch
 
 from liteasr_tpu_torch.checkpoint import CKPT_TEMPLATE
 from liteasr_tpu_torch.data.loader import EpochDataLoader
+from liteasr_tpu_torch.ops.fbank import log_mel_fbank
+from liteasr_tpu_torch.ops.spec_augment import spec_augment, step_generator
 from liteasr_tpu_torch.optims.fused_step import build_tx
 from liteasr_tpu_torch.utils.trigger import EventManager
+
+TRAIN_STATE = "train_state.pt"
 
 logger = logging.getLogger(__name__)
 
@@ -49,6 +64,7 @@ class Trainer:
         self.optimizer = optimizer
         self.device = torch.device(device)
         self.iter = 0
+        self.step = 0  # micro-steps taken (the JAX TrainState.step)
         self._loss_accum = []
         self._report_time = time.time()
         self._report_utts = 0
@@ -62,13 +78,43 @@ class Trainer:
         n_params = sum(p.numel() for p in self.params)
         logger.info("model parameters: %.2fM", n_params / 1e6)
         self.tx = build_tx(optimizer, cfg.optimization, self.params)
+        self.fbank_bins = (int(cfg.dataset.get("num_mel_bins", 80))
+                           if cfg.dataset.get("fbank", False) else None)
+        pp = cfg.get("postprocess") or {}
+        self.spec_aug = None
+        if pp.get("on_device", False) and "spec_aug" in (pp.get("workflow") or []):
+            sa = pp.get("spec_aug") or {}
+            self.spec_aug = dict(
+                time_warp=int(sa.get("time_warp", 5)),
+                time_warp_mode=str(sa.get("time_warp_mode", "bicubic")),
+                freq_mask=int(sa.get("freq_mask", 30)),
+                freq_mask_times=int(sa.get("freq_mask_times", 2)),
+                time_mask=int(sa.get("time_mask", 40)),
+                time_mask_times=int(sa.get("time_mask_times", 2)),
+                replace_with_zero=bool(sa.get("replace_with_zero", False)))
+        self._maybe_resume()
         self._emit_run_meta(n_params)
         self._add_events()
 
     # ------------------------------------------------------------- step
 
+    def frontend(self, batch):
+        """Raw-wave batches (B, S) -> log-mel features (B, T, bins) on the
+        device (liteasr_tpu/trainer.py:301-312); features pass through."""
+        if self.fbank_bins is None or batch["xs"].dim() != 2:
+            return batch
+        feats, feat_lens = log_mel_fbank(batch["xs"], batch["xlens"],
+                                         num_mel_bins=self.fbank_bins)
+        return dict(batch, xs=feats, xlens=feat_lens.long())
+
     def train_step(self, batch) -> torch.Tensor:
         """One micro-step on a device batch; returns the detached loss."""
+        batch = self.frontend(batch)
+        if self.spec_aug is not None:
+            gen = step_generator(self.cfg.common.seed, self.step, self.device)
+            batch = dict(batch, xs=spec_augment(batch["xs"], batch["xlens"], gen,
+                                                **self.spec_aug))
+        self.step += 1
         loss, _ = self.criterion(self.model, batch, train=True)
         loss.backward()
         self.tx.update([p.grad for p in self.params])
@@ -78,8 +124,80 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch):
-        loss, aux = self.criterion(self.model, batch, train=False)
+        loss, aux = self.criterion(self.model, self.frontend(batch), train=False)
         return loss, aux
+
+    # ------------------------------------------------------------ resume
+
+    def _train_state_path(self) -> str:
+        return os.path.join(self.task.save_dir, TRAIN_STATE)
+
+    def _rng_state(self) -> dict:
+        rng = {"cpu": torch.get_rng_state(),
+               "dropout": self.model.dropout_generator.get_state()}
+        if self.device.type == "cuda":
+            rng["cuda"] = torch.cuda.get_rng_state(self.device)
+        return rng
+
+    def _save_train_state(self):
+        tx = self.tx
+        state = {
+            "model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
+            "optimizer": {
+                "mu": tx.mu.cpu(), "nu": tx.nu.cpu(), "count": tx.count.cpu(),
+                "notfinite_count": tx.notfinite_count.cpu(),
+                "acc": None if tx.acc is None else tx.acc.cpu(),
+                "mini_step": tx.mini_step},
+            "step": self.step,
+            "rng": self._rng_state(),
+        }
+        path = self._train_state_path()
+        torch.save(state, path)
+        with open(path + ".meta", "w") as f:
+            json.dump({"iter": self.iter, "epoch": self.epoch}, f)
+
+    def _maybe_resume(self):
+        resume = self.cfg.common.get("resume")
+        if not resume:
+            return
+        path = str(resume) if resume != "auto" and os.path.isfile(str(resume)) \
+            else self._train_state_path()
+        if not os.path.isfile(path):
+            logger.warning("resume requested but %s not found; starting fresh", path)
+            return
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        tx, opt = self.tx, state["optimizer"]
+        try:
+            self.model.load_state_dict(state["model"], strict=True)
+            if opt["mu"].shape != tx.mu.shape or (opt["acc"] is None) != (tx.acc is None):
+                raise ValueError(
+                    f"optimizer state of {opt['mu'].numel()} parameters "
+                    f"(accumulating: {opt['acc'] is not None}) against "
+                    f"{tx.mu.numel()} (accumulating: {tx.acc is not None})")
+        except (RuntimeError, ValueError) as e:
+            raise RuntimeError(
+                f"cannot restore {path}: its layout does not match this run's "
+                "model and optimizer; resume with the model config and "
+                f"optimization.accum_grad the run was started with ({e})") from e
+        for name in ("mu", "nu", "count", "notfinite_count"):
+            getattr(tx, name).copy_(opt[name])
+        if tx.acc is not None:
+            tx.acc.copy_(opt["acc"])
+        tx.mini_step = int(opt["mini_step"])
+        self.step = int(state["step"])
+        rng = state["rng"]
+        torch.set_rng_state(rng["cpu"])
+        self.model.dropout_generator.set_state(rng["dropout"])
+        if "cuda" in rng and self.device.type == "cuda":
+            torch.cuda.set_rng_state(rng["cuda"], self.device)
+        meta_path = path + ".meta"
+        if os.path.isfile(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            self.iter = int(meta.get("iter", 0))
+            self.train_iter.epoch = int(meta.get("epoch", 0))
+        logger.info("resumed training state from %s (iter %d, epoch %d)",
+                    path, self.iter, self.epoch)
 
     # ------------------------------------------------------------- events
 
@@ -114,9 +232,25 @@ class Trainer:
     # ---------------------------------------------------------------- run
 
     def run(self):
+        profile_dir = self.cfg.common.get("profile_dir")
+        if not profile_dir:
+            return self._run()
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            self._run()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        logger.info("wrote the run's torch.profiler trace to %s", path)
+
+    def _run(self):
         accum = max(1, int(self.cfg.optimization.accum_grad or 1))
         t0 = time.time()
-        for i, batch in enumerate(self.train_iter, start=1):
+        for batch in self.train_iter:
             self.event_manager.trigger_epoch_events(self)
             if self.stop():
                 break
@@ -126,7 +260,7 @@ class Trainer:
                 del self._loss_accum[:5000]
             self._report_utts += int(batch["valid"].sum()) \
                 if "valid" in batch else batch["xs"].shape[0]
-            if i % accum == 0:
+            if self.step % accum == 0:
                 self.iter += 1
                 self.event_manager.trigger_iteration_events(self)
         logger.info("training finished in %.1fs (%d iters, %d epochs)",
@@ -195,11 +329,13 @@ class Trainer:
 
     def save_model(self):
         """``model.ep.<epoch>.pt``: the model's state_dict (parameters and
-        BatchNorm running statistics), what checkpoint.load_ckpt reads."""
+        BatchNorm running statistics), what checkpoint.load_ckpt reads; and
+        the training state that ``common.resume`` restores."""
         state = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
         path = os.path.join(self.task.save_dir, CKPT_TEMPLATE.format(self.epoch))
         torch.save(state, path)
-        logger.info("saved %s", path)
+        self._save_train_state()
+        logger.info("saved %s and %s", path, TRAIN_STATE)
 
     def inference(self):
         """Decode the test sets mid-training through ``infer_dataset``."""

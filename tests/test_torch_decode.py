@@ -100,4 +100,4 @@ def test_decode_batch_raises_on_unported_mode(peaked_pair):
     _, _, tmodel = peaked_pair
     xs, xlens, _, _ = ragged_batch(7)
     with pytest.raises(NotImplementedError):
-        tdecode.decode_batch(tmodel, t(xs), t(xlens), mode="attention")
+        tdecode.decode_batch(tmodel, t(xs), t(xlens), mode="transducer_greedy")

@@ -67,6 +67,10 @@ def test_infer_cli_from_checkpoint(decoded, tiny_corpus, tmp_path):
     assert results == [decoded["tres"]]
 
 
-def test_model_averaging_raises():
-    with pytest.raises(NotImplementedError):
-        checkpoint.load_ckpt(DotDict(model_avg=True))
+def test_model_averaging_raises(tmp_path):
+    """Averaging more checkpoints than exist up to ckpt_name raises
+    (tests/test_torch_checkpoint.py holds the averages to the JAX package)."""
+    torch.save({"w": torch.ones(2)}, tmp_path / "model.ep.1.pt")
+    with pytest.raises(ValueError, match="avg_num=2"):
+        checkpoint.load_ckpt(DotDict(ckpt_path=str(tmp_path), ckpt_name=1,
+                                     model_avg=True, avg_num=2, avg_policy=None))
