@@ -77,11 +77,34 @@ f. remat at bench.py's point: one fp32 step (dropout 0.1, same seed and
    weights) with remat on and off, every gradient within the rule of 8;
    then the bf16 micro-step's time and peak memory with remat off and on.
 
+The transducer (the my_transducer preset at full width: 4 rel-pos
+transformer layers, 256-d, 4 heads, FF 2048, relu; a 2 x 2048 LSTM over
+256-d embeddings; joint 768; vocab 5000; bf16 compute over fp32 params):
+
+g. trained through ``train.main`` (my_rnnt, my_noam, dropout 0.1, clip 5,
+   accum 2, no SpecAugment) on the corpus of 6 for 2 epochs: 4 K1' and 4 K2
+   launches per micro-batch, 4 K1 per valid batch, finite losses, moved
+   parameters (every LSTM leaf among them), ``valid loss:`` lines and a
+   ``model.ep.2.pt`` that ``infer.infer`` decodes greedily and with the beam
+   (4 K1 launches per batch each);
+h. the micro-step at bench.py's point (B=32, T=800, U=48): median of 5
+   repetitions of 4, utt/s and peak memory; the joint's output GEMM, the
+   lattice's fp32 lse and gathers, and the RNN-T DP loop over T'=199 each
+   timed alone (forward and backward) at those shapes;
+i. the corpus of 4 decoded through ``infer_dataset`` with random weights,
+   greedy (3 symbols per frame) and the beam (K=10, E=5): s/batch, utt/s,
+   RTF, with and without the host's scoring, 4 K1 launches per batch;
+j. fp32 (TF32 off): one train step (2 encoder and 1 LSTM layer at full
+   width, dropout 0) on the card against the CPU's in fp64 under the rule
+   of 8, and the bf16 model's loss and lattice against it (measured only);
+   greedy and the beam of 2 cut utterances with lin_jnt scaled by 8 on the
+   card and the CPU: identical hypotheses, beam scores within 1e-3.
+
 Every failure raises, so the exit code is not 0. The last line is the JSON
 device record; the line before it lists the kernels (for
 rel_attention_fwd, ``ms``/``plain_ms`` are K1 per decoded batch and the
 ``lse_*`` keys K1' per training call; ``launches`` sum the main paths 4,
-6, b, c and d).
+6, b, c, d, g and i).
 
     python3 chip_smoke.py --profile-train
 
@@ -142,6 +165,9 @@ SPEC_AUG = dict(time_warp=5, freq_mask=30, freq_mask_times=2, time_mask=40,
                 time_mask_times=2)  # config.yaml's postprocess.spec_aug
 SPEC_AUG_TOL = 1e-5
 BEAM_SCORE_TOL = 1e-3
+# the my_transducer preset: 4 transformer layers (DIM, HEADS, FF 2048,
+# rel-pos, relu), a 2 x 2048 LSTM over DIM-d embeddings, joint 768
+TD_ENC_LAYERS, TD_LSTM_LAYERS, TD_UNITS, TD_JOINT = 4, 2, 2048, 768
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1158,6 +1184,364 @@ def check_remat(dev, name):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- the transducer (g-j)
+
+
+def build_td_model(dtype, device, enc_layers=TD_ENC_LAYERS, lstm_layers=TD_LSTM_LAYERS,
+                   dropout_rate=0.0):
+    """The my_transducer preset at full width, random weights from SEED."""
+    from liteasr_tpu_torch.models.transducer import Transducer
+
+    gen = torch.Generator().manual_seed(SEED)
+    rates = {k: dropout_rate for k in (
+        "enc_dropout_rate", "enc_pos_dropout_rate", "enc_attn_dropout_rate",
+        "enc_ff_dropout_rate", "dec_dropout_rate")}
+    return Transducer(input_dim=FEAT, vocab_size=VOCAB, joint_dim=TD_JOINT, enc_dim=DIM,
+                      enc_ff_dim=2048, enc_attn_heads=HEADS, enc_layers=enc_layers,
+                      dec_dim=DIM, dec_units=TD_UNITS, dec_layers=lstm_layers,
+                      dtype=dtype, device=device, generator=gen, **rates)
+
+
+def infer_td_checkpoint(fa, run, mode, dev, name):
+    """infer.infer of the transducer run's last checkpoint in ``mode``;
+    returns the K1 launches."""
+    from liteasr_tpu_torch import infer
+    from liteasr_tpu_torch.config import compose
+    from liteasr_tpu_torch.config.core import load_yaml
+
+    cfg = compose([f"inference.ckpt_name={TRAIN_EPOCHS}", "inference.model_avg=false",
+                   f"inference.batch_size={N_VALID}", f"inference.beam_size={BEAM}",
+                   f"inference.mode={mode}"],
+                  base=load_yaml(os.path.join(run, "config.yaml")))
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    results = infer.infer(cfg, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k1 = counts(fa)[0]
+    if k1 != TD_ENC_LAYERS or results[0][1] <= 0:
+        raise RuntimeError(f"decoding the transducer checkpoint ({mode}): {results}, K1 {k1}")
+    log(f"transducer infer mode={mode} of model.ep.{TRAIN_EPOCHS}.pt on the {N_VALID} "
+        f"valid utterances in {secs:.2f} s incl. loading: error count "
+        f"{results[0][0]}/{results[0][1]} (2 epochs on random data), K1 launches {k1} [{name}]")
+    return k1
+
+
+def run_td_training(fa, root, dev, name):
+    """Phase g: the transducer through train.main at full width, then
+    infer.infer of its checkpoint in both modes. Returns the (K1, K1', K2)
+    launches of the training run and the K1 launches of the two decodes."""
+    from liteasr_tpu_torch import train
+
+    run = os.path.join(root, "td_run")
+    overrides = [
+        "task=asr", "model=my_transducer", "criterion=my_rnnt",
+        "optimizer=my_noam", f"task.vocab={root}/vocab.txt",
+        f"task.train={root}/train", f"task.valid={root}/valid",
+        f"task.test=[{root}/valid]", "task.delimiter=' '",
+        f"task.save_dir={run}/ckpts", f"common.run_dir={run}",
+        f"common.seed={SEED}", "model.dtype=bfloat16",
+        "model.dropout_rate=0.1", f"dataset.batch_size={TRAIN_BATCH}",
+        "dataset.max_len_in=1000", "postprocess.workflow=[]",
+        f"optimization.max_epoch={TRAIN_EPOCHS}",
+        f"optimization.accum_grad={ACCUM}", "optimization.clip_grad_norm=5.0"]
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    trainer = train.main(overrides, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fwd, lse, bwd = counts(fa)
+    micro = TRAIN_EPOCHS * len(trainer.task.dataset("train"))
+    n_valid = TRAIN_EPOCHS * len(trainer.valid_set)
+    losses = torch.stack(trainer._loss_accum).float().cpu()
+    if (lse, bwd, fwd - lse) != (TD_ENC_LAYERS * micro, TD_ENC_LAYERS * micro,
+                                 TD_ENC_LAYERS * n_valid):
+        raise RuntimeError(f"transducer launches K1' {lse}, K2 {bwd}, K1 {fwd - lse} for "
+                           f"{micro} micro-batches and {n_valid} valid batches")
+    if len(losses) != micro or not bool(torch.isfinite(losses).all()):
+        raise RuntimeError(f"transducer training losses {losses.tolist()}")
+    init = dict(build_td_model(torch.bfloat16, "cpu").named_parameters())
+    moved = [n for n, p in trainer.model.named_parameters()
+             if not torch.equal(p.detach().cpu(), init[n])]  # same seed as train.main
+    lstm = [n for n in init if ".cell." in n]
+    if (int(trainer.tx.count) < 1 or len(moved) < len(init) // 2
+            or not set(lstm) <= set(moved)):
+        raise RuntimeError(f"{int(trainer.tx.count)} steps applied, {len(moved)} "
+                           f"parameters moved, LSTM leaves not moved: "
+                           f"{sorted(set(lstm) - set(moved))}")
+    with open(os.path.join(run, "train.log")) as f:
+        valid_lines = [ln for ln in f if "valid loss:" in ln]
+    if len(valid_lines) != TRAIN_EPOCHS:
+        raise RuntimeError(f"{len(valid_lines)} 'valid loss:' lines")
+    if not os.path.isfile(os.path.join(run, "ckpts", f"model.ep.{TRAIN_EPOCHS}.pt")):
+        raise RuntimeError(f"model.ep.{TRAIN_EPOCHS}.pt was not written")
+    log(f"transducer train: {micro} micro-batches of <= {TRAIN_BATCH} utts in "
+        f"{TRAIN_EPOCHS} epochs, {int(trainer.tx.count)} optimizer steps "
+        f"({int(trainer.tx.notfinite_count)} skipped), {secs:.2f} s incl. validation and "
+        f"checkpoints; losses {[round(x, 3) for x in losses.tolist()]}; K1' {lse}, K2 "
+        f"{bwd}, K1 {fwd - lse} launches; {len(moved)} of {len(init)} parameter leaves "
+        f"moved, the {len(lstm)} LSTM leaves among them; "
+        f"{valid_lines[-1].split(' - ')[-1].strip()} [{name}]")
+    del trainer
+    dec = [infer_td_checkpoint(fa, run, mode, dev, name)
+           for mode in ("transducer_greedy", "transducer_beam_search")]
+    return (fwd - lse, lse, bwd), sum(dec)
+
+
+def td_bench_step(dev):
+    """The full-width bf16 transducer micro-step (dropout 0.1, RNN-T loss,
+    Noam Adam, clip 5, accum 2) on bench_batch; returns (step, model,
+    batch, B)."""
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.rnnt import RNNTLoss
+    from liteasr_tpu_torch.optims.fused_step import FusedAdam
+    from liteasr_tpu_torch.optims.noam import noam_schedule
+
+    torch.manual_seed(SEED)
+    model = build_td_model(torch.bfloat16, dev, dropout_rate=0.1)
+    crit = RNNTLoss(DotDict(blank_id=0))
+    params = list(model.parameters())
+    tx = FusedAdam(params, noam_schedule(256, 1.0, 25000), 0.9, 0.98, 1e-9,
+                   clip=5.0, accum=ACCUM)
+    batch, B = bench_batch(dev)
+
+    def step():
+        loss, _ = crit(model, batch, train=True)
+        loss.backward()
+        tx.update([p.grad for p in params])
+        for p in params:
+            p.grad = None
+        return loss
+
+    return step, model, batch, B
+
+
+def host_time_ms(fn, reps: int = 5) -> float:
+    """Median wall ms of ``fn`` over ``reps`` calls, each ended by a
+    synchronize (after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def time_td_step(dev, name):
+    """Phase h: the transducer micro-step at bench.py's point: median of 5
+    repetitions of 4 micro-steps, utt/s and peak memory; then the step's
+    parts that were predicted to take its time, each timed alone (forward
+    and backward) on the same shapes: the joint's output GEMM, the lattice's
+    fp32 lse and gathers, and the DP loop over T'."""
+    from liteasr_tpu_torch.ops.rnnt import lattice_log_probs, lattice_nll
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, model, batch, B = td_bench_step(dev)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    reps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(4):
+            loss = step()
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) / 4)
+    if not bool(torch.isfinite(loss)):
+        raise RuntimeError("non-finite transducer loss in the timed steps")
+    med = statistics.median(reps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        lattice = model(batch["xs"], batch["xlens"], batch["ys"], batch["ylens"])
+    B_, T_, U1, V = lattice.shape
+    targets = model.get_target(batch["ys"], batch["ylens"])
+    pred_len = model.get_pred_len(batch["xlens"])
+    leaf = lattice.requires_grad_()
+    lp_blank, lp_emit = (x.detach().requires_grad_()
+                         for x in lattice_log_probs(lattice, targets))
+    z = (torch.rand((B_, T_, U1, TD_JOINT), device=dev) * 2 - 1).to(
+        torch.bfloat16).requires_grad_()  # the joint's tanh layer
+    grad_out = torch.randn_like(lattice)
+
+    def gemm_part():
+        model.lin_jnt(z).backward(grad_out)
+        z.grad = None
+
+    def lse_part():
+        a, b = lattice_log_probs(leaf, targets)
+        (a.sum() + b.sum()).backward()
+        leaf.grad = None
+
+    def dp_part():
+        lattice_nll(lp_blank, lp_emit, pred_len, batch["ylens"]).sum().backward()
+        lp_blank.grad = lp_emit.grad = None
+
+    gemm_ms, lse_ms, dp_ms = (host_time_ms(f) for f in (gemm_part, lse_part, dp_part))
+    gemm_flops = 3 * 2.0 * B_ * T_ * U1 * TD_JOINT * V
+    log(f"transducer train step at bench.py's point (B={B}, T=800 -> T'={T_}, U={U1 - 1}, "
+        f"V={V}, bf16, accum {ACCUM}): median {med * 1e3:.2f} ms/micro-step (best "
+        f"{min(reps) * 1e3:.2f}; 5 x 4 steps), {B / med:.2f} utt/s, peak memory "
+        f"{peak:.2f} GiB; parts timed alone, fwd+bwd: the joint's output GEMM "
+        f"{gemm_ms:.2f} ms ({gemm_flops / 1e12:.2f} TFLOP, "
+        f"{gemm_flops / gemm_ms / 1e9:.0f} TFLOP/s), the lattice's fp32 lse and gathers "
+        f"{lse_ms:.2f} ms, the {T_}-step DP loop {dp_ms:.2f} ms [{name}]")
+
+
+def run_td_decode(fa, task, dev, name):
+    """Phase i: the test corpus decoded with the full-width transducer
+    (random bf16 weights from SEED) through infer_dataset, greedy and the
+    beam (K=BEAM, E=5): a warm-up batch, then the timed pass with the counts
+    reset. Returns the K1 launches and {mode: s/batch}."""
+    from types import SimpleNamespace
+
+    from liteasr_tpu_torch import decode
+    from liteasr_tpu_torch.infer import infer_dataset
+
+    dataset = task.dataset("test")
+    model = build_td_model(torch.bfloat16, dev)
+    n_batches = -(-len(dataset.data) // BATCH)
+    audio_s = sum(a.xlen for a in dataset.data) * FRAME_S
+    warm = SimpleNamespace(data=dataset.data[:BATCH], feat_dim=dataset.feat_dim)
+    total, per_batch = 0, {}
+    for mode in ("transducer_greedy", "transducer_beam_search"):
+        cfg = {"batch_size": BATCH, "beam_size": BEAM, "mode": mode,
+               "expansions_per_frame": 5}
+        infer_dataset(task, model, warm, cfg, dev, PAD_TIME, verbose=False)
+        torch.cuda.synchronize()
+        reset_counts(fa)
+        decode_fn = getattr(decode, mode)
+        decode_s = []
+
+        def timed(*args, **kwargs):  # the decode alone, without the scoring
+            t1 = time.perf_counter()
+            out = decode_fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t1)
+            return out
+
+        setattr(decode, mode, timed)
+        try:
+            t0 = time.perf_counter()
+            pairs = []
+            err, length = infer_dataset(task, model, dataset, cfg, dev, PAD_TIME,
+                                        verbose=False, collect=pairs)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            setattr(decode, mode, decode_fn)
+        launches = fa.flash_attention.launches
+        if launches != TD_ENC_LAYERS * n_batches:
+            raise RuntimeError(f"K1 launched {launches} times for {n_batches} batches "
+                               f"in {mode}, expected {TD_ENC_LAYERS} per batch")
+        if len(pairs) != len(dataset.data) or length <= 0:
+            raise RuntimeError("infer_dataset did not score every utterance")
+        n_tok = sum(len(hyp.split()) for _, hyp in pairs)
+        dec = sum(decode_s)
+        log(f"transducer decode {mode}: {n_batches} batches of <= {BATCH} utts (longest "
+            f"padded to 1600 frames), {secs / n_batches:.4f} s/batch through "
+            f"infer_dataset, of which the decode {dec / n_batches:.4f} s/batch and the "
+            f"host's scoring the rest; {len(pairs) / secs:.2f} utt/s, RTF "
+            f"{secs / audio_s:.5f} (decode alone {len(pairs) / dec:.2f} utt/s, RTF "
+            f"{dec / audio_s:.5f}); K1 launches {launches} ({TD_ENC_LAYERS}/batch), "
+            f"{n_tok} tokens emitted, error count {err}/{length} (random weights) [{name}]")
+        total += launches
+        per_batch[mode] = secs / n_batches
+    return total, per_batch
+
+
+def check_td_parity(task, dev, name):
+    """Phase j, in fp32 (TF32 off): one transducer train step (full width, 2
+    encoder and 1 LSTM layer, dropout 0) on the card, held to the
+    train-parity rule against the same step on the CPU in fp64; then greedy
+    and the beam (K=BEAM, E=5) of 2 utterances with the full preset and
+    lin_jnt scaled by 8 (peaked posteriors) on the card and the CPU:
+    identical hypotheses, beam scores within BEAM_SCORE_TOL."""
+    from liteasr_tpu_torch import decode
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.rnnt import RNNTLoss
+    from liteasr_tpu_torch.trainer import to_device
+
+    rng = np.random.default_rng(SEED + 5)
+    B, T, U = 4, 400, 24
+    batch = {"xs": rng.normal(size=(B, T, FEAT)).astype(np.float32),
+             "xlens": np.array([T, 350, 280, 200], np.int32),
+             "ys": rng.integers(1, VOCAB - 1, size=(B, U)).astype(np.int32),
+             "ylens": np.array([U, 20, 16, 1], np.int32),
+             "valid": np.ones(B, np.float32)}
+    batch["ys"][np.arange(U)[None] >= batch["ylens"][:, None]] = -1
+    crit = RNNTLoss(DotDict(blank_id=0))
+    res = []
+    for device, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float32),
+                          (torch.device("cpu"), torch.float64)):
+        model = build_td_model(dtype, device, enc_layers=2, lstm_layers=1).to(dtype)
+        b = to_device(batch, device)
+        b["xs"] = b["xs"].to(dtype)
+        loss, _ = crit(model, b, train=True)
+        loss.backward()
+        res.append((loss.item(), {n: p.grad.double().cpu()
+                                  for n, p in model.named_parameters()}))
+    with torch.no_grad():  # the bf16 model of the same weights, measured only
+        lattice64 = model(b["xs"], b["xlens"], b["ys"], b["ylens"])
+        bf16 = build_td_model(torch.bfloat16, dev, enc_layers=2, lstm_layers=1)
+        b16 = to_device(batch, dev)
+        lattice16 = bf16(b16["xs"], b16["xlens"], b16["ys"], b16["ylens"]).double().cpu()
+        loss16 = crit(bf16, b16, train=False)[0].item()
+    lat_err = ((lattice16 - lattice64).abs().max() / lattice64.abs().max()).item()
+    del lattice16, lattice64, bf16
+    # the reference is the CPU in fp64: the CPU's fp32 subsampling-conv
+    # gradients lie up to 4.2e-3 of their max off it, the card's 1.6e-4
+    # (NVIDIA H100 80GB HBM3, 700 W); the CPU's fp32 step is printed beside
+    what = grad_agreement(res[0][0], res[0][1], res[2][0], res[2][1])
+    cpu32 = max(((res[1][1][n] - g).abs().max() / g.abs().max()).item()
+                for n, g in res[2][1].items() if not n.endswith(".linear_k.bias"))
+    log(f"transducer train parity fp32 card vs CPU fp64 (2 encoder + 1 LSTM layers, B={B}, "
+        f"T={T}, U={U}): {what}; the CPU's fp32 step against the same reference: worst "
+        f"leaf {cpu32:.3g} of its max; the bf16 model on the card (measured, not held): "
+        f"loss {loss16:.4f} (rel {abs(loss16 - res[2][0]) / abs(res[2][0]):.3g}), "
+        f"lattice max abs diff {lat_err:.3g} of the lattice's max [{name}]")
+
+    # the first 600 and 480 frames of two test utterances (T' = 149 and 119),
+    # so that the CPU's beam stays short
+    cut = (600, 480)
+    xs = np.zeros((2, cut[0], FEAT), np.float32)
+    for i, (a, n) in enumerate(zip(task.dataset("test").data, cut)):
+        xs[i, :n] = a.x[:n]
+    xs, xlens = torch.from_numpy(xs), torch.tensor(cut)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        model = build_td_model(torch.float32, device)
+        with torch.no_grad():
+            model.lin_jnt.weight.mul_(8.0)
+            model.lin_jnt.bias.mul_(8.0)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            h_enc, _ = model.encode(xs.to(device), xlens.to(device))
+            enc_lens = model.get_pred_len(xlens.to(device))
+            g_tok, g_len = decode.transducer_greedy_search(model, h_enc, enc_lens)
+            tok, lens, scores = decode.transducer_beam(model, h_enc, enc_lens, BEAM, 5)
+        outs.append([x.cpu() for x in (g_tok, g_len, tok, lens, scores)]
+                    + [time.perf_counter() - t0])
+    (gg_tok, gg_len, gb_tok, gb_len, g_sc, g_s), (cg_tok, cg_len, cb_tok, cb_len, c_sc,
+                                                  c_s) = outs
+    same_greedy = torch.equal(gg_tok, cg_tok) and torch.equal(gg_len, cg_len)
+    same_beam = torch.equal(gb_tok, cb_tok) and torch.equal(gb_len, cb_len)
+    s_err = (g_sc - c_sc).abs().max().item()
+    log(f"transducer decode parity fp32 card vs CPU (2 utts of {list(cut)} frames, "
+        f"lin_jnt x8): greedy {'identical' if same_greedy else 'DIFFER'} (lens "
+        f"{gg_len.tolist()}), beam {BEAM}/E=5 {'identical' if same_beam else 'DIFFER'} "
+        f"(lens {gb_len.tolist()}), best scores {g_sc.tolist()} vs {c_sc.tolist()}, max "
+        f"abs diff {s_err:.3g} (bound {BEAM_SCORE_TOL}); {g_s:.2f} s card, {c_s:.2f} s "
+        f"CPU [{name}]")
+    if (not same_greedy or not same_beam or not s_err <= BEAM_SCORE_TOL
+            or not bool(torch.isfinite(g_sc).all())):
+        raise RuntimeError("transducer decoding differs between the card and the CPU")
+
+
 def load_baseline(root):
     """The flash_attention module of another checkout (the parent commit,
     unpacked with git archive), loaded on its own: it builds that
@@ -1292,6 +1676,14 @@ def main() -> int:
         check_beam_parity(task, dev, name)  # e
         check_remat(dev, name)  # f
 
+        (td_fwd, td_lse, td_bwd), td_ckpt_fwd = run_td_training(fa, root, dev, name)  # g
+        time_td_step(dev, name)  # h
+        td_dec_fwd, td_s = run_td_decode(fa, task, dev, name)  # i
+        log(f"transducer decode s/batch: greedy {td_s['transducer_greedy']:.4f}, beam "
+            f"{td_s['transducer_beam_search']:.4f} (U2 attention_rescore {rescore_s:.4f}) "
+            f"[{name}]")
+        check_td_parity(task, dev, name)  # j
+
     # rel_attention_fwd: ms / plain_ms are K1's per decoded batch (as since
     # the decode slice); the lse_* keys are K1' (lse + dropout) per call at
     # the training shape and its launches in the training run
@@ -1301,7 +1693,8 @@ def main() -> int:
         "source": "liteasr_tpu_torch/csrc/rel_attention_fwd.cu",
         "replaces": "liteasr_tpu/ops/flash_attention.py:177",
         "launches": (decode_fwd + train_fwd + ckpt_fwd + recipe_fwd + recipe_lse
-                     + avg_fwd + attention_fwd),
+                     + avg_fwd + attention_fwd + td_fwd + td_lse + td_ckpt_fwd
+                     + td_dec_fwd),
         "max_abs_err": max(k1["max_abs_err"], k2["fwd_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -1314,7 +1707,7 @@ def main() -> int:
         "decoder_src_kv_lens_ms": k1["decoder_src_kv_lens_ms"],
         "decoder_src_kv_lens_bound_ms": k1["decoder_src_kv_lens_bound_ms"],
         "decoder_src_kv_lens_library_ms": k1["decoder_src_kv_lens_library_ms"],
-        "lse_launches": train_lse + recipe_lse,
+        "lse_launches": train_lse + recipe_lse + td_lse,
         "lse_max_abs_err": k2["fwd_err"],
         "lse_ms": k2["fwd_ms"],
         "lse_plain_ms": k2["fwd_plain_ms"],
@@ -1326,7 +1719,7 @@ def main() -> int:
         "route": "cuda",
         "source": "liteasr_tpu_torch/csrc/rel_attention_bwd.cu",
         "replaces": "liteasr_tpu/ops/flash_attention.py:566",
-        "launches": train_bwd + recipe_bwd,
+        "launches": train_bwd + recipe_bwd + td_bwd,
         "max_abs_err": k2["bwd_err"],
         "ms": k2["bwd_ms"],
         "plain_ms": k2["bwd_plain_ms"],

@@ -17,7 +17,12 @@ only the leaves differ:
 * Embed ``embedding`` <-> Embedding ``weight``;
 * ``pos_bias_u``/``pos_bias_v`` (H, Dk) and every ``bias`` keep their name.
 
-Every leaf maps to exactly one tensor, in both directions.
+Every leaf maps to exactly one tensor, in both directions, with one
+exception: an LSTM layer's ``cell`` (flax's ``OptimizedLSTMCell``) holds
+twelve leaves, ``{ii,if,ig,io}/kernel`` (in, H), ``{hi,hf,hg,ho}/kernel``
+(H, H) and ``{hi,hf,hg,ho}/bias``, which become the port's three packed
+tensors ``weight_ih`` (4H, in), ``weight_hh`` (4H, H) and ``bias`` (4H,):
+the gates concatenated in i, f, g, o order, the kernels transposed.
 """
 
 from typing import Dict
@@ -43,6 +48,32 @@ def _set(tree, path, value):
     if path[-1] in tree:
         raise ValueError(f"two tensors map to {'/'.join(path)}")
     tree[path[-1]] = value
+
+
+_GATES = "ifgo"
+_LSTM_PACKED = {"weight_ih": ("i", "kernel"), "weight_hh": ("h", "kernel"),
+                "bias": ("h", "bias")}
+
+
+def _lstm_leaf(path) -> bool:
+    return len(path) >= 3 and path[-3] == "cell" and path[-2] in (
+        [f"i{g}" for g in _GATES] + [f"h{g}" for g in _GATES])
+
+
+def _pack_lstm(cell_leaves: dict):
+    """{cell path: {(gate module, leaf): array}} -> [(torch key, array)]."""
+    for cell, leaves in cell_leaves.items():
+        for name, (side, leaf) in _LSTM_PACKED.items():
+            parts = [leaves[(f"{side}{g}", leaf)] for g in _GATES]
+            arr = np.concatenate([p.T if leaf == "kernel" else p for p in parts], axis=0)
+            yield ".".join(cell + (name,)), arr
+
+
+def _unpack_lstm(mods, name, arr):
+    """One packed tensor of a cell -> [(flax path, array)]."""
+    side, leaf = _LSTM_PACKED[name]
+    for g, part in zip(_GATES, np.split(arr, 4, axis=0)):
+        yield tuple(mods) + (f"{side}{g}", leaf), part.T if leaf == "kernel" else part
 
 
 def _leaf_to_torch(path, arr):
@@ -79,14 +110,19 @@ def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
             raise ValueError(f"two flax leaves map to {key}")
         out[key] = torch.from_numpy(np.ascontiguousarray(np.asarray(arr)))
 
+    cells: dict = {}
     for collection, tree in variables.items():
         for path, arr in _flatten(tree):
-            if collection == "params":
+            if collection == "params" and _lstm_leaf(path):
+                cells.setdefault(path[:-2], {})[path[-2:]] = np.asarray(arr)
+            elif collection == "params":
                 put(*_leaf_to_torch(path, np.asarray(arr)))
             elif collection == "batch_stats" and path[-1] in _BN_STATS:
                 put(".".join(path[:-1] + (_BN_STATS[path[-1]],)), arr)
             else:
                 raise ValueError(f"unknown flax variable {collection}/{'/'.join(path)}")
+    for key, arr in _pack_lstm(cells):
+        put(key, arr)
     return out
 
 
@@ -98,6 +134,10 @@ def state_dict_to_flax(state_dict) -> dict:
         arr = tensor.detach().cpu().numpy()
         *mods, name = key.split(".")
         parent = mods[-1] if mods else ""
+        if parent == "cell" and name in _LSTM_PACKED:
+            for path, part in _unpack_lstm(mods, name, arr):
+                _set(variables["params"], path, np.ascontiguousarray(part))
+            continue
         if name in _BN_STATS_INV:
             _set(variables["batch_stats"], tuple(mods) + (_BN_STATS_INV[name],), arr)
             continue

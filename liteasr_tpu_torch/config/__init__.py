@@ -133,6 +133,8 @@ class InferenceConfig(LiteasrDataclass):
     batch_size: int = 8  # utterances decoded per device batch
     beam_size: int = 10
     ctc_weight: float = 0.5
+    # transducer beam: non-blank expansion rounds per encoder frame
+    expansions_per_frame: int = 5
 
 
 @dataclass

@@ -1,5 +1,7 @@
-"""U2 decoding: CTC greedy, CTC prefix beam search, attention rescoring and
-attention beam search (liteasr_tpu/decode.py).
+"""Decoding (liteasr_tpu/decode.py). U2: CTC greedy, CTC prefix beam
+search, attention rescoring and attention beam search. Transducer: greedy,
+the batched beam search and the host beam of reference semantics for one
+utterance.
 
 The reference runs these as jitted ``lax.scan``/``vmap`` programs. Here
 they run eagerly under ``torch.inference_mode()``: a Python loop over
@@ -11,6 +13,7 @@ to 32 bits), so both packages merge and rank the same candidates.
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from liteasr_tpu_torch.ops.masks import padding_mask, triangle_mask
@@ -343,3 +346,240 @@ def decode_batch(model, xs, xlens, beam_size: int = 10,
         best_hyp, best_len = best_hyp.cpu(), best_len.cpu()
     return [best_hyp[b, :int(best_len[b])].tolist()
             for b in range(best_hyp.shape[0])]
+
+
+def _one_utterance(model, x):
+    """Features (T, F) or (1, T, F) -> (xs (1, T, F), xlens (1,)) on the
+    model's device."""
+    dev = next(model.parameters()).device
+    xs = torch.as_tensor(np.asarray(x, np.float32)).to(dev)
+    if xs.dim() == 2:
+        xs = xs[None]
+    return xs, torch.tensor([xs.shape[1]], device=dev)
+
+
+def decode_utterance(model, x, mode: str = "attention_rescore",
+                     beam_size: int = 10, ctc_weight: float = 0.5) -> List[int]:
+    """Single-utterance decode (the trainer's inference helper, ad-hoc use),
+    by model family: a transducer runs the batched beam search, U2
+    ``decode_batch`` in ``mode`` (liteasr_tpu/decode.py:506-525)."""
+    xs, xlens = _one_utterance(model, x)
+    if hasattr(model, "joint"):
+        return transducer_beam_search(model, xs, xlens, beam_size=beam_size)[0]
+    if not hasattr(model, "ctc_logits"):
+        raise NotImplementedError(
+            f"decoding {type(model).__name__}: Paraformer decoding is not ported "
+            "yet (ROADMAP section 1, 'Paraformer')")
+    return decode_batch(model, xs, xlens, beam_size=beam_size,
+                        ctc_weight=ctc_weight, mode=mode)[0]
+
+
+# --------------------------------------------------------------------------
+# Transducer decoding
+# --------------------------------------------------------------------------
+
+
+def _where_rows(keep, new, old):
+    """``torch.where`` of every leaf of a state (a list of (c, h)) by a
+    per-row mask ``keep`` over its leading dims."""
+    def pick(n, o):
+        return torch.where(keep.reshape(keep.shape + (1,) * (n.dim() - keep.dim())), n, o)
+
+    return [(pick(nc, oc), pick(nh, oh)) for (nc, nh), (oc, oh) in zip(new, old)]
+
+
+def transducer_greedy_search(model, h_enc, enc_lens, max_symbols_per_frame: int = 3):
+    """Batched greedy RNN-T decode over encoder output ``h_enc`` (B, T', D)
+    (liteasr_tpu/decode.py:532-595): at each frame up to
+    ``max_symbols_per_frame`` rounds; a round emits the argmax token unless it
+    is blank, and the frame stops at its first blank. The prediction
+    network's state advances only on emission. Returns (tokens (B, Lmax),
+    lens (B,)); Lmax = T' * max_symbols_per_frame."""
+    B, T, _ = h_enc.shape
+    dev = h_enc.device
+    Lmax = T * max_symbols_per_frame
+    state = model.decoder_init_state(B, dev)
+    last = torch.zeros((B,), dtype=torch.int64, device=dev)  # blank starts it
+    buf = torch.zeros((B, Lmax), dtype=torch.int64, device=dev)
+    length = torch.zeros((B,), dtype=torch.int64, device=dev)
+    pos = torch.arange(Lmax, device=dev)[None, :]
+    for t in range(T):
+        h_t = h_enc[:, t]
+        active = t < enc_lens
+        for _ in range(max_symbols_per_frame):
+            dec_out, new_state = model.decoder_step(last, state)
+            tok = torch.argmax(model.joint(h_t, dec_out), dim=-1)
+            emit = (tok != 0) & active & (length < Lmax)
+            buf = torch.where((pos == length[:, None]) & emit[:, None], tok[:, None], buf)
+            length = length + emit.long()
+            last = torch.where(emit, tok, last)
+            state = _where_rows(emit, new_state, state)
+            active = active & emit  # the frame ends at its first blank
+    return buf, length
+
+
+def transducer_greedy(model, xs, xlens,
+                      max_symbols_per_frame: int = 3) -> List[List[int]]:
+    """Greedy decode of a padded batch; Lmax from the padded T' as in the
+    reference. Returns a list of token-id lists."""
+    with torch.inference_mode():
+        h_enc, _ = model.encode(xs, xlens)
+        buf, length = transducer_greedy_search(
+            model, h_enc, model.get_pred_len(xlens), max_symbols_per_frame)
+    buf, length = buf.cpu(), length.cpu()
+    return [buf[b, :int(length[b])].tolist() for b in range(buf.shape[0])]
+
+
+def _gather_beams(tree: dict, idx):
+    """Gather every (B, K, ...) leaf of ``tree`` (the LSTM state a list of
+    (c, h)) along the beam axis by ``idx`` (B, K)."""
+    def g(x):
+        i = idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+        return x.gather(1, i.expand(idx.shape + x.shape[2:]))
+
+    return {key: ([(g(c), g(h)) for c, h in val] if key == "lstm" else g(val))
+            for key, val in tree.items()}
+
+
+def transducer_beam(model, h_enc, enc_lens, beam_size: int = 10,
+                    expansions_per_frame: int = 5):
+    """Batched time-synchronous RNN-T beam search over ``h_enc`` (B, T', D)
+    (liteasr_tpu/decode.py:661-803). Each frame runs up to E =
+    ``expansions_per_frame`` emission rounds: every beam proposes its blank
+    candidate, merged into a top-K finished set (2K -> K), and top-P
+    non-blank extensions (P = min(K, V-1)), of which the global top-K advance
+    the prediction network; one last blank round closes the frame. A beam at
+    Lmax = T' * E tokens cannot emit; frames at t >= enc_len carry the
+    incoming beams unchanged. The final pick normalizes each score by the
+    length + 1 (the reference's yseq holds a leading blank). Every top-k puts
+    the lower index first on ties, as ``lax.top_k`` does.
+
+    Returns (tokens (B, Lmax), lens (B,), scores (B,)): the best beam of
+    each row and its unnormalized score."""
+    B, T, _ = h_enc.shape
+    K = beam_size
+    E = max(1, expansions_per_frame)
+    Lmax = T * E
+    dev = h_enc.device
+    neg_inf = float("-inf")
+
+    lstm0 = [(c.reshape(B, K, -1), h.reshape(B, K, -1))
+             for c, h in model.decoder_init_state(B * K, dev)]
+    scores0 = torch.full((B, K), neg_inf, device=dev)
+    scores0[:, 0] = 0.0
+    beams = {"tokens": torch.zeros((B, K, Lmax), dtype=torch.int64, device=dev),
+             "lens": torch.zeros((B, K), dtype=torch.int64, device=dev),
+             "last": torch.zeros((B, K), dtype=torch.int64, device=dev),
+             "scores": scores0, "lstm": lstm0}
+    pos = torch.arange(Lmax, device=dev)[None, None, :]
+
+    for t in range(T):
+        h_t = h_enc[:, t, None, :]  # (B, 1, D)
+        fin = dict(beams, scores=torch.full((B, K), neg_inf, device=dev))
+        cur = beams
+        for e in range(E + 1):
+            flat_lstm = [(c.reshape(B * K, -1), h.reshape(B * K, -1))
+                         for c, h in cur["lstm"]]
+            dec_out, new_flat = model.decoder_step(cur["last"].reshape(B * K), flat_lstm)
+            new_lstm = [(c.reshape(B, K, -1), h.reshape(B, K, -1)) for c, h in new_flat]
+            logits = model.joint(h_t, dec_out.reshape(B, K, -1))  # (B, K, V)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+
+            # blank candidates -> the finished set (2K -> K)
+            cand = dict(cur, scores=cur["scores"] + logp[:, :, 0])
+            merged = {key: ([(torch.cat([fc, cc], 1), torch.cat([fh, ch], 1))
+                             for (fc, fh), (cc, ch) in zip(fin["lstm"], cand["lstm"])]
+                            if key == "lstm" else torch.cat([fin[key], cand[key]], 1))
+                      for key in fin}
+            top_sc, top_idx = _top_k(merged["scores"], K)
+            fin = _gather_beams(merged, top_idx)
+            fin["scores"] = top_sc
+            if e == E:
+                break
+
+            # non-blank extensions: top-P tokens per beam -> global top-K
+            nb = logp.clone()
+            nb[:, :, 0] = neg_inf
+            P = min(K, nb.shape[-1] - 1)  # the vocabulary may be tiny in tests
+            tok_sc, tok_id = _top_k(nb, P)  # (B, K, P)
+            comb = (cur["scores"][:, :, None] + tok_sc).reshape(B, K * P)
+            new_sc, flat_idx = _top_k(comb, K)
+            tok = tok_id.reshape(B, K * P).gather(1, flat_idx)
+            nxt = _gather_beams({"tokens": cur["tokens"], "lens": cur["lens"],
+                                 "last": cur["last"], "lstm": new_lstm},
+                                flat_idx // P)
+            can_emit = nxt["lens"] < Lmax
+            nxt["tokens"] = torch.where(
+                (pos == nxt["lens"][:, :, None]) & can_emit[:, :, None],
+                tok[:, :, None], nxt["tokens"])
+            nxt["lens"] = nxt["lens"] + can_emit.long()
+            nxt["last"] = torch.where(can_emit, tok, nxt["last"])
+            nxt["scores"] = torch.where(can_emit, new_sc, neg_inf)
+            cur = nxt
+
+        # frames past a row's length carry its incoming beams unchanged
+        active = t < enc_lens  # (B,)
+        beams = {key: (_where_rows(active, fin[key], beams[key]) if key == "lstm"
+                       else torch.where(active.reshape((B,) + (1,) * (fin[key].dim() - 1)),
+                                        fin[key], beams[key]))
+                 for key in beams}
+
+    norm = beams["scores"] / torch.clamp(beams["lens"] + 1, min=1).float()
+    best = torch.argmax(norm, dim=1)
+    rows = torch.arange(B, device=dev)
+    return beams["tokens"][rows, best], beams["lens"][rows, best], beams["scores"][rows, best]
+
+
+def transducer_beam_search(model, xs, xlens, beam_size: int = 10,
+                           expansions_per_frame: int = 5) -> List[List[int]]:
+    """The batched beam search of a padded batch (:func:`transducer_beam`).
+    Returns a list of token-id lists."""
+    with torch.inference_mode():
+        h_enc, _ = model.encode(xs, xlens)
+        tokens, lens, _ = transducer_beam(
+            model, h_enc, model.get_pred_len(xlens), beam_size, expansions_per_frame)
+    tokens, lens = tokens.cpu(), lens.cpu()
+    return [tokens[b, :int(lens[b])].tolist() for b in range(tokens.shape[0])]
+
+
+def transducer_beam_search_utt(model, x, beam_size: int = 10) -> List[int]:
+    """Reference-semantics transducer beam search for one utterance
+    (liteasr_tpu/decode.py:598-658): per frame, best-first expansion of the
+    frontier until ``beam_size`` blank-ended hypotheses are kept (at most 100
+    expansions), with a prediction-network cache keyed by the emitted
+    prefix; the final pick is length-normalized. A host loop."""
+    xs, xlens = _one_utterance(model, x)
+    dev = xs.device
+    with torch.inference_mode():
+        h_enc, _ = model.encode(xs, xlens)
+        T = int(model.get_pred_len(xlens)[0])
+        hyps = [{"score": 0.0, "yseq": [0], "state": model.decoder_init_state(1, dev)}]
+        for t in range(T):
+            h_t = h_enc[:, t]  # (1, D)
+            frontier, kept, cache, steps = hyps, [], {}, 0
+            while len(kept) < beam_size and frontier and steps < 100:
+                steps += 1
+                best = max(frontier, key=lambda h: h["score"])
+                frontier.remove(best)
+                key = tuple(best["yseq"])
+                if key not in cache:
+                    tok = torch.tensor([best["yseq"][-1]], device=dev)
+                    cache[key] = model.decoder_step(tok, best["state"])
+                dec_out, new_state = cache[key]
+                logp = torch.log_softmax(model.joint(h_t, dec_out).float(), dim=-1)
+                logp = logp[0].cpu().numpy()
+                for k in np.argsort(-logp)[:beam_size + 1]:
+                    k = int(k)
+                    cand = {"score": best["score"] + float(logp[k]),
+                            "yseq": list(best["yseq"]), "state": best["state"]}
+                    if k == 0:
+                        kept.append(cand)
+                    else:
+                        cand["yseq"].append(k)
+                        cand["state"] = new_state
+                        frontier.append(cand)
+            if not kept:  # expansion cap hit before any blank: keep the frontier
+                kept = frontier if frontier else hyps
+            hyps = sorted(kept, key=lambda h: h["score"], reverse=True)[:beam_size]
+    best = max(hyps, key=lambda h: h["score"] / max(len(h["yseq"]), 1))
+    return best["yseq"][1:]  # strip the leading blank

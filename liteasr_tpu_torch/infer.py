@@ -4,7 +4,9 @@ liteasr/infer.py:25-129).
 Usage: ``python -m liteasr_tpu_torch.infer --config-dir <run_dir>
 [overrides]``, where run_dir holds the resolved ``config.yaml`` of a
 training run. The test set is decoded in length-sorted batches on one
-``torch.device``, by ``inference.mode`` (default ``attention_rescore``),
+``torch.device``: a U2 by ``inference.mode`` (default ``attention_rescore``),
+a transducer greedily (``mode=transducer_greedy``) or else by the beam
+search with ``inference.expansions_per_frame``,
 with the checkpoint, or the average of checkpoints, that
 ``checkpoint.load_ckpt`` picks; raw-wave test sets (``dataset.fbank``) get
 their log-mel features on the device.
@@ -64,6 +66,8 @@ def infer_dataset(task, model, dataset, infer_cfg, device: torch.device,
     batch_size = int(infer_cfg.get("batch_size", 8))
     beam_size = int(infer_cfg.get("beam_size", 10))
     ctc_weight = float(infer_cfg.get("ctc_weight", 0.5))
+    expansions = int(infer_cfg.get("expansions_per_frame", 5))
+    mode = str(infer_cfg.get("mode", "attention_rescore"))
 
     data = sorted(dataset.data, key=lambda a: a.xlen, reverse=True)
     total_err, total_len = 0, 0
@@ -78,10 +82,16 @@ def infer_dataset(task, model, dataset, infer_cfg, device: torch.device,
         xs, xlens = torch.from_numpy(xs).to(device), torch.from_numpy(xlens).to(device)
         if fbank:  # raw waves (samples) -> log-mel features on the device
             xs, xlens = log_mel_fbank(xs, xlens, num_mel_bins=dataset.num_mel_bins)
-        hyps = decode.decode_batch(
-            model, xs, xlens.long(), beam_size=beam_size,
-            ctc_weight=ctc_weight,
-            mode=str(infer_cfg.get("mode", "attention_rescore")))
+        if hasattr(model, "joint"):  # the transducer family
+            if mode == "transducer_greedy":
+                hyps = decode.transducer_greedy(model, xs, xlens.long())
+            else:  # the beam search is the reference's default
+                hyps = decode.transducer_beam_search(
+                    model, xs, xlens.long(), beam_size=beam_size,
+                    expansions_per_frame=expansions)
+        else:
+            hyps = decode.decode_batch(model, xs, xlens.long(), beam_size=beam_size,
+                                       ctc_weight=ctc_weight, mode=mode)
         for a, hyp_ids in zip(chunk, hyps):
             hyp = task.ids_to_text(hyp_ids)
             ref = task.normalize_ref(a.text)

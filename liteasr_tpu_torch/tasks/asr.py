@@ -61,6 +61,13 @@ class ASRTask(LiteasrTask):
             return "".join(tokens)
         return self.cfg.delimiter.join(tokens)
 
+    def inference(self, x, model) -> str:
+        """Single-utterance decode helper: features (T, F) on the model's
+        device, text out (the batched path is ``infer.infer_dataset``)."""
+        from liteasr_tpu_torch import decode
+
+        return self.ids_to_text(decode.decode_utterance(model, x))
+
     def normalize_ref(self, text: str) -> str:
         """Render a raw transcript the way ``ids_to_text`` renders
         hypotheses (``<space>`` -> " "), as liteasr_tpu/tasks/asr.py does."""

@@ -1,5 +1,5 @@
-"""liteasr_tpu_torch, training modules included, imports without jax, flax
-or liteasr_tpu, and its CUDA kernel loader raises (no fallback) where there
+"""liteasr_tpu_torch, training and transducer modules included, imports
+without jax, flax or liteasr_tpu, and its CUDA kernel loader raises (no fallback) where there
 is no CUDA device."""
 
 import os
@@ -31,12 +31,13 @@ def test_port_imports_without_jax():
         for name in ("ops.flash_attention", "ops.batch_norm", "ops.ctc",
                      "criterions.hybrid_ctc_attn", "optims.fused_step",
                      "optims.noam", "optims.adam", "trainer", "train",
-                     "utils.trigger", "data.loader"):
+                     "utils.trigger", "data.loader", "models.transducer",
+                     "nets.rnn_decoder", "ops.rnnt", "criterions.rnnt"):
             assert "liteasr_tpu_torch." + name in names, (name, names)
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 38
+    assert int(proc.stdout.split()[-1]) >= 42
 
 
 def test_kernel_loader_raises_without_cuda():
