@@ -100,11 +100,49 @@ j. fp32 (TF32 off): one train step (2 encoder and 1 LSTM layer at full
    greedy and the beam of 2 cut utterances with lin_jnt scaled by 8 on the
    card and the CPU: identical hypotheses, beam scores within 1e-3.
 
+Streaming U2 (the streaming model: my_U2 with ``model.enc_arch=transformer``,
+12 rel-pos transformer layers, 256-d, 4 heads, FF 2048, swish, 6 decoder
+layers, vocab 5000, bf16 compute over fp32 params, random weights from the
+seed):
+
+k. kernels: K1' and K2 with the chunk width 1, 5, 16, 25 and none at the
+   training shape (BH=128, T'=199, D=64, a kv_len=0 row, dropout 0.1), fp32
+   (1e-4 forward, 1e-3 grads) and bf16 (2e-2, 5e-2) against the plain
+   versions, each bf16 call timed beside its bound over the scores the
+   chunk leaves live; K1 with chunk 16 at the encoder decode shape (BH=64,
+   T'=399) the same way;
+l. ``model.dynamic_chunk=true`` trained through ``train.main`` on the corpus
+   of 6 for 2 epochs (my_hybrid_ctc, my_noam, dropout 0.1, clip 5, accum 2;
+   ``common.log_level=DEBUG`` logs each drawn width): 12 K1' and 12 K2
+   launches per micro-batch, a width per micro-batch with both full-context
+   and chunked draws, finite losses, moved parameters, ``valid loss:``
+   lines; then ``model.static_chunk_size=16`` for 1 epoch (its valid pass
+   through K1 with chunk 16); ``infer.infer`` of the dynamic checkpoint in
+   ``streaming_ctc_greedy`` and ``streaming_ctc_prefix_beam_search`` and of
+   the static one in ``streaming_ctc_greedy``; the micro-step at bench.py's
+   point with chunk 16 and with full context: utt/s and peak memory;
+m. decoding: the corpus of 4 through ``infer_dataset`` with the random
+   dynamic-chunk model in ``streaming_ctc_greedy`` (chunk_sub 16 and 8) and
+   ``streaming_ctc_prefix_beam_search`` (beam 10): s/batch, utt/s, RTF, with
+   and without the host's scoring; the streaming step as
+   ``tools/bench_streaming.py`` times it (B=8, chunk_sub 16, 24 chunks,
+   ``static_chunk_size=16``, a sync per chunk): median and p95 per-chunk
+   latency and the streaming RTF; the static model decoded offline in
+   ``ctc_greedy`` (12 K1 launches per batch, each with chunk 16);
+n. parity in fp32 (TF32 off): on the card the streaming runtime's hidden
+   states equal the offline chunked encoder's on the valid frames (rtol
+   1e-4, atol 1e-5) with identical hypotheses; card and CPU give identical
+   streaming hypotheses (greedy and prefix beam) on 2 cut utterances; one
+   dynamic-chunk train step at chunk 8 (2 + 1 layers at full width,
+   dropout 0) on the card against the CPU's in fp64 under the rule of 8;
+   the native host library is loaded and its Levenshtein equals the
+   pure-Python one on m's decoded pairs.
+
 Every failure raises, so the exit code is not 0. The last line is the JSON
 device record; the line before it lists the kernels (for
-rel_attention_fwd, ``ms``/``plain_ms`` are K1 per decoded batch and the
-``lse_*`` keys K1' per training call; ``launches`` sum the main paths 4,
-6, b, c, d, g and i).
+rel_attention_fwd, ``ms``/``plain_ms`` are K1 per decoded batch, the
+``lse_*`` keys K1' per training call and the ``chunk*`` keys the chunked
+calls of k; ``launches`` sum the main paths 4, 6, b, c, d, g, i, l and m).
 
     python3 chip_smoke.py --profile-train
 
@@ -114,8 +152,8 @@ of 7 and prints the top kernels by device time.
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --baseline DIR
 
-stop after steps 1-3, or after step 1 time every bf16 kernel call of the
-main paths against the checkout in DIR (another commit unpacked with git
+stop after steps 1-3 and k, or after step 1 time every bf16 kernel call of
+the main paths against the checkout in DIR (another commit unpacked with git
 archive), in the order DIR, this tree, this tree, DIR.
 """
 
@@ -168,6 +206,11 @@ BEAM_SCORE_TOL = 1e-3
 # the my_transducer preset: 4 transformer layers (DIM, HEADS, FF 2048,
 # rel-pos, relu), a 2 x 2048 LSTM over DIM-d embeddings, joint 768
 TD_ENC_LAYERS, TD_LSTM_LAYERS, TD_UNITS, TD_JOINT = 4, 2, 2048, 768
+# streaming (k-n): the chunk widths of k, the static model's width, the
+# streaming step of tools/bench_streaming.py (B, chunk_sub, chunks)
+CHUNKS, STATIC_CHUNK = (1, 5, 16, 25), 16
+STREAM_B, STREAM_CHUNK_SUB, STREAM_N_CHUNKS = 8, 16, 24
+STREAM_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_streaming_decode.py:63-64
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -205,12 +248,22 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3, inner: int = 10) -> float:
 def reset_counts(fa):
     fa.flash_attention.launches = 0
     fa.flash_attention.lse_launches = 0
+    fa.flash_attention.chunk_launches = 0
+    fa.flash_attention.lse_chunk_launches = 0
     fa.flash_rel_attention_bwd.launches = 0
+    fa.flash_rel_attention_bwd.chunk_launches = 0
 
 
 def counts(fa):
     return (fa.flash_attention.launches, fa.flash_attention.lse_launches,
             fa.flash_rel_attention_bwd.launches)
+
+
+def chunk_counts(fa):
+    """(K1, K1', K2) launches that ran with a chunk width, as the wrappers
+    count them."""
+    return (fa.flash_attention.chunk_launches - fa.flash_attention.lse_chunk_launches,
+            fa.flash_attention.lse_chunk_launches, fa.flash_rel_attention_bwd.chunk_launches)
 
 
 def nbytes(*tensors) -> int:
@@ -226,35 +279,41 @@ def bound(flops: float, nbytes_: float, dtype):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def live_keys(bh: int, tk: int, kv_lens) -> torch.Tensor:
-    """Keys each row needs: kv_len (capped at Tk), or all Tk for a row with
-    no key (kv_len 0, whose output is the mean of V) or without kv_lens."""
-    if kv_lens is None:
-        return torch.full((bh,), tk, dtype=torch.int64)
-    kv = kv_lens.cpu().long().clamp(max=tk)
-    return torch.where(kv > 0, kv, tk)
+def live_keys(bh: int, tq: int, tk: int, kv_lens, chunk: int = 0) -> torch.Tensor:
+    """(BH, Tq) keys each query needs: those below kv_len (capped at Tk) and,
+    under a chunk width, below the end of the query's chunk ((t // chunk +
+    1) chunk); all Tk for a row with no key (kv_len 0, whose output is the
+    mean of V)."""
+    kv = (torch.full((bh,), tk, dtype=torch.int64) if kv_lens is None
+          else kv_lens.cpu().long().clamp(max=tk))
+    end = kv[:, None].expand(bh, tq)
+    if chunk > 0:
+        t = torch.arange(tq)
+        end = torch.minimum(end, ((t // chunk + 1) * chunk)[None, :])
+    return torch.where(kv[:, None] > 0, end, tk)
 
 
 def fwd_bound(q, k, v, mask=None, kv_lens=None, rel_qv=None, rel_p=None,
-              lse=False):
+              lse=False, chunk=0):
     """Bound of one K1/K1' call from its shapes: Q K^T, P V and (with the
-    rel-pos term) Q_v P^T over the keys the data needs; each input read once
-    and each output written once (K and V only up to kv_len)."""
+    rel-pos term) Q_v P^T over the scores the data leaves live; each input
+    read once and each output written once (K and V only up to the row's
+    last live key)."""
     bh, tq, d = q.shape
-    keys = live_keys(bh, k.shape[1], kv_lens).sum().item()
-    flops = (3 if rel_qv is not None else 2) * 2.0 * tq * keys * d
+    live = live_keys(bh, tq, k.shape[1], kv_lens, chunk)
+    keys = live.max(dim=1).values.sum().item()
+    flops = (3 if rel_qv is not None else 2) * 2.0 * live.sum().item() * d
     kv_bytes = 2 * keys * d * k.element_size()
     out = bh * tq * d * q.element_size() + (4 * bh * tq if lse else 0)
     return bound(flops, nbytes(q, rel_qv, rel_p, mask, kv_lens) + kv_bytes + out,
                  q.dtype)
 
 
-def bwd_bound(q_u, qv, k, v, p, kv_lens, out, lse, dout):
-    """Bound of one K2 call: eight (T x T_live x D) products, the inputs read
-    once, the five fp32 gradients written once."""
+def bwd_bound(q_u, qv, k, v, p, kv_lens, out, lse, dout, chunk=0):
+    """Bound of one K2 call: eight products over the live (query, key)
+    scores x D, the inputs read once, the five fp32 gradients written once."""
     bh, t, d = q_u.shape
-    keys = live_keys(bh, t, kv_lens).sum().item()
-    flops = 8 * 2.0 * t * keys * d
+    flops = 8 * 2.0 * live_keys(bh, t, t, kv_lens, chunk).sum().item() * d
     grads = 4 * (4 * bh * t * d + p.numel())
     return bound(flops, nbytes(q_u, qv, k, v, p, kv_lens, out, lse, dout) + grads,
                  q_u.dtype)
@@ -545,7 +604,9 @@ def write_corpus(root: str) -> None:
 
 
 def build_model(dtype, device, enc_layers=ENC_LAYERS, dec_layers=DEC_LAYERS,
-                dropout_rate=0.0, remat=False):
+                dropout_rate=0.0, remat=False, **streaming):
+    """The full-width U2 (my_U2), random weights from SEED; ``streaming``:
+    enc_arch, static_chunk_size, dynamic_chunk."""
     from liteasr_tpu_torch.models.u2 import U2
 
     gen = torch.Generator().manual_seed(SEED)
@@ -557,16 +618,18 @@ def build_model(dtype, device, enc_layers=ENC_LAYERS, dec_layers=DEC_LAYERS,
     return U2(input_dim=FEAT, vocab_size=VOCAB, enc_dim=DIM, enc_ff_dim=2048,
               enc_attn_heads=HEADS, enc_layers=enc_layers, dec_dim=DIM,
               dec_ff_dim=2048, dec_attn_heads=HEADS, dec_layers=dec_layers,
-              remat=remat, dtype=dtype, device=device, generator=gen, **rates)
+              remat=remat, dtype=dtype, device=device, generator=gen, **rates,
+              **streaming)
 
 
-def run_slice(fa, task, dev, name, mode="attention_rescore"):
-    """Decodes the test corpus in ``mode`` (a warm-up pass, then the timed
-    pass with the counts reset); returns the K1 launches and s/batch."""
+def run_slice(fa, task, dev, name, mode="attention_rescore", model=None):
+    """Decodes the test corpus in ``mode`` with ``model`` (default the bf16
+    conformer U2): a warm-up pass, then the timed pass with the counts
+    reset; returns the K1 launches and s/batch."""
     from liteasr_tpu_torch.infer import infer_dataset
 
     dataset = task.dataset("test")
-    model = build_model(torch.bfloat16, dev)
+    model = model or build_model(torch.bfloat16, dev)
     cfg = {"batch_size": BATCH, "beam_size": BEAM, "ctc_weight": CTC_WEIGHT,
            "mode": mode}
     n_batches = -(-len(dataset.data) // BATCH)
@@ -588,6 +651,11 @@ def run_slice(fa, task, dev, name, mode="attention_rescore"):
     if launches != per_batch * n_batches:
         raise RuntimeError(f"K1 launched {launches} times for {n_batches} "
                            f"batches, expected {per_batch} per batch")
+    # a static chunk width reaches the encoder's K1 launches, never the decoder's
+    chunked = ENC_LAYERS * n_batches if model.encoder.static_chunk_size else 0
+    if chunk_counts(fa) != (chunked, 0, 0):
+        raise RuntimeError(f"chunked (K1, K1', K2) launches {chunk_counts(fa)}, "
+                           f"expected ({chunked}, 0, 0)")
     if len(pairs) != len(dataset.data) or length <= 0:
         raise RuntimeError("infer_dataset did not score every utterance")
     log(f"slice {mode}: {n_batches} batches of <= {BATCH} utts (longest padded "
@@ -716,7 +784,7 @@ def bench_batch(dev):
     return to_device(batch, dev), B
 
 
-def bench_step(dev, remat=False):
+def bench_step(dev, remat=False, **streaming):
     """The full-width bf16 train micro-step (dropout 0.1, hybrid loss, Noam
     Adam, clip 5, accum 2) on bench_batch; returns (step, B)."""
     from liteasr_tpu_torch.config.core import DotDict
@@ -725,7 +793,7 @@ def bench_step(dev, remat=False):
     from liteasr_tpu_torch.optims.noam import noam_schedule
 
     torch.manual_seed(SEED)
-    model = build_model(torch.bfloat16, dev, dropout_rate=0.1, remat=remat)
+    model = build_model(torch.bfloat16, dev, dropout_rate=0.1, remat=remat, **streaming)
     crit = HybridCTCLoss(DotDict(vocab_size=VOCAB, padding_idx=-1,
                                  smoothing=0.1, ctc_weight=0.3))
     params = list(model.parameters())
@@ -1542,6 +1610,459 @@ def check_td_parity(task, dev, name):
         raise RuntimeError("transducer decoding differs between the card and the CPU")
 
 
+# ------------------------------------------------------ streaming U2 (k-n)
+
+
+def check_chunk_kernels(fa, dev, name):
+    """Phase k: K1' and K2 with each chunk width of CHUNKS and none at the
+    training shape, fp32 and bf16, against the plain versions; the bf16
+    calls timed beside their bounds (the plain version at STATIC_CHUNK).
+    Then K1 with chunk STATIC_CHUNK at the encoder decode shape. Returns
+    the bf16 errors, times and bounds by width."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    scale = TRAIN_D ** -0.5
+    rep = {"fwd_err": 0.0, "bwd_err": 0.0, "fwd_ms": {}, "fwd_bound_ms": {},
+           "bwd_ms": {}, "bwd_bound_ms": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = train_slice_inputs(gen, dev, dtype)
+        ins = [x[n] for n in ("q_u", "qv", "k", "v", "p")]
+        kv, dout = x["kv_lens"], x["dout"]
+        live = kv > 0
+        ftol, gtol = KERNEL_TOL[dtype], GRAD_TOL[dtype]
+        for chunk in (0,) + CHUNKS:
+            def fwd(plain=False, chunk=chunk):
+                f = fa.flash_attention_plain if plain else fa.flash_attention
+                return f(ins[0], ins[2], ins[3], kv_lens=kv, rel_qv=ins[1], rel_p=ins[4],
+                         scale=scale, return_lse=True, dropout_rate=TRAIN_RATE,
+                         dropout_seed=TRAIN_SEED, chunk=chunk)
+
+            def bwd(out, lse, plain=False, chunk=chunk):
+                f = fa.flash_rel_attention_bwd_plain if plain else fa.flash_rel_attention_bwd
+                return f(*ins, kv, out, lse, dout, scale, TRAIN_RATE, TRAIN_SEED, chunk)
+
+            out, lse = fwd()
+            ref_out, ref_lse = fwd(plain=True)
+            out32 = out.float()
+            grads, ref_grads = bwd(out32, lse), bwd(out32, ref_lse, plain=True)
+            torch.cuda.synchronize()
+            ferr = max((out.float() - ref_out.float()).abs().max().item(),
+                       (lse[live] - ref_lse[live]).abs().max().item())
+            ok = (within(out, ref_out, ftol) and within(lse[live], ref_lse[live], ftol)
+                  and bool((lse[~live] == fa.NEG_INF).all()))
+            gerr = 0.0
+            for gname, g, r in zip(("dq_u", "dqv", "dk", "dv", "dp"), grads, ref_grads):
+                g = g.to(dtype).float()  # what K3 hands back
+                gerr = max(gerr, (g - r).abs().max().item())
+                ok = ok and within(g, r, gtol) and (gname == "dp" or bool((g[5] == 0).all()))
+            label = f"chunk {chunk}" if chunk else "no chunk"
+            if not ok:
+                raise RuntimeError(f"K1'/K2 {dtype} {label}: out/lse err {ferr}, grad err "
+                                   f"{gerr} beyond {ftol}/{gtol} (or the dead row is not 0)")
+            line = (f"K1'/K2 {str(dtype)[6:]} BH={TRAIN_BH} T'={TRAIN_T} D={TRAIN_D} "
+                    f"dropout {TRAIN_RATE} {label}: out/lse err {ferr:.3g} grad err "
+                    f"{gerr:.3g} (tol {ftol}/{gtol})")
+            if dtype == torch.bfloat16:
+                rep["fwd_err"] = max(rep["fwd_err"], ferr)
+                rep["bwd_err"] = max(rep["bwd_err"], gerr)
+                fwd_ms, bwd_ms = cuda_time_ms(fwd), cuda_time_ms(lambda: bwd(out32, lse))
+                fb, fb_by = fwd_bound(ins[0], ins[2], ins[3], kv_lens=kv, rel_qv=ins[1],
+                                      rel_p=ins[4], lse=True, chunk=chunk)
+                bb, bb_by = bwd_bound(*ins, kv, out32, lse, dout, chunk)
+                for key, val in (("fwd_ms", fwd_ms), ("fwd_bound_ms", fb),
+                                 ("bwd_ms", bwd_ms), ("bwd_bound_ms", bb)):
+                    rep[key][chunk] = val
+                line += (f"; fwd kernel {fwd_ms:.4f} ms bound {fb:.4f} ({fb_by}, "
+                         f"{fb / fwd_ms:.2%}); bwd kernel {bwd_ms:.4f} ms bound {bb:.4f} "
+                         f"({bb_by}, {bb / bwd_ms:.2%})")
+                if chunk == STATIC_CHUNK:
+                    rep["fwd_plain_ms"] = cuda_time_ms(lambda: fwd(plain=True), reps=5)
+                    rep["bwd_plain_ms"] = cuda_time_ms(lambda: bwd(out32, ref_lse, plain=True),
+                                                       reps=5)
+                    line += (f"; plain fwd {rep['fwd_plain_ms']:.4f} ms, bwd "
+                             f"{rep['bwd_plain_ms']:.4f} ms")
+            log(line + f" [{name}]")
+
+    # K1 at the encoder decode shape (BH=64, T'=399), chunk STATIC_CHUNK
+    for dtype in (torch.float32, torch.bfloat16):
+        args = slice_shapes(torch.Generator().manual_seed(SEED + 7), dev, dtype)["encoder_rel"]
+        scale = args["q"].shape[-1] ** -0.5
+        out = fa.flash_attention(scale=scale, chunk=STATIC_CHUNK, **args)
+        ref = fa.flash_attention_plain(scale=scale, chunk=STATIC_CHUNK, **args)
+        torch.cuda.synchronize()
+        err, tol = (out.float() - ref.float()).abs().max().item(), KERNEL_TOL[dtype]
+        if not within(out, ref, tol):
+            raise RuntimeError(f"K1 chunk {STATIC_CHUNK} {dtype}: max abs err {err} > {tol}")
+        line = (f"K1 encoder_rel {str(dtype)[6:]} shape={tuple(args['q'].shape)} chunk "
+                f"{STATIC_CHUNK}: max_abs_err={err:.3g} (tol {tol})")
+        if dtype == torch.bfloat16:
+            ms = cuda_time_ms(lambda: fa.flash_attention(scale=scale, chunk=STATIC_CHUNK, **args))
+            full_ms = cuda_time_ms(lambda: fa.flash_attention(scale=scale, **args))
+            plain_ms = cuda_time_ms(
+                lambda: fa.flash_attention_plain(scale=scale, chunk=STATIC_CHUNK, **args))
+            bnd, by = fwd_bound(chunk=STATIC_CHUNK, **args)
+            rep.update(k1_err=err, k1_ms=ms, k1_full_ms=full_ms, k1_plain_ms=plain_ms,
+                       k1_bound_ms=bnd, k1_bound_by=by)
+            line += (f"; kernel {ms:.4f} ms (no chunk {full_ms:.4f}), plain {plain_ms:.4f} "
+                     f"ms, bound {bnd:.4f} ms ({by}) = {bnd / ms:.2%} of it")
+        log(line + f" [{name}]")
+    return rep
+
+
+def stream_overrides(root, run):
+    return ["task=asr", "model=my_U2", "criterion=my_hybrid_ctc", "optimizer=my_noam",
+            f"task.vocab={root}/vocab.txt", f"task.train={root}/train",
+            f"task.valid={root}/valid", f"task.test=[{root}/valid]", "task.delimiter=' '",
+            f"task.save_dir={run}/ckpts", f"common.run_dir={run}", f"common.seed={SEED}",
+            "model.dtype=bfloat16", "model.dropout_rate=0.1", "model.enc_arch=transformer",
+            f"dataset.batch_size={TRAIN_BATCH}", "dataset.max_len_in=1000",
+            "postprocess.workflow=[]", f"optimization.accum_grad={ACCUM}",
+            "optimization.clip_grad_norm=5.0"]
+
+
+def train_stream(fa, root, run, extra, epochs, dev, name):
+    """One streaming model trained through train.main; checks the launches
+    (12 K1' and 12 K2 per micro-batch, the encoder and decoder K1 per valid
+    batch), finite losses, moved parameters and the valid lines. Returns
+    the trainer, its (K1, K1', K2) launches and those of them that ran with
+    a chunk width."""
+    from liteasr_tpu_torch import train
+
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    trainer = train.main(stream_overrides(root, run) + extra
+                         + [f"optimization.max_epoch={epochs}"], device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fwd, lse, bwd = counts(fa)
+    chunked = chunk_counts(fa)
+    micro = epochs * len(trainer.task.dataset("train"))
+    n_valid = epochs * len(trainer.valid_set)
+    if (lse, bwd, fwd - lse) != (ENC_LAYERS * micro, ENC_LAYERS * micro,
+                                 (ENC_LAYERS + 2 * DEC_LAYERS) * n_valid):
+        raise RuntimeError(f"streaming launches K1' {lse}, K2 {bwd}, K1 {fwd - lse} for "
+                           f"{micro} micro-batches and {n_valid} valid batches")
+    losses = torch.stack(trainer._loss_accum).float().cpu()
+    if len(losses) != micro or not bool(torch.isfinite(losses).all()):
+        raise RuntimeError(f"streaming training losses {losses.tolist()}")
+    init = dict(build_model(torch.bfloat16, "cpu", enc_arch="transformer").named_parameters())
+    moved = [n for n, p in trainer.model.named_parameters()
+             if not torch.equal(p.detach().cpu(), init[n])]  # same seed as train.main
+    if int(trainer.tx.count) < 1 or len(moved) < len(init) // 2:
+        raise RuntimeError(f"{int(trainer.tx.count)} steps applied, {len(moved)} moved")
+    valid_lines = valid_epochs(os.path.join(run, "train.log"))
+    if valid_lines != list(range(1, epochs + 1)):
+        raise RuntimeError(f"'valid loss:' lines for epochs {valid_lines}")
+    log(f"streaming train {' '.join(extra)}: {micro} micro-batches of <= {TRAIN_BATCH} utts "
+        f"in {epochs} epochs, {int(trainer.tx.count)} optimizer steps "
+        f"({int(trainer.tx.notfinite_count)} skipped), {secs:.2f} s incl. validation and "
+        f"checkpoints; losses {[round(v, 3) for v in losses.tolist()]}; K1' {lse}, K2 "
+        f"{bwd}, K1 {fwd - lse} launches (with a chunk width: K1' {chunked[1]}, K2 "
+        f"{chunked[2]}, K1 {chunked[0]}); {len(moved)} of {len(init)} leaves moved [{name}]")
+    return trainer, (fwd - lse, lse, bwd), chunked
+
+
+def infer_stream(fa, run, epoch, mode, chunk_sub, dev, name):
+    """infer.infer of a streaming checkpoint in a streaming mode: no K1
+    launch (the chunk attention over the cache is plain, as the JAX
+    package's is XLA), every utterance scored."""
+    from liteasr_tpu_torch import infer
+    from liteasr_tpu_torch.config import compose
+    from liteasr_tpu_torch.config.core import load_yaml
+
+    cfg = compose([f"inference.ckpt_name={epoch}", "inference.model_avg=false",
+                   f"inference.batch_size={N_VALID}", f"inference.beam_size={BEAM}",
+                   f"inference.mode={mode}", f"inference.chunk_sub={chunk_sub}"],
+                  base=load_yaml(os.path.join(run, "config.yaml")))
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    results = infer.infer(cfg, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if counts(fa) != (0, 0, 0) or results[0][1] <= 0:
+        raise RuntimeError(f"streaming infer {mode}: {results}, launches {counts(fa)}")
+    log(f"infer {mode} chunk_sub {chunk_sub} of {os.path.basename(run)}/model.ep.{epoch}.pt "
+        f"on the {N_VALID} valid utterances in {secs:.2f} s incl. loading: error count "
+        f"{results[0][0]}/{results[0][1]} (random data) [{name}]")
+
+
+def run_stream_training(fa, root, dev, name):
+    """Phase l. Returns the (K1, K1', K2) launches of the dynamic-chunk and
+    of the static-chunk training run, then those of each that ran with a
+    chunk width."""
+    import logging
+
+    run = os.path.join(root, "stream_run")
+    trainer, dyn, dyn_c = train_stream(fa, root, run, ["model.dynamic_chunk=true",
+                                                "common.log_level=DEBUG"], TRAIN_EPOCHS, dev,
+                                name)
+    logging.getLogger().setLevel(logging.INFO)
+    micro = TRAIN_EPOCHS * len(trainer.task.dataset("train"))
+    with open(os.path.join(run, "train.log")) as f:
+        widths = [ln.rsplit("dynamic chunk width: ", 1)[1].strip()
+                  for ln in f if "dynamic chunk width: " in ln]
+    chunked = [int(w) for w in widths if w != "full context"]
+    if (len(widths) != micro or not chunked or len(chunked) == len(widths)
+            or not all(1 <= w <= 25 for w in chunked)):
+        raise RuntimeError(f"drawn chunk widths {widths} for {micro} micro-batches")
+    log(f"dynamic chunk widths drawn, one per micro-batch: {widths} [{name}]")
+    # the chunked draws' micro-batches, and only they, ran K1'/K2 chunked;
+    # validation is full context
+    if dyn_c != (0, ENC_LAYERS * len(chunked), ENC_LAYERS * len(chunked)):
+        raise RuntimeError(f"dynamic run: chunked (K1, K1', K2) launches {dyn_c} for "
+                           f"{len(chunked)} chunked draws")
+    del trainer
+    static_run = os.path.join(root, "static_run")
+    trainer, sta, sta_c = train_stream(fa, root, static_run,
+                                       [f"model.static_chunk_size={STATIC_CHUNK}"], 1, dev,
+                                       name)
+    if trainer.model.encoder.static_chunk_size != STATIC_CHUNK:
+        raise RuntimeError("the static run has no chunk width")
+    micro, n_valid = len(trainer.task.dataset("train")), len(trainer.valid_set)
+    if sta_c != (ENC_LAYERS * n_valid, ENC_LAYERS * micro, ENC_LAYERS * micro):
+        raise RuntimeError(f"static run: chunked (K1, K1', K2) launches {sta_c} for "
+                           f"{micro} micro-batches and {n_valid} valid batches")
+    del trainer
+    for mode in ("streaming_ctc_greedy", "streaming_ctc_prefix_beam_search"):
+        infer_stream(fa, run, TRAIN_EPOCHS, mode, STREAM_CHUNK_SUB, dev, name)
+    infer_stream(fa, static_run, 1, "streaming_ctc_greedy", STREAM_CHUNK_SUB, dev, name)
+    return dyn, sta, dyn_c, sta_c
+
+
+def time_stream_step(dev, name):
+    """Phase l: the streaming model's micro-step at bench.py's point with
+    chunk STATIC_CHUNK and with full context: median of 3 x 5, peak memory."""
+    for chunk in (STATIC_CHUNK, 0):
+        gc.collect()
+        torch.cuda.empty_cache()
+        step, B = bench_step(dev, enc_arch="transformer", static_chunk_size=chunk)
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                loss = step()
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) / 5)
+        if not bool(torch.isfinite(loss)):
+            raise RuntimeError("non-finite loss in the streaming step timing")
+        med = statistics.median(reps)
+        log(f"streaming train step bf16 at bench.py's point (B={B}, T=800, U=48), "
+            f"{'chunk ' + str(chunk) if chunk else 'full context'}: median {med * 1e3:.2f} "
+            f"ms/micro-step (of 3 x 5), {B / med:.2f} utt/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{name}]")
+        del step
+
+
+def run_stream_decode(fa, task, dev, name):
+    """Phase m. Returns the K1 launches of the offline decode and those of
+    them with the chunk width, the decoded (ref, hyp) pairs and the s/batch
+    by configuration."""
+    from types import SimpleNamespace
+
+    from liteasr_tpu_torch import infer, streaming
+    from liteasr_tpu_torch.infer import infer_dataset
+
+    dataset = task.dataset("test")
+    model = build_model(torch.bfloat16, dev, enc_arch="transformer", dynamic_chunk=True)
+    n_batches = -(-len(dataset.data) // BATCH)
+    audio_s = sum(a.xlen for a in dataset.data) * FRAME_S
+    warm = SimpleNamespace(data=dataset.data[:BATCH], feat_dim=dataset.feat_dim)
+    all_pairs, per_batch = [], {}
+    for mode, chunk_sub in (("streaming_ctc_greedy", 16), ("streaming_ctc_greedy", 8),
+                            ("streaming_ctc_prefix_beam_search", 16)):
+        cfg = {"batch_size": BATCH, "beam_size": BEAM, "mode": mode, "chunk_sub": chunk_sub}
+        infer_dataset(task, model, warm, cfg, dev, PAD_TIME, verbose=False)
+        torch.cuda.synchronize()
+        reset_counts(fa)
+        decode_s = []
+
+        def timed(*args, **kwargs):  # the decode alone, without the scoring
+            t1 = time.perf_counter()
+            out = streaming.streaming_decode(*args, **kwargs)
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t1)
+            return out
+
+        infer.streaming_decode = timed
+        try:
+            t0 = time.perf_counter()
+            pairs = []
+            err, length = infer_dataset(task, model, dataset, cfg, dev, PAD_TIME,
+                                        verbose=False, collect=pairs)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            infer.streaming_decode = streaming.streaming_decode
+        if counts(fa) != (0, 0, 0) or len(pairs) != len(dataset.data) or length <= 0:
+            raise RuntimeError(f"streaming decode {mode}: launches {counts(fa)}, "
+                               f"{len(pairs)} pairs")
+        dec = sum(decode_s)
+        n_tok = sum(len(hyp.split()) for _, hyp in pairs)
+        log(f"streaming decode {mode} chunk_sub {chunk_sub} ({chunk_sub * 40} ms chunks): "
+            f"{n_batches} batches of <= {BATCH} utts, {secs / n_batches:.4f} s/batch through "
+            f"infer_dataset, of which the decode {dec / n_batches:.4f} s/batch; "
+            f"{len(pairs) / secs:.2f} utt/s, RTF {secs / audio_s:.5f} (decode alone "
+            f"{len(pairs) / dec:.2f} utt/s, RTF {dec / audio_s:.5f}); {n_tok} tokens, error "
+            f"count {err}/{length} (random weights) [{name}]")
+        all_pairs += pairs
+        per_batch[f"{mode}/{chunk_sub}"] = secs / n_batches
+    del model
+
+    # the streaming step as tools/bench_streaming.py times it
+    static = build_model(torch.bfloat16, dev, enc_arch="transformer",
+                         static_chunk_size=STATIC_CHUNK)
+    C = 4 * STREAM_CHUNK_SUB
+    T = STREAM_N_CHUNKS * C + 4
+    L = STREAM_N_CHUNKS * STREAM_CHUNK_SUB
+    xs = torch.from_numpy(np.random.default_rng(SEED).normal(size=(STREAM_B, T, FEAT))
+                          .astype(np.float32)).to(dev)
+    xlens = torch.full((STREAM_B,), T, dtype=torch.int64, device=dev)
+    sub_xlens = torch.clamp(((xlens - 1) // 2 - 1) // 2, max=L)
+    key_lens = torch.clamp((xlens + 3) // 4, max=L)
+    lat = []
+    with torch.inference_mode():
+        state = streaming.init_stream_state(static, STREAM_B, STREAM_CHUNK_SUB,
+                                            STREAM_N_CHUNKS, device=dev)
+        for t in range(STREAM_N_CHUNKS):
+            t0 = time.perf_counter()
+            h = streaming.stream_step(static, state, xs[:, t * C: t * C + C + 4], sub_xlens,
+                                      key_lens, L)
+            torch.cuda.synchronize()
+            if t:  # chunk 0 warms up
+                lat.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(h).all()) or state["index"] != L:
+        raise RuntimeError("the streaming step gave non-finite states")
+    med, p95 = statistics.median(lat), float(np.percentile(lat, 95))
+    chunk_s = STREAM_CHUNK_SUB * 4 * FRAME_S
+    log(f"streaming step (B={STREAM_B}, chunk_sub {STREAM_CHUNK_SUB} = {chunk_s * 1e3:.0f} ms "
+        f"of audio, {STREAM_N_CHUNKS} chunks, static_chunk_size {STATIC_CHUNK}, bf16, a sync "
+        f"per chunk): median {med:.2f} ms/chunk, p95 {p95:.2f} ms, streaming RTF "
+        f"{med / 1e3 / chunk_s:.4f} [{name}]")
+    # the same stream again, traced with device activity only: device busy
+    # time and ops a chunk against the traced wall
+    from torch.profiler import ProfilerActivity
+
+    with torch.inference_mode():
+        state = streaming.init_stream_state(static, STREAM_B, STREAM_CHUNK_SUB,
+                                            STREAM_N_CHUNKS, device=dev)
+
+        def chunk_step():
+            t = state["index"] // STREAM_CHUNK_SUB
+            streaming.stream_step(static, state, xs[:, t * C: t * C + C + 4], sub_xlens,
+                                  key_lens, L)
+
+        _, wall_us, busy, ops = traced_steps(chunk_step, STREAM_N_CHUNKS,
+                                             [ProfilerActivity.CUDA])
+    n = STREAM_N_CHUNKS
+    log(f"streaming step traced (device activity only, {n} chunks): device busy "
+        f"{busy / 1e3 / n:.2f} ms/chunk of {wall_us / 1e3 / n:.2f} ms traced wall = "
+        f"{busy / wall_us:.1%}; {ops / n:.0f} device ops/chunk [{name}]")
+    k1, off_s = run_slice(fa, task, dev, name, mode="ctc_greedy", model=static)
+    k1_chunked = chunk_counts(fa)[0]  # counted in run_slice's timed pass
+    per_batch["ctc_greedy offline, chunk 16"] = off_s
+    return k1, k1_chunked, all_pairs, per_batch
+
+
+def check_stream_parity(task, dev, name, pairs):
+    """Phase n, fp32 (TF32 off)."""
+    from liteasr_tpu_torch import decode, native, streaming
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
+    from liteasr_tpu_torch.nets.subsampling import subsampled_length
+    from liteasr_tpu_torch.trainer import to_device
+    from liteasr_tpu_torch.utils import score
+
+    # the first 600 and 480 frames of two test utterances, padded to the
+    # stream's capacity (10 chunks of 64 frames + 4) for the offline encoder
+    cut = (600, 480)
+    n_chunks = -(-(cut[0] - 4) // (4 * STREAM_CHUNK_SUB))
+    T = n_chunks * 4 * STREAM_CHUNK_SUB + 4
+    xs = np.zeros((2, T, FEAT), np.float32)
+    for i, (a, n) in enumerate(zip(task.dataset("test").data, cut)):
+        xs[i, :n] = a.x[:n]
+    xs, xlens = torch.from_numpy(xs), torch.tensor(cut)
+    got = []  # [card, CPU]
+    for device in (dev, torch.device("cpu")):
+        model = build_model(torch.float32, device, enc_arch="transformer",
+                            static_chunk_size=STATIC_CHUNK)
+        x, xl = xs.to(device), xlens.to(device)
+        t0 = time.perf_counter()
+        greedy, h_str = streaming.streaming_decode(model, x, xl, STREAM_CHUNK_SUB,
+                                                   n_chunks=n_chunks, collect_enc=True)
+        beam = streaming.streaming_decode(model, x, xl, STREAM_CHUNK_SUB,
+                                          "ctc_prefix_beam_search", BEAM, n_chunks=n_chunks)
+        got.append((greedy, beam, time.perf_counter() - t0))
+        if len(got) == 1:  # the card
+            with torch.inference_mode():
+                h_off, _ = model.encode(x, xl)
+            off = decode.decode_batch(model, x, xl, mode="ctc_greedy")
+            errs = []
+            for b, n in enumerate(cut):
+                ls = subsampled_length(n)
+                a, r = h_str[b, :ls].cpu(), h_off[b, :ls].cpu()
+                errs.append((a - r).abs().max().item())
+                if not torch.allclose(a, r, **STREAM_TOL):
+                    raise RuntimeError(f"streaming vs offline chunked encoder on the card: "
+                                       f"max abs diff {errs[-1]} beyond {STREAM_TOL}")
+            if greedy != off:
+                raise RuntimeError("streaming and offline greedy hypotheses differ on the card")
+            log(f"stream parity fp32 on the card (2 utts of {list(cut)} frames, {n_chunks} "
+                f"chunks of {STREAM_CHUNK_SUB}): hidden states vs the offline chunked "
+                f"encoder max abs diff {max(errs):.3g} (rtol/atol {STREAM_TOL}), greedy "
+                f"hypotheses identical to the offline ones (lens "
+                f"{[len(h) for h in greedy]}) [{name}]")
+        del model
+    (g_greedy, g_beam, g_s), (c_greedy, c_beam, c_s) = got
+    if g_greedy != c_greedy or g_beam != c_beam:
+        raise RuntimeError("streaming hypotheses differ between the card and the CPU")
+    log(f"stream parity card vs CPU fp32: greedy and prefix beam {BEAM} hypotheses "
+        f"identical (lens {[len(h) for h in g_greedy]}, {[len(h) for h in g_beam]}); "
+        f"{g_s:.2f} s card, {c_s:.2f} s CPU [{name}]")
+
+    # one dynamic-chunk train step at chunk 8, the card against the CPU in fp64
+    rng = np.random.default_rng(SEED + 8)
+    B, T, U = 4, 400, 24
+    batch = {"xs": rng.normal(size=(B, T, FEAT)).astype(np.float32),
+             "xlens": np.array([T, 350, 280, 200], np.int32),
+             "ys": rng.integers(1, VOCAB - 1, size=(B, U)).astype(np.int32),
+             "ylens": np.array([U, 20, 16, 10], np.int32),
+             "valid": np.ones(B, np.float32)}
+    crit = HybridCTCLoss(DotDict(vocab_size=VOCAB, padding_idx=-1, smoothing=0.1,
+                                 ctc_weight=0.3))
+    res = []
+    for device, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float64)):
+        model = build_model(dtype, device, enc_layers=2, dec_layers=1,
+                            enc_arch="transformer", dynamic_chunk=True).to(dtype)
+        model.encoder.draw_chunk = lambda: 8
+        b = to_device(batch, device)
+        b["xs"] = b["xs"].to(dtype)
+        loss, _ = crit(model, b, train=True)
+        loss.backward()
+        res.append((loss.item(), {n: p.grad.double().cpu()
+                                  for n, p in model.named_parameters()}))
+    what = grad_agreement(res[0][0], res[0][1], res[1][0], res[1][1])
+    log(f"dynamic-chunk train parity at chunk 8, fp32 card vs CPU fp64 (2 + 1 layers, "
+        f"B={B}, T={T}): {what} [{name}]")
+
+    # the native host library, on m's decoded pairs
+    if native.get_lib() is None:
+        raise RuntimeError("the native host library did not load")
+    t0 = time.perf_counter()
+    fast = native.levenshtein_batch(pairs)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = [score._levenshtein_py(r, h) for r, h in pairs]
+    t_py = time.perf_counter() - t0
+    if fast != slow or [score.levenshtein(r, h) for r, h in pairs] != slow:
+        raise RuntimeError("the native Levenshtein differs from the pure-Python one")
+    log(f"native library {native.library_path().name} loaded; Levenshtein of {len(pairs)} "
+        f"decoded pairs equal to the pure-Python one, {t_native * 1e3:.2f} ms (one batched "
+        f"call) against {t_py * 1e3:.2f} ms [{name}]")
+
+
 def load_baseline(root):
     """The flash_attention module of another checkout (the parent commit,
     unpacked with git archive), loaded on its own: it builds that
@@ -1648,6 +2169,7 @@ def main() -> int:
     k1 = check_kernel(fa, dev, name)
     k2 = check_train_kernels(fa, dev, name)
     time_long_kernels(fa, dev, name)
+    kc = check_chunk_kernels(fa, dev, name)  # k
     if "--kernels-only" in sys.argv[1:]:
         return 0
 
@@ -1684,6 +2206,18 @@ def main() -> int:
             f"[{name}]")
         check_td_parity(task, dev, name)  # j
 
+        dyn, sta, dyn_c, sta_c = run_stream_training(fa, root, dev, name)  # l
+        time_stream_step(dev, name)  # l
+        stream_dec_fwd, stream_dec_c, stream_pairs, stream_s = run_stream_decode(
+            fa, task, dev, name)  # m
+        log("streaming decode s/batch: " + ", ".join(f"{k} {v:.4f}" for k, v in stream_s.items())
+            + f" (U2 attention_rescore {rescore_s:.4f}) [{name}]")
+        check_stream_parity(task, dev, name, stream_pairs)  # n
+    # launches with a chunk width, as the wrappers counted them: K1 in the
+    # static run's validation and the static model's offline decode (chunk
+    # 16), K1'/K2 in the chunked draws and the static run
+    chunk_fwd = sta_c[0] + stream_dec_c
+
     # rel_attention_fwd: ms / plain_ms are K1's per decoded batch (as since
     # the decode slice); the lse_* keys are K1' (lse + dropout) per call at
     # the training shape and its launches in the training run
@@ -1694,8 +2228,8 @@ def main() -> int:
         "replaces": "liteasr_tpu/ops/flash_attention.py:177",
         "launches": (decode_fwd + train_fwd + ckpt_fwd + recipe_fwd + recipe_lse
                      + avg_fwd + attention_fwd + td_fwd + td_lse + td_ckpt_fwd
-                     + td_dec_fwd),
-        "max_abs_err": max(k1["max_abs_err"], k2["fwd_err"]),
+                     + td_dec_fwd + sum(dyn[:2]) + sum(sta[:2]) + stream_dec_fwd),
+        "max_abs_err": max(k1["max_abs_err"], k2["fwd_err"], kc["fwd_err"], kc["k1_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
@@ -1707,25 +2241,41 @@ def main() -> int:
         "decoder_src_kv_lens_ms": k1["decoder_src_kv_lens_ms"],
         "decoder_src_kv_lens_bound_ms": k1["decoder_src_kv_lens_bound_ms"],
         "decoder_src_kv_lens_library_ms": k1["decoder_src_kv_lens_library_ms"],
-        "lse_launches": train_lse + recipe_lse + td_lse,
+        "lse_launches": train_lse + recipe_lse + td_lse + dyn[1] + sta[1],
         "lse_max_abs_err": k2["fwd_err"],
         "lse_ms": k2["fwd_ms"],
         "lse_plain_ms": k2["fwd_plain_ms"],
         "lse_bound_ms": k2["fwd_bound_ms"],
         "lse_bound_by": k2["fwd_bound_by"],
         "lse_library_ms": None,
+        # chunked K1 (phase k, encoder decode shape, chunk 16) and K1' by
+        # chunk width (0 = none; phase k, training shape)
+        "chunk16_launches": chunk_fwd,
+        "chunk16_ms": kc["k1_ms"],
+        "chunk16_unchunked_ms": kc["k1_full_ms"],
+        "chunk16_plain_ms": kc["k1_plain_ms"],
+        "chunk16_bound_ms": kc["k1_bound_ms"],
+        "chunk16_bound_by": kc["k1_bound_by"],
+        "lse_chunk_launches": dyn_c[1] + sta_c[1],
+        "lse_chunk_ms": kc["fwd_ms"],
+        "lse_chunk_bound_ms": kc["fwd_bound_ms"],
+        "lse_chunk16_plain_ms": kc["fwd_plain_ms"],
     }, {
         "name": "rel_attention_bwd",
         "route": "cuda",
         "source": "liteasr_tpu_torch/csrc/rel_attention_bwd.cu",
         "replaces": "liteasr_tpu/ops/flash_attention.py:566",
-        "launches": train_bwd + recipe_bwd + td_bwd,
-        "max_abs_err": k2["bwd_err"],
+        "launches": train_bwd + recipe_bwd + td_bwd + dyn[2] + sta[2],
+        "max_abs_err": max(k2["bwd_err"], kc["bwd_err"]),
         "ms": k2["bwd_ms"],
         "plain_ms": k2["bwd_plain_ms"],
         "bound_ms": k2["bwd_bound_ms"],
         "bound_by": k2["bwd_bound_by"],
         "library_ms": None,  # no single call computes the rel-pos backward
+        "chunk_launches": dyn_c[2] + sta_c[2],
+        "chunk_ms": kc["bwd_ms"],
+        "chunk_bound_ms": kc["bwd_bound_ms"],
+        "chunk16_plain_ms": kc["bwd_plain_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

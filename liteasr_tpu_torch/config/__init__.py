@@ -2,9 +2,9 @@
 
 The schema is the reference's, for training and inference, so that a
 config written by either package composes here unchanged. Options the port
-has not ported raise where they are read (train.py, models/u2.py),
-naming their ROADMAP item; ``common.prng_impl`` and
-``common.compile_cache_dir`` are JAX settings, accepted and without effect.
+has not ported raise where they are read (train.py, optims/fused_step.py);
+``common.prng_impl`` and ``common.compile_cache_dir`` are JAX settings,
+accepted and without effect.
 """
 
 from liteasr_tpu_torch.config.core import (  # noqa: F401

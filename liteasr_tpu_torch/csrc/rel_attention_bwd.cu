@@ -113,7 +113,7 @@ rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qv,
                     float* __restrict__ dqv, float* __restrict__ dk,
                     float* __restrict__ dv, float* __restrict__ dp, int Tn, int D,
                     int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
-                    float inv_keep, int tqe, int tke) {
+                    float inv_keep, int tqe, int tke, int chunk) {
   extern __shared__ float smem[];
   // phase A
   float* sQ = smem;              // [DC][LDQ]  Q_u^T chunk
@@ -170,7 +170,16 @@ rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qv,
     for (int i = 0; i < 4; ++i) acc_dq[i][c] = acc_dqv[i][c] = 0.f;
   }
 
-  for (int k0 = 0; k0 < Tn; k0 += BN) {
+  // under a chunk width key j is hidden from query t iff j >= (t / chunk
+  // + 1) chunk: the key tiles past the block's last row's chunk end give
+  // A = dS = 0 to every row of the block, so the walk ends there
+  const int kwalk = chunk > 0 ? min(Tn, ((min(q0 + BM, Tn) - 1) / chunk + 1) * chunk) : Tn;
+  int cend[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    cend[i] = chunk > 0 ? ((q0 + ty + 16 * i) / chunk + 1) * chunk : Tn;
+
+  for (int k0 = 0; k0 < kwalk; k0 += BN) {
     // ---- phase A: scores, dO V^T, then A, A_v, dS ----
     float s_ac[4][4], s_bd[4][4], s_dp[4][4];
     bool nxt[4][4];  // key right of the query: reads q_v row t + 1
@@ -248,7 +257,7 @@ rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qv,
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + 16 * j;
         float a = 0.f;
-        if (live && key < Tn && key < kv_len)
+        if (live && key < Tn && key < kv_len && key < cend[i])
           a = expf((s_ac[i][j] + s_bd[i][j]) * scale - lse_t);
         float av = a, dpe = s_dp[i][j];
         if (dropout) {
@@ -407,7 +416,7 @@ cudaError_t launch(const void* q, const void* qv, const void* k, const void* v,
                    const float* lse, const float* dout, float* dq, float* dqv, float* dk,
                    float* dv, float* dp, int BH, int Tn, int D, int p_mod,
                    float scale, int dropout, uint32_t seed, uint32_t thr, float inv_keep,
-                   int tqe, int tke, cudaStream_t stream) {
+                   int tqe, int tke, int chunk, cudaStream_t stream) {
   constexpr size_t smem = Smem<DMAX>::kBytes;
   auto kernel = rel_attn_bwd_kernel<DMAX>;
   cudaError_t err =
@@ -417,7 +426,7 @@ cudaError_t launch(const void* q, const void* qv, const void* k, const void* v,
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(qv), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(p), kv_lens, out, lse, dout, dq,
-      dqv, dk, dv, dp, Tn, D, p_mod, scale, dropout, seed, thr, inv_keep, tqe, tke);
+      dqv, dk, dv, dp, Tn, D, p_mod, scale, dropout, seed, thr, inv_keep, tqe, tke, chunk);
   return cudaGetLastError();
 }
 
@@ -500,7 +509,7 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
                        float* __restrict__ dqv, float* __restrict__ dk,
                        float* __restrict__ dv, float* __restrict__ dp, int Tn, int D,
                        int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
-                       float inv_keep, int tqe, int tke, int vec) {
+                       float inv_keep, int tqe, int tke, int chunk, int vec) {
   using S = TcSmem<DMAX>;
   constexpr int NCH = DMAX / 8, KS = DMAX / 16, NO = DMAX / 8;
   extern __shared__ __align__(128) char tsm[];
@@ -515,10 +524,13 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
   const int kv_len = kv_lens ? kv_lens[bh] : Tn;
   const size_t row0 = (size_t)bh * Tn * D;
 
-  // the dropout hash's term of each of the thread's two keys, and whether
-  // a row may weigh them
+  // the dropout hash's term of each of the thread's two keys, whether a
+  // row may weigh them, and (under a chunk width) the first query that may:
+  // key j is seen by query t iff t >= (j / chunk) chunk
   const uint32_t kcol[2] = {tc::keep_col(k0 + m0 + g, tke), tc::keep_col(k0 + m0 + g + 8, tke)};
   const bool key_live[2] = {k0 + m0 + g < min(Tn, kv_len), k0 + m0 + g + 8 < min(Tn, kv_len)};
+  const int kfirst[2] = {chunk > 0 ? (k0 + m0 + g) / chunk * chunk : 0,
+                         chunk > 0 ? (k0 + m0 + g + 8) / chunk * chunk : 0};
   float dk_acc[NO][4], dv_acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -531,6 +543,9 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
     const bf16* pb = p + (size_t)(bh % p_mod) * Tn * D;
     float* dpt = dp + (size_t)(bh % p_mod) * Tn * D;
     const int nq = (Tn + BM - 1) / BM;
+    // the query tiles before the one that holds the tile's first key's
+    // chunk start see none of its keys (A = dS = 0): skipped, exactly
+    const int it0 = chunk > 0 ? (k0 / chunk * chunk) / BM : 0;
 
     auto load_query_tile = [&](int it) {
       const int q0 = it * BM;
@@ -553,9 +568,9 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
     auto krow = [&](int r) { return k0 + r < Tn ? k0 + r : -1; };
     tc::load_tile<NCH>(tsm + S::oK, k + row0, 64, D, vec, krow);
     tc::load_tile<NCH>(tsm + S::oV, v + row0, 64, D, vec, krow);
-    load_query_tile(0);
+    load_query_tile(it0);
 
-    for (int it = 0; it < nq; ++it) {
+    for (int it = it0; it < nq; ++it) {
       const int q0 = it * BM;
       const float* sl = reinterpret_cast<const float*>(tsm + S::oL);
       const int dbase = q0 - k0 - (BN - 1);
@@ -652,7 +667,9 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
             const int c = m0 + g + 8 * h, w = BN - 1 + r - c, delta = dbase + w;
             const float bd = sB[(delta < 0 ? r + 1 : r) * LDB + w];
             const float x = s[n][2 * h + e] + (delta == -1 ? 0.f : bd);
-            const float a = row_live && key_live[h] ? __expf(x * scale - lse_t) : 0.f;
+            const float a = row_live && key_live[h] && q0 + r >= kfirst[h]
+                                ? __expf(x * scale - lse_t)
+                                : 0.f;
             float av = a, dpe = dpv[n][2 * h + e];
             if (dropout) {
               const bool keep = tc::keep_mix(krow + kcol[h], thr);
@@ -843,7 +860,7 @@ cudaError_t launch_tc(const void* q, const void* qv, const void* k, const void* 
                       const float* lse, const float* dout, float* dq, float* dqv, float* dk,
                       float* dv, float* dp, bf16* dob, float* dvec, int BH, int Tn, int D,
                       int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
-                      float inv_keep, int tqe, int tke, cudaStream_t stream) {
+                      float inv_keep, int tqe, int tke, int chunk, cudaStream_t stream) {
   const int rows = BH * Tn;
   bwd_prep_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(out, dout, dob, dvec, rows, D);
   cudaError_t err = cudaGetLastError();
@@ -858,7 +875,8 @@ cudaError_t launch_tc(const void* q, const void* qv, const void* k, const void* 
   kernel<<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(qv), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(p), kv_lens, lse, dob, dvec, dq,
-      dqv, dk, dv, dp, Tn, D, p_mod, scale, dropout, seed, thr, inv_keep, tqe, tke, vec);
+      dqv, dk, dv, dp, Tn, D, p_mod, scale, dropout, seed, thr, inv_keep, tqe, tke, chunk,
+      vec);
   return cudaGetLastError();
 }
 
@@ -869,15 +887,18 @@ cudaError_t launch_tc(const void* q, const void* qv, const void* k, const void* 
 // over the rows bh that share a table. kv_lens may be null. fp32: dqv, dk,
 // dv and dp must be zeroed (atomics), dob/dvec are unused (may be null).
 // bf16: dq, dqv and dp must be zeroed, dk and dv are written; dob (BH, T, D)
-// bf16 and dvec (BH, T) fp32 are scratch.
+// bf16 and dvec (BH, T) fp32 are scratch. chunk > 0 masks key j for query t
+// where j / chunk > t / chunk, as the forward did (0: no chunk mask).
 extern "C" int rel_attention_bwd(int dtype, const void* q, const void* qv, const void* k,
                                  const void* v, const void* p, const void* kv_lens,
                                  const void* out, const void* lse, const void* dout,
                                  void* dq, void* dqv, void* dk, void* dv, void* dp,
                                  void* dob, void* dvec, int BH, int Tn, int D, int p_mod,
                                  float scale, int dropout, uint32_t seed, uint32_t thr,
-                                 float inv_keep, int tqe, int tke, void* stream) {
-  if (D < 1 || D > 128 || BH < 1 || BH > 65535 || p_mod < 1 || tqe < 1 || tke < 1)
+                                 float inv_keep, int tqe, int tke, int chunk,
+                                 void* stream) {
+  if (D < 1 || D > 128 || BH < 1 || BH > 65535 || p_mod < 1 || tqe < 1 || tke < 1 ||
+      chunk < 0)
     return (int)cudaErrorInvalidValue;
   auto kl = static_cast<const int32_t*>(kv_lens);
   auto o = static_cast<const float*>(out);
@@ -889,7 +910,7 @@ extern "C" int rel_attention_bwd(int dtype, const void* q, const void* qv, const
   if (dtype == 0) {
 #define LAUNCH(DM)                                                                      \
   launch<DM>(q, qv, k, v, p, kl, o, ls, go, f(dq), f(dqv), f(dk), f(dv), f(dp), BH, \
-                    Tn, D, p_mod, scale, dropout, seed, thr, inv_keep, tqe, tke, s)
+                    Tn, D, p_mod, scale, dropout, seed, thr, inv_keep, tqe, tke, chunk, s)
     err = D <= 64 ? LAUNCH(64) : LAUNCH(128);
 #undef LAUNCH
   } else if (dtype == 1) {
@@ -897,7 +918,7 @@ extern "C" int rel_attention_bwd(int dtype, const void* q, const void* qv, const
 #define LAUNCH(DM)                                                                        \
   launch_tc<DM>(q, qv, k, v, p, kl, o, ls, go, f(dq), f(dqv), f(dk), f(dv), f(dp),          \
                 static_cast<bf16*>(dob), f(dvec), BH, Tn, D, p_mod, scale, dropout, seed, thr, \
-                inv_keep, tqe, tke, s)
+                inv_keep, tqe, tke, chunk, s)
     err = D <= 64 ? LAUNCH(64) : LAUNCH(128);
 #undef LAUNCH
   } else {

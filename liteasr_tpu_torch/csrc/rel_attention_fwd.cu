@@ -41,8 +41,9 @@
 //   - masks (bool mask, kv_len, the ragged key edge) and the online softmax
 //     in registers, a row's 4 lanes reducing with shuffles; the
 //     probabilities are rounded to bf16 before P V, as the TPU kernel does.
-//   - key tiles that no row of the block may weigh (past kv_len, or hidden
-//     by the bool mask) are skipped, exactly; see the kernel.
+//   - key tiles that no row of the block may weigh (past kv_len, hidden
+//     by the bool mask, or past the last row's chunk under a chunk width)
+//     are skipped, exactly; see the kernel.
 // The fp32 body stages transposed fp32 chunks of 32 head dims and runs a
 // 16 x 16 thread grid of scalar FMAs, 4 x 4 scores a thread.
 // Dropout (training) zeroes a probability before P V where the TPU kernel's
@@ -103,7 +104,7 @@ rel_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const int32_t* __restrict__ kv_lens, float* __restrict__ out,
                     float* __restrict__ lse, int Tq, int Tk, int D, int mask_div,
                     int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
-                    float keep_div, int tqe, int tke) {
+                    float keep_div, int tqe, int tke, int chunk) {
   extern __shared__ float smem[];
   float* sQ = smem;              // [DC][LDQ]  Q^T chunk
   float* sQv = sQ + DC * LDQ;    // [DC][LDQV] q_v^T chunk
@@ -135,7 +136,18 @@ rel_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  for (int k0 = 0; k0 < Tk; k0 += BN) {
+  // under a chunk width, key j is hidden from query t iff j >= (t / chunk
+  // + 1) chunk: with every row live (kv_len > 0, no bool mask) the block's
+  // walk ends at its last row's chunk end, exactly
+  int kwalk = Tk;
+  if (chunk > 0 && !mb && kv_len > 0)
+    kwalk = min(Tk, ((min(q0 + BM, Tq) - 1) / chunk + 1) * chunk);
+  int cend[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    cend[i] = chunk > 0 ? ((q0 + ty + 16 * i) / chunk + 1) * chunk : Tk;
+
+  for (int k0 = 0; k0 < kwalk; k0 += BN) {
     float s_ac[4][4], s_bd[4][4];
     bool nxt[4][4];  // key right of the query: reads q_v row t + 1
 #pragma unroll
@@ -218,7 +230,7 @@ rel_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         } else {
           s = (s_ac[i][j] + s_bd[i][j]) * scale;
           if (mb && t < Tq && mb[(size_t)t * Tk + key]) s = NEG_INF;
-          if (key >= kv_len) s = NEG_INF;
+          if (key >= kv_len || key >= cend[i]) s = NEG_INF;
         }
         s_ac[i][j] = s;
         mx = fmaxf(mx, s);
@@ -289,7 +301,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* qv,
                    const void* p, const uint8_t* mask, const int32_t* kv_lens,
                    void* out, float* lse, int BH, int Tq, int Tk, int D, int mask_div,
                    int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
-                   float keep_div, int tqe, int tke, cudaStream_t stream) {
+                   float keep_div, int tqe, int tke, int chunk, cudaStream_t stream) {
   constexpr size_t smem = Smem<DMAX>::kBytes;
   auto kernel = rel_attn_fwd_kernel<DMAX>;
   cudaError_t err =
@@ -300,7 +312,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* qv,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(qv),
       static_cast<const float*>(p), mask, kv_lens, static_cast<float*>(out), lse, Tq, Tk,
-      D, mask_div, p_mod, scale, dropout, seed, thr, keep_div, tqe, tke);
+      D, mask_div, p_mod, scale, dropout, seed, thr, keep_div, tqe, tke, chunk);
   return cudaGetLastError();
 }
 
@@ -338,7 +350,7 @@ rel_attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const int32_t* __restrict__ kv_lens, bf16* __restrict__ out,
                        float* __restrict__ lse, int Tq, int Tk, int D, int mask_div,
                        int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
-                       float keep_div, int tqe, int tke, int vec, int mvec) {
+                       float keep_div, int tqe, int tke, int chunk, int vec, int mvec) {
   using S = TcSmem<DMAX>;
   constexpr int NCH = DMAX / 8, KS = DMAX / 16, NO = DMAX / 8;
   extern __shared__ __align__(128) char tsm[];
@@ -367,7 +379,11 @@ rel_attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // 0, or a mask row that hides every key) averages V over all Tk keys, as
   // the TPU kernel does: a block with such a row walks again, every tile.
   // Bit b < 63 of vis stands for tile b, bit 63 for tiles 63 and later.
+  // Under a chunk width no row of the block sees a key at or past its last
+  // row's chunk end ((t / chunk + 1) chunk), so the walk ends there too;
+  // a row that sees no key still walks every tile in the second pass.
   int kend = max(0, min(Tk, kv_len));
+  if (chunk > 0) kend = min(kend, ((min(q0 + BM, Tq) - 1) / chunk + 1) * chunk);
   unsigned long long vis = ~0ull;
   if (mb) {
     if (threadIdx.x == 0) s_vis = 0ull;
@@ -433,10 +449,15 @@ rel_attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::load_tile<NCH>(tsm + S::oQv, qvb, 72, D, vec,
                        [&](int r) { return (r <= BM && q0 + r < Tq) ? q0 + r : -1; });
 
-  // the dropout hash's term of each of the thread's two rows
+  // the dropout hash's term of each of the thread's two rows, and the end
+  // of each row's chunk (the first key it may not see)
   uint32_t krow[2];
+  int cend[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) krow[h] = tc::keep_row((uint32_t)bh, q0 + m0 + g + 8 * h, tqe, seed);
+  for (int h = 0; h < 2; ++h) {
+    krow[h] = tc::keep_row((uint32_t)bh, q0 + m0 + g + 8 * h, tqe, seed);
+    cend[h] = chunk > 0 ? ((q0 + m0 + g + 8 * h) / chunk + 1) * chunk : Tk;
+  }
 
   float o[NO][4], m_r[2], l_r[2];
   for (int pass = 0;; ++pass) {
@@ -545,7 +566,7 @@ rel_attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               }
               x *= scale;
               if (mb && sm[r * BN + c]) x = NEG_INF;
-              if (j >= kv_len) x = NEG_INF;
+              if (j >= kv_len || j >= cend[h]) x = NEG_INF;
             }
             s[n][2 * h + e] = x;
             mx = fmaxf(mx, x);
@@ -630,7 +651,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* q
                       const void* p, const uint8_t* mask, const int32_t* kv_lens, void* out,
                       float* lse, int BH, int Tq, int Tk, int D, int mask_div, int p_mod,
                       float scale, int dropout, uint32_t seed, uint32_t thr, float keep_div,
-                      int tqe, int tke, cudaStream_t stream) {
+                      int tqe, int tke, int chunk, cudaStream_t stream) {
   const size_t smem = qv ? TcSmem<DMAX>::kRel : TcSmem<DMAX>::kPlain;
   auto kernel = qv ? rel_attn_fwd_tc_kernel<DMAX, true> : rel_attn_fwd_tc_kernel<DMAX, false>;
   cudaError_t err =
@@ -644,7 +665,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* q
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(qv), static_cast<const bf16*>(p), mask, kv_lens,
       static_cast<bf16*>(out), lse, Tq, Tk, D, mask_div, p_mod, scale, dropout, seed, thr,
-      keep_div, tqe, tke, vec, mvec);
+      keep_div, tqe, tke, chunk, vec, mvec);
   return cudaGetLastError();
 }
 
@@ -652,15 +673,17 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* q
 
 // dtype: 0 = float32, 1 = bfloat16. qv/p, mask, kv_lens and lse may be null.
 // dropout != 0 applies the keep test u < thr with the TPU kernel's tiles
-// tqe x tke; keep_div = 1 - rate.
+// tqe x tke; keep_div = 1 - rate. chunk > 0 also masks key j for query t
+// where j / chunk > t / chunk (0: no chunk mask).
 extern "C" int rel_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                  const void* qv, const void* p, const void* mask,
                                  const void* kv_lens, void* out, void* lse, int BH,
                                  int Tq, int Tk, int D, int mask_div, int p_mod,
                                  float scale, int dropout, uint32_t seed, uint32_t thr,
-                                 float keep_div, int tqe, int tke, void* stream) {
+                                 float keep_div, int tqe, int tke, int chunk,
+                                 void* stream) {
   if (D < 1 || D > 128 || BH < 1 || BH > 65535 || mask_div < 1 || p_mod < 1 ||
-      tqe < 1 || tke < 1)
+      tqe < 1 || tke < 1 || chunk < 0)
     return (int)cudaErrorInvalidValue;
   auto ls = static_cast<float*>(lse);
   auto m = static_cast<const uint8_t*>(mask);
@@ -669,7 +692,7 @@ extern "C" int rel_attention_fwd(int dtype, const void* q, const void* k, const 
   cudaError_t err;
 #define ARGS                                                                             \
   q, k, v, qv, p, m, kl, out, ls, BH, Tq, Tk, D, mask_div, p_mod, scale, dropout, seed, thr, \
-      keep_div, tqe, tke, s
+      keep_div, tqe, tke, chunk, s
   if (dtype == 0) {
     err = D <= 64 ? launch<64>(ARGS) : launch<128>(ARGS);
   } else if (dtype == 1) {

@@ -29,6 +29,8 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
+from liteasr_tpu_torch import native
+
 
 # ---------------------------------------------------------------- low level
 
@@ -210,12 +212,8 @@ def load_mat(ark_path: str) -> np.ndarray:
     if offset is not None:
         mat = None
         if not path.endswith("|") and slices is None:
-            try:  # plain uncompressed file: C++ fast path
-                from liteasr_tpu_torch import native
-
-                mat = native.load_fm(path, offset)
-            except Exception:
-                mat = None
+            # a plain file: the native reader takes binary float matrices
+            mat = native.load_fm(path, offset)
         if mat is None:
             with open_like_kaldi(path) as f:
                 f.seek(offset)

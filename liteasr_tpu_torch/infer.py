@@ -4,9 +4,12 @@ liteasr/infer.py:25-129).
 Usage: ``python -m liteasr_tpu_torch.infer --config-dir <run_dir>
 [overrides]``, where run_dir holds the resolved ``config.yaml`` of a
 training run. The test set is decoded in length-sorted batches on one
-``torch.device``: a U2 by ``inference.mode`` (default ``attention_rescore``),
-a transducer greedily (``mode=transducer_greedy``) or else by the beam
-search with ``inference.expansions_per_frame``,
+``torch.device``: a U2 by ``inference.mode`` (default ``attention_rescore``;
+``streaming_ctc_greedy`` and ``streaming_ctc_prefix_beam_search`` run the
+chunk-by-chunk runtime of :mod:`liteasr_tpu_torch.streaming` with
+``inference.chunk_sub`` frames a chunk, default 16), a transducer greedily
+(``mode=transducer_greedy``) or else by the beam search with
+``inference.expansions_per_frame``,
 with the checkpoint, or the average of checkpoints, that
 ``checkpoint.load_ckpt`` picks; raw-wave test sets (``dataset.fbank``) get
 their log-mel features on the device.
@@ -25,6 +28,7 @@ from liteasr_tpu_torch.checkpoint import load_ckpt
 from liteasr_tpu_torch.config import compose
 from liteasr_tpu_torch.config.core import load_yaml
 from liteasr_tpu_torch.ops.fbank import log_mel_fbank
+from liteasr_tpu_torch.streaming import streaming_decode
 from liteasr_tpu_torch.utils.misc import round_up
 from liteasr_tpu_torch.utils.score import levenshtein
 
@@ -89,6 +93,11 @@ def infer_dataset(task, model, dataset, infer_cfg, device: torch.device,
                 hyps = decode.transducer_beam_search(
                     model, xs, xlens.long(), beam_size=beam_size,
                     expansions_per_frame=expansions)
+        elif mode.startswith("streaming"):  # streaming_ctc_greedy | ..._prefix_beam_search
+            hyps = streaming_decode(
+                model, xs, xlens, chunk_sub=int(infer_cfg.get("chunk_sub", 16)),
+                mode="ctc_prefix_beam_search" if "prefix" in mode else "ctc_greedy",
+                beam_size=beam_size)
         else:
             hyps = decode.decode_batch(model, xs, xlens.long(), beam_size=beam_size,
                                        ctc_weight=ctc_weight, mode=mode)

@@ -3,8 +3,11 @@ Special ids: blank=0, sos=eos=V-1, ignore=-1.
 
 ``forward(..., train=True)`` is the training forward, with every dropout of
 the reference and BatchNorm on batch statistics; ``remat=True`` recomputes
-the encoder layers in the backward pass. Dynamic and static chunk masks are
-not ported and raise. Decoding lives in :mod:`liteasr_tpu_torch.decode`.
+the encoder layers in the backward pass. ``static_chunk_size`` and
+``dynamic_chunk`` make the encoder's attention chunked (streaming models);
+``encode_chunk`` is one step of the streaming runtime
+(:mod:`liteasr_tpu_torch.streaming`). Decoding lives in
+:mod:`liteasr_tpu_torch.decode`.
 """
 
 from dataclasses import dataclass, field
@@ -22,6 +25,9 @@ from liteasr_tpu_torch.nets.encoder import TransformerEncoder, subsample_mask
 from liteasr_tpu_torch.ops.masks import padding_mask, triangle_mask
 
 IGNORE = -1
+# the chunk generator's seed is the dropout seed XOR this, so that the two
+# CPU generators draw independent streams (JAX splits "chunk" from "dropout")
+CHUNK_SEED_SALT = 0x9E3779B9
 
 
 @dataclass
@@ -91,7 +97,8 @@ class U2(LiteasrModel):
                  dec_pos_dropout_rate: float = 0.0,
                  dec_self_attn_dropout_rate: float = 0.0,
                  dec_src_attn_dropout_rate: float = 0.0,
-                 dec_ff_dropout_rate: float = 0.0, remat: bool = False, *,
+                 dec_ff_dropout_rate: float = 0.0, remat: bool = False,
+                 static_chunk_size: int = 0, dynamic_chunk: bool = False, *,
                  dtype: torch.dtype = torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -109,7 +116,8 @@ class U2(LiteasrModel):
             normalize_before=normalize_before, dropout_rate=enc_dropout_rate,
             pos_dropout_rate=enc_pos_dropout_rate,
             attn_dropout_rate=enc_attn_dropout_rate,
-            ff_dropout_rate=enc_ff_dropout_rate, remat=remat, **kw)
+            ff_dropout_rate=enc_ff_dropout_rate, remat=remat,
+            static_chunk_size=static_chunk_size, dynamic_chunk=dynamic_chunk, **kw)
         self.decoder = TransformerDecoder(
             vocab_size, dec_dim, dec_ff_dim, dec_attn_heads, dec_layers,
             normalize_before, dec_dropout_rate, dec_pos_dropout_rate,
@@ -122,6 +130,8 @@ class U2(LiteasrModel):
         for module in self.modules():
             if isinstance(module, RelativeMultiHeadAttention):
                 module.generator = self.dropout_generator
+        # draws the dynamic chunk widths (the JAX package's "chunk" rng)
+        self.chunk_generator = self.encoder.chunk_generator
         self.init_params(generator)
         if device is not None:
             self.to(device)
@@ -153,9 +163,11 @@ class U2(LiteasrModel):
                 module.reset_pos_bias(generator)
 
     def seed_dropout(self, seed: int):
-        """Seed the attention kernels' dropout seeds (the other dropouts
-        follow ``torch.manual_seed``)."""
+        """Seed the model's own generators: the attention kernels' dropout
+        seeds and, from a salted seed, the dynamic chunk widths (the other
+        dropouts follow ``torch.manual_seed``)."""
         self.dropout_generator.manual_seed(seed)
+        self.chunk_generator.manual_seed(seed ^ CHUNK_SEED_SALT)
 
     def encode(self, xs, xlens):
         """Encoder forward for decoding. Returns (h_enc, enc_mask (B, T'))."""
@@ -164,6 +176,14 @@ class U2(LiteasrModel):
 
     def ctc_logits(self, h_enc):
         return self.ctc_lo(h_enc)
+
+    def encode_chunk(self, window, caches, index: int, kv_lens, pe_len: int):
+        """One streaming encoder step (liteasr_tpu/models/u2.py:186-192):
+        raw conv window -> (chunk hidden states, CTC logits); the K/V
+        ``caches`` are written in place (see ``TransformerEncoder.
+        forward_chunk``)."""
+        h = self.encoder.forward_chunk(window, caches, index, kv_lens, pe_len)
+        return h, self.ctc_lo(h)
 
     def decode_logits(self, ys_in, h_enc, mask=None, enc_mask=None):
         """Decoder forward over already-subsampled memory."""
@@ -214,16 +234,10 @@ class U2(LiteasrModel):
 
     @classmethod
     def build_model(cls, cfg, task=None, device=None, generator=None):
-        """Build from the composed config. Raises on the streaming options
-        this package has not ported."""
+        """Build from the composed config."""
         if task is not None:
             cfg.input_dim = task.feat_dim
             cfg.vocab_size = task.vocab_size
-        for key in ("static_chunk_size", "dynamic_chunk"):
-            if cfg.get(key):
-                raise NotImplementedError(
-                    f"model.{key}: streaming encoders are not ported yet "
-                    "(ROADMAP queue item 6)")
         if str(cfg.get("dec_arch", "transformer")) != "transformer":
             raise NotImplementedError(f"dec_arch {cfg.dec_arch!r} is not ported")
         dtype = str(cfg.get("dtype", "float32"))
@@ -246,6 +260,8 @@ class U2(LiteasrModel):
             dec_layers=int(cfg.dec_layers),
             **{key: float(cfg.get(key, 0.0)) for key in _DROPOUTS},
             remat=bool(cfg.get("remat", False)),
+            static_chunk_size=int(cfg.get("static_chunk_size", 0)),
+            dynamic_chunk=bool(cfg.get("dynamic_chunk", False)),
             dtype=_DTYPES[dtype],
             device=device,
             generator=generator,

@@ -1,21 +1,30 @@
-"""Multi-head attention, absolute and relative-position (Transformer-XL),
-full mode (liteasr_tpu/nets/attention.py).
+"""Multi-head attention, absolute and relative-position (Transformer-XL)
+(liteasr_tpu/nets/attention.py).
+
+The streaming encoders' chunk policy, ``triangle_mask(stage=chunk)``, is
+not a mask here but the integer ``chunk`` (0 = none) beside the padding
+mask: the kernels compute it from the indices.
 
 Eval mode: every attention goes through
 :func:`ops.flash_attention.flash_attention` (K1): on the card that is the
 CUDA kernel, on the CPU its plain version. The reference's masks keep their
 shapes at this interface: (B, 1, 1, Tk) suffix padding becomes per-row
 ``kv_lens``; any other mask is a structured mask handed to the kernel per
-batch row (or per head, if it has H heads).
+batch row (or per head, if it has H heads); ``chunk`` goes to the kernel.
 
-Train mode: rel-pos self-attention with a padding mask (or none) goes
-through K3, :func:`ops.flash_attention.flash_rel_attention_train` (the
-kernels K1' and K2 on the card), with attention dropout from the kernel's
-counter hash seeded from the layer's ``generator``. The absolute-position
-attention of the decoder, like the reference, computes its scores, fp32
-softmax, dropout and context in plain PyTorch (``apply_attention``,
-liteasr_tpu/nets/attention.py:35-44). A train-mode rel-pos attention with
-any other mask (the streaming encoders' chunk masks) raises.
+Train mode: rel-pos self-attention with a padding mask (or none) and a
+chunk width goes through K3, :func:`ops.flash_attention.
+flash_rel_attention_train` (the kernels K1' and K2 on the card), with
+attention dropout from the kernel's counter hash seeded from the layer's
+``generator``; any other structured mask raises. The absolute-position
+attention, like the reference, computes its scores, fp32 softmax, dropout
+and context in plain PyTorch (``apply_attention``,
+liteasr_tpu/nets/attention.py:35-44).
+
+Cached decoding: the decoder's ``step_self``/``step_src`` and the
+streaming encoders' ``chunk_step`` (mode ``chunk``, :146-161 and the rel-pos
+``_chunk`` :295-337) are plain PyTorch, as the reference's are XLA code;
+they write the preallocated K/V caches in place.
 """
 
 from typing import Optional, Tuple
@@ -25,7 +34,7 @@ from torch import nn
 
 from liteasr_tpu_torch.nets.common import Dense, dropout, xavier_uniform_
 from liteasr_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_rel_attention_train)
+    chunk_mask, flash_attention, flash_rel_attention_train)
 
 MASK_FILL = -1e38  # the reference's masked score in plain attention
 
@@ -54,7 +63,7 @@ class MultiHeadAttention(nn.Module):
                 self._heads(self.linear_v(value)))
 
     def _attend(self, q, k, v, mask: Optional[torch.Tensor], rel_qv=None,
-                rel_p=None):
+                rel_p=None, chunk: int = 0):
         """q/k/v (B, T, H, Dk) -> fused attention -> (B, Tq, D) + out proj
         (the ``_flash`` mask handling of liteasr_tpu/nets/attention.py:57-94)."""
         B, Tq, H, Dk = q.shape
@@ -75,7 +84,7 @@ class MultiHeadAttention(nn.Module):
         out = flash_attention(
             fold(q), fold(k), fold(v), mask=mask, kv_lens=kv_lens,
             rel_qv=None if rel_qv is None else fold(rel_qv),
-            rel_p=rel_p, scale=Dk ** -0.5)
+            rel_p=rel_p, scale=Dk ** -0.5, chunk=chunk)
         out = out.reshape(B, H, Tq, Dk).transpose(1, 2).reshape(B, Tq, H * Dk)
         return self.linear_o(out)
 
@@ -97,10 +106,13 @@ class MultiHeadAttention(nn.Module):
         return self.apply_attention(scores * self.d_k ** -0.5, v, mask, train)
 
     def forward(self, query, key, value, mask: Optional[torch.Tensor] = None,
-                train: bool = False):
+                train: bool = False, chunk: int = 0):
         q, k, v = self.project_qkv(query, key, value)
         if not train:
-            return self._attend(q, k, v, mask)
+            return self._attend(q, k, v, mask, chunk=chunk)
+        if chunk > 0:  # the reference's XLA path takes the materialized mask
+            cm = chunk_mask(q.shape[1], k.shape[1], chunk, q.device)[None, None]
+            mask = cm if mask is None else mask | cm
         return self._plain(q, k, v, mask, train)
 
     # ---- cached decoding (liteasr_tpu/nets/attention.py:112-144), plain
@@ -121,11 +133,26 @@ class MultiHeadAttention(nn.Module):
         ``cache`` is (k, v), each (B, L, H, Dk); its row ``index`` is
         written in place, and the rows past it (stale) are masked."""
         q, k_t, v_t = self.project_qkv(query, query, query)
-        k, v = cache
-        k[:, index] = k_t[:, 0].to(k.dtype)
-        v[:, index] = v_t[:, 0].to(v.dtype)
+        k, v = self._write_cache(cache, k_t, v_t, index)
         future = (torch.arange(k.shape[1], device=k.device) > index)[None, None, None, :]
         return self._plain(q, k, v, future, False)
+
+    def _write_cache(self, cache, k_t, v_t, index: int):
+        """Rows ``index`` .. ``index + c`` of the (k, v) caches, in place."""
+        k, v = cache
+        c = k_t.shape[1]
+        k[:, index:index + c] = k_t.to(k.dtype)
+        v[:, index:index + c] = v_t.to(v.dtype)
+        return k, v
+
+    def chunk_step(self, query, cache, index: int, mask: torch.Tensor):
+        """``mode="chunk"``, the streaming encoder's self-attention: the
+        (B, c, D) chunk at stream position ``index`` against the cache of
+        everything seen so far, written in place at ``index``; ``mask``
+        (B, 1, c, L) hides the chunk policy's keys and the unwritten tail."""
+        q, k_t, v_t = self.project_qkv(query, query, query)
+        k, v = self._write_cache(cache, k_t, v_t, index)
+        return self._plain(q, k, v, mask, False)
 
 
 class RelativeMultiHeadAttention(MultiHeadAttention):
@@ -157,11 +184,12 @@ class RelativeMultiHeadAttention(MultiHeadAttention):
             return 0
         return int(torch.randint(-2 ** 31, 2 ** 31, (), generator=self.generator))
 
-    def _flash_train(self, q_u, q_v, k, v, p, mask, seed: Optional[int]):
+    def _flash_train(self, q_u, q_v, k, v, p, mask, seed: Optional[int],
+                     chunk: int = 0):
         """(B, T, H, Dk) heads -> K3 -> out proj (``_flash_train``,
         liteasr_tpu/nets/attention.py:248-293). ``mask`` is None or
-        (B, 1, 1, Tk) suffix padding, compressed to per-row lengths.
-        ``seed`` None draws one."""
+        (B, 1, 1, Tk) suffix padding, compressed to per-row lengths;
+        ``chunk`` the chunk width. ``seed`` None draws one."""
         B, Tq, H, Dk = q_u.shape
 
         def fold(x):
@@ -175,28 +203,69 @@ class RelativeMultiHeadAttention(MultiHeadAttention):
             seed = self.draw_seed()
         out = flash_rel_attention_train(
             fold(q_u), fold(q_v), fold(k), fold(v), p, kv_lens, seed,
-            Dk ** -0.5, self.dropout_rate)
+            Dk ** -0.5, self.dropout_rate, chunk)
         out = out.reshape(B, H, Tq, Dk).transpose(1, 2)
         return self.linear_o(out.to(self.compute_dtype).reshape(B, Tq, H * Dk))
 
+    def _biased_queries(self, q):
+        return q + self.pos_bias_u.to(q.dtype), q + self.pos_bias_v.to(q.dtype)
+
     def forward(self, query, key, value, pos_emb,
                 mask: Optional[torch.Tensor] = None, train: bool = False,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None, chunk: int = 0):
         """``dropout_seed``: the kernels' dropout seed of a train-mode call
         drawn by the caller (a rematerialized layer draws it once, outside
         the recomputed region, so that the recompute regenerates the same
-        mask); None draws it here."""
+        mask); None draws it here. ``chunk``: the chunk width (0 = none)."""
         q, k, v = self.project_qkv(query, key, value)
         # pos_emb is (1, T, D), shared across the batch: table (H, T, Dk)
         p = self._heads(self.linear_pos(pos_emb))[0].transpose(0, 1)
-        q_u = q + self.pos_bias_u.to(q.dtype)
-        q_v = q + self.pos_bias_v.to(q.dtype)
+        q_u, q_v = self._biased_queries(q)
         if not train:
             return self._attend(q_u, k, v, mask, rel_qv=q_v,
-                                rel_p=p.contiguous())
+                                rel_p=p.contiguous(), chunk=chunk)
         if mask is not None and mask.shape[1:3] != (1, 1):
             raise NotImplementedError(
-                "train-mode rel-pos attention with a chunk mask: streaming "
-                "encoders are not ported yet (ROADMAP queue item 6)")
+                "train-mode rel-pos attention takes a (B, 1, 1, T) padding "
+                "mask and a chunk width; the kernels have no other "
+                f"structured mask (got {tuple(mask.shape)})")
         return self._flash_train(q_u, q_v, k, v, p.contiguous(), mask,
-                                 dropout_seed)
+                                 dropout_seed, chunk)
+
+    def chunk_step(self, query, pos_emb, cache, index: int, mask: torch.Tensor,
+                   align: Tuple[torch.Tensor, torch.Tensor]):
+        """The rel-pos ``_chunk`` (liteasr_tpu/nets/attention.py:295-337):
+        the (B, c, D) chunk at stream position ``index`` against the cache,
+        written in place, with the offline ``rel_shift`` read from the
+        (1, Lp, D) table through ``align`` (:func:`rel_chunk_align`, built
+        once per step for every layer). The (c, Lp) products are one einsum,
+        the alignment one flat gather."""
+        q, k_t, v_t = self.project_qkv(query, query, query)
+        B, c, H, Dk = q.shape
+        p = self._heads(self.linear_pos(pos_emb))[0]  # (Lp, H, Dk)
+        q_u, q_v = self._biased_queries(q)
+        k, v = self._write_cache(cache, k_t, v_t, index)
+        Lk = k.shape[1]
+        flat, zero = align
+        ac = torch.einsum("bqhd,bkhd->bhqk", q_u.float(), k.float())
+        bd_all = torch.einsum("bqhd,khd->bhqk", q_v.float(), p.float())  # (B, H, c, Lp)
+        bd = bd_all.reshape(B, H, -1)[:, :, flat].reshape(B, H, c, Lk)
+        bd = bd.masked_fill(zero, 0.0)
+        return self.apply_attention((ac + bd) * Dk ** -0.5, v, mask, False)
+
+
+def rel_chunk_align(index: int, c: int, Lk: int, Lp: int, device=None):
+    """The rel-pos chunk step's alignment of the (c, Lp) products to the
+    (c, Lk) scores, by global positions t (query) and j (key):
+    bd[t, j] = q_v[t] . p[Lp-1+j-t] for j <= t, 0 at j == t+1, and
+    q_v[t+1] . p[j-t-2] for j > t+1 (the next query's row, inside the chunk
+    wherever the chunk policy admits such keys). Returns the flat gather
+    index (c Lk,) into the (c Lp) products and the (1, 1, c, Lk) j == t+1
+    mask."""
+    t_loc = torch.arange(c, device=device)[:, None]
+    t_g = index + t_loc
+    j = torch.arange(Lk, device=device)[None, :]
+    past = j <= t_g
+    row = torch.where(past, t_loc, torch.clamp(t_loc + 1, max=c - 1))
+    col = torch.clamp(torch.where(past, Lp - 1 + j - t_g, j - t_g - 2), 0, Lp - 1)
+    return (row * Lp + col).reshape(-1), (j == t_g + 1)[None, None]

@@ -2,7 +2,9 @@
 
 ``normalize_before=True``: ``x + drop(sublayer(LN(x)))``; False:
 ``LN(x + drop(sublayer(x)))``. ``train`` turns on the dropouts and the
-batch statistics of the conformer's BatchNorm.
+batch statistics of the conformer's BatchNorm. ``chunk`` is the self-
+attention's chunk width (0 = none). ``EncoderLayer.forward_chunk`` is the
+streaming step (mode ``chunk``), pre-LN only, as in the reference.
 """
 
 from typing import Optional
@@ -117,24 +119,40 @@ class EncoderLayer(nn.Module):
         self.feed_forward = PositionwiseFeedForward(d, ff_dim, activation,
                                                     ff_dropout_rate, **kw)
 
-    def _attn(self, y, pos_emb, mask, train, attn_seed):
+    def _attn(self, y, pos_emb, mask, train, attn_seed, chunk):
         if self.use_rel:
-            return self.self_attn(y, y, y, pos_emb, mask, train, attn_seed)
-        return self.self_attn(y, y, y, mask, train)
+            return self.self_attn(y, y, y, pos_emb, mask, train, attn_seed, chunk)
+        return self.self_attn(y, y, y, mask, train, chunk)
 
     def _res(self, x, norm, fn, train, scale=1.0):
         return _residual(x, norm, fn, self.pre, self.dropout_rate, train,
                          scale)
 
     def forward(self, x, pos_emb=None, mask: Optional[torch.Tensor] = None,
-                train: bool = False, attn_seed: Optional[int] = None):
+                train: bool = False, attn_seed: Optional[int] = None,
+                chunk: int = 0):
         """``attn_seed``: the rel-pos attention's dropout seed, drawn by the
         caller (see ``RelativeMultiHeadAttention.forward``)."""
         x = self._res(x, self.self_attn_norm,
-                      lambda y: self._attn(y, pos_emb, mask, train, attn_seed),
+                      lambda y: self._attn(y, pos_emb, mask, train, attn_seed, chunk),
                       train)
         return self._res(x, self.feed_forward_norm,
                          lambda y: self.feed_forward(y, train), train)
+
+    def forward_chunk(self, x, pos_emb, mask, cache, index: int, align=None):
+        """One streaming step (liteasr_tpu/nets/layers.py:136-156): the
+        self-attention's ``chunk_step`` over ``cache`` (written in place at
+        ``index``), then the feed-forward; eval mode. ``align``: the rel-pos
+        alignment (:func:`rel_chunk_align`), None without rel-pos."""
+        if not self.pre:
+            raise ValueError("streaming decode assumes pre-LN layers "
+                             "(normalize_before=True)")
+        z = self.self_attn_norm(x)
+        if self.use_rel:
+            x = x + self.self_attn.chunk_step(z, pos_emb, cache, index, mask, align)
+        else:
+            x = x + self.self_attn.chunk_step(z, cache, index, mask)
+        return x + self.feed_forward(self.feed_forward_norm(x), False)
 
 
 class ConformerLayer(EncoderLayer):
@@ -159,12 +177,13 @@ class ConformerLayer(EncoderLayer):
         self.final_norm = LayerNorm(d, **kw)
 
     def forward(self, x, pos_emb=None, mask: Optional[torch.Tensor] = None,
-                train: bool = False, attn_seed: Optional[int] = None):
+                train: bool = False, attn_seed: Optional[int] = None,
+                chunk: int = 0):
         x = self._res(x, self.feed_forward_macaron_norm,
                       lambda y: self.feed_forward_macaron(y, train), train,
                       scale=0.5)
         x = self._res(x, self.self_attn_norm,
-                      lambda y: self._attn(y, pos_emb, mask, train, attn_seed),
+                      lambda y: self._attn(y, pos_emb, mask, train, attn_seed, chunk),
                       train)
         x = self._res(x, self.conv_norm, lambda y: self.conv(y, train), train)
         x = self._res(x, self.feed_forward_norm,

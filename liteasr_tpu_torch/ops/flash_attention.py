@@ -6,7 +6,7 @@ replace ``_attn_kernel``. For each folded (batch x head) row ``bh`` it
 computes
 
     S = (Q K^T + relshift(Q_v P^T)) * scale
-    S[mask] = S[key >= kv_len] = NEG_INF
+    S[mask] = S[key >= kv_len] = S[key // chunk > query // chunk] = NEG_INF
     out = dropout(softmax(S)) V          (+ lse = logsumexp(S) per row)
 
 where ``relshift`` is the legacy Transformer-XL alignment of
@@ -25,11 +25,19 @@ dQ_u = dS K, dR = relshift^-1(dS), dQ_v = dR P, dP = dR^T Q_v summed over
 the batch. K3 (``flash_rel_attention_train``) is the custom VJP joining
 them (``flash_rel_attention_train`` :469), a ``torch.autograd.Function``.
 
-On the card each kernel works on 64-row query tiles so the (Tq, Tk) score
-matrix never reaches device memory, which is what the TPU kernels were
-written for. These first versions compute their dot products with fp32
-FMAs from shared memory, not on the tensor cores, so they are bound by
-shared-memory loads and FMA issue; ``wgmma``/TMA tiles are later work.
+The chunk width ``chunk`` (0 = none) is the streaming encoders' chunk
+policy, ``triangle_mask(stage=chunk)`` (liteasr_tpu/nets/encoder.py:144-167)
+computed from the indices, so no (T, T) mask is materialized: key j is
+masked for query t iff j // chunk > t // chunk. The kernels skip the key
+tiles (K1, K1', K2's fp32 body) or query tiles (K2's bf16 body) that the
+chunk hides from a whole tile, exactly.
+
+On the card each kernel works on 64 x 64 tiles so the (Tq, Tk) score matrix
+never reaches device memory, which is what the TPU kernels were written
+for. The bf16 bodies, the main path, compute every product on the tensor
+cores (``wgmma``) from tiles that ``cp.async`` copies into shared memory;
+the fp32 bodies, which serve the parity checks, use scalar fp32 FMAs (the
+tensor cores would mean TF32).
 
 Beside each kernel is its plain PyTorch version (``flash_attention_plain``,
 ``flash_rel_attention_bwd_plain``, ``dropout_keep_plain``). The wrappers
@@ -161,7 +169,15 @@ def dropout_keep_global(bh: int, t_q: int, t_k: int, seed: int, rate: float,
     return _murmur_keep(t % tqe, j % tke, tile, rate)
 
 
-def _scores_plain(q, k, mask, kv_lens, rel_qv, rel_p, scale):
+def chunk_mask(tq: int, tk: int, chunk: int, device=None) -> torch.Tensor:
+    """(Tq, Tk) bool, True where key j is hidden from query t under the
+    chunk width: j // chunk > t // chunk (``triangle_mask(stage=chunk)``)."""
+    t = torch.arange(tq, device=device)[:, None]
+    j = torch.arange(tk, device=device)[None, :]
+    return (j // chunk) > (t // chunk)
+
+
+def _scores_plain(q, k, mask, kv_lens, rel_qv, rel_p, scale, chunk=0):
     """fp32 (BH, Tq, Tk) masked scores."""
     bh = q.shape[0]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
@@ -176,20 +192,23 @@ def _scores_plain(q, k, mask, kv_lens, rel_qv, rel_p, scale):
     if kv_lens is not None:
         j = torch.arange(s.shape[-1], device=s.device)
         s = s.masked_fill(j[None, None, :] >= kv_lens[:, None, None], NEG_INF)
+    if chunk > 0:
+        s = s.masked_fill(chunk_mask(s.shape[1], s.shape[2], chunk, s.device)[None],
+                          NEG_INF)
     return s
 
 
 def flash_attention_plain(q, k, v, mask=None, kv_lens=None, rel_qv=None,
                           rel_p=None, scale: float = 1.0,
                           return_lse: bool = False, dropout_rate: float = 0.0,
-                          dropout_seed: int = 0):
+                          dropout_seed: int = 0, chunk: int = 0):
     """Plain PyTorch version of the kernel: fp32 scores and softmax.
 
     Same arguments as :func:`flash_attention`; follows
     ``_ref_rel_attention`` (liteasr_tpu/ops/flash_attention.py:450-466)
     plus the mask input, the per-row lse and the dropout of ``_attn_kernel``.
     """
-    s = _scores_plain(q, k, mask, kv_lens, rel_qv, rel_p, scale)
+    s = _scores_plain(q, k, mask, kv_lens, rel_qv, rel_p, scale, chunk)
     attn = torch.softmax(s, dim=-1)
     if dropout_rate > 0.0:
         keep = dropout_keep_global(q.shape[0], q.shape[1], k.shape[1],
@@ -207,7 +226,8 @@ def flash_attention_plain(q, k, v, mask=None, kv_lens=None, rel_qv=None,
 
 def flash_attention(q, k, v, mask=None, kv_lens=None, rel_qv=None,
                     rel_p=None, scale: float = 1.0, return_lse: bool = False,
-                    dropout_rate: float = 0.0, dropout_seed: int = 0):
+                    dropout_rate: float = 0.0, dropout_seed: int = 0,
+                    chunk: int = 0):
     """Fused attention forward (K1; K1' with ``return_lse``/dropout).
 
     :param q: (BH, Tq, D); ``k``/``v``: (BH, Tk, D); float32 or bfloat16
@@ -224,42 +244,51 @@ def flash_attention(q, k, v, mask=None, kv_lens=None, rel_qv=None,
         the masked scores, NEG_INF for a row with no key
     :param dropout_rate: attention-probability dropout with the TPU
         kernel's counter hash, keyed by ``dropout_seed`` (an int32)
+    :param chunk: chunk width, 0 = none; key j is masked for query t iff
+        j // chunk > t // chunk
     :return: (BH, Tq, D) in q's dtype [, lse]
 
     A CPU tensor takes :func:`flash_attention_plain`; a CUDA tensor launches
-    the kernel. ``flash_attention.launches`` counts those launches and
-    ``flash_attention.lse_launches`` the ones with ``return_lse`` (K1').
+    the kernel. ``flash_attention.launches`` counts those launches,
+    ``flash_attention.lse_launches`` the ones with ``return_lse`` (K1'),
+    and ``chunk_launches`` / ``lse_chunk_launches`` those of each that ran
+    with a chunk width.
     """
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"flash_attention: dropout_rate {dropout_rate} not in [0, 1)")
+    chunk = _chunk_width(chunk)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask, kv_lens, rel_qv, rel_p,
                                      scale, return_lse, dropout_rate,
-                                     dropout_seed)
+                                     dropout_seed, chunk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     out, lse = _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale,
-                           return_lse, dropout_rate, dropout_seed)
+                           return_lse, dropout_rate, dropout_seed, chunk)
     flash_attention.launches += 1
+    flash_attention.chunk_launches += chunk > 0
     if return_lse:
         flash_attention.lse_launches += 1
+        flash_attention.lse_chunk_launches += chunk > 0
         return out, lse
     return out
 
 
 flash_attention.launches = 0
 flash_attention.lse_launches = 0
+flash_attention.chunk_launches = 0
+flash_attention.lse_chunk_launches = 0
 
 
 def flash_rel_attention_bwd_plain(q_u, qv, k, v, p, kv_lens, out, lse, dout,
                                   scale: float, dropout_rate: float = 0.0,
-                                  dropout_seed: int = 0):
+                                  dropout_seed: int = 0, chunk: int = 0):
     """Plain PyTorch version of K2: the closed form of ``_bwd_kernel``
     (liteasr_tpu/ops/flash_attention.py:566-680) on the full (Tq, Tk) score
     matrix. Inputs as :func:`flash_rel_attention_bwd`; returns fp32
     (dq_u, dqv, dk, dv, dp)."""
     bh = q_u.shape[0]
-    s = _scores_plain(q_u, k, None, kv_lens, qv, p, scale)
+    s = _scores_plain(q_u, k, None, kv_lens, qv, p, scale, chunk)
     lse = lse.float()[:, :, None]
     dead = lse <= NEG_INF / 2
     a = torch.where(dead | (s <= NEG_INF / 2), 0.0,
@@ -291,7 +320,7 @@ def flash_rel_attention_bwd_plain(q_u, qv, k, v, p, kv_lens, out, lse, dout,
 
 def flash_rel_attention_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout,
                             scale: float, dropout_rate: float = 0.0,
-                            dropout_seed: int = 0):
+                            dropout_seed: int = 0, chunk: int = 0):
     """K2: gradients of the rel-pos attention forward.
 
     :param q_u, qv: (BH, T, D); ``k``/``v``: (BH, T, D); ``p``: (P, T, D)
@@ -300,24 +329,29 @@ def flash_rel_attention_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout,
     :param out: the forward's output as returned, in fp32 (BH, T, D)
     :param lse: the forward's (BH, T) fp32 lse
     :param dout: (BH, T, D) fp32 cotangent of ``out``
+    :param chunk: the forward's chunk width (0 = none)
     :return: fp32 (dq_u, dqv, dk, dv, dp), dp summed over the batch rows
 
     A CPU tensor takes :func:`flash_rel_attention_bwd_plain`; a CUDA tensor
-    launches the kernel (``flash_rel_attention_bwd.launches`` counts them).
+    launches the kernel (``flash_rel_attention_bwd.launches`` counts them,
+    ``chunk_launches`` those with a chunk width).
     """
+    chunk = _chunk_width(chunk)
     if q_u.device.type == "cpu":
         return flash_rel_attention_bwd_plain(
             q_u, qv, k, v, p, kv_lens, out, lse, dout, scale, dropout_rate,
-            dropout_seed)
+            dropout_seed, chunk)
     if q_u.device.type != "cuda":
         raise ValueError(f"flash_rel_attention_bwd: unsupported device {q_u.device}")
     grads = _launch_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout, scale,
-                        dropout_rate, dropout_seed)
+                        dropout_rate, dropout_seed, chunk)
     flash_rel_attention_bwd.launches += 1
+    flash_rel_attention_bwd.chunk_launches += chunk > 0
     return grads
 
 
 flash_rel_attention_bwd.launches = 0
+flash_rel_attention_bwd.chunk_launches = 0
 
 
 class FlashRelAttentionTrain(torch.autograd.Function):
@@ -325,17 +359,18 @@ class FlashRelAttentionTrain(torch.autograd.Function):
     ``flash_rel_attention_train``, liteasr_tpu/ops/flash_attention.py
     :469-522). Forward = K1' with lse and dropout, returned in fp32;
     backward = K2 with the regenerated keep mask, grads in the inputs'
-    dtypes."""
+    dtypes. Both under the same chunk width."""
 
     @staticmethod
     def forward(ctx, q_u, qv, k, v, p, kv_lens, seed: int, scale: float,
-                dropout_rate: float):
+                dropout_rate: float, chunk: int):
         out, lse = flash_attention(
             q_u, k, v, kv_lens=kv_lens, rel_qv=qv, rel_p=p, scale=scale,
-            return_lse=True, dropout_rate=dropout_rate, dropout_seed=seed)
+            return_lse=True, dropout_rate=dropout_rate, dropout_seed=seed,
+            chunk=chunk)
         out = out.float()
         ctx.save_for_backward(q_u, qv, k, v, p, kv_lens, out, lse)
-        ctx.seed, ctx.scale, ctx.rate = seed, scale, dropout_rate
+        ctx.seed, ctx.scale, ctx.rate, ctx.chunk = seed, scale, dropout_rate, chunk
         return out
 
     @staticmethod
@@ -343,19 +378,28 @@ class FlashRelAttentionTrain(torch.autograd.Function):
         q_u, qv, k, v, p, kv_lens, out, lse = ctx.saved_tensors
         grads = flash_rel_attention_bwd(
             q_u, qv, k, v, p, kv_lens, out, lse, dout.float().contiguous(),
-            ctx.scale, ctx.rate, ctx.seed)
+            ctx.scale, ctx.rate, ctx.seed, ctx.chunk)
         cast = [g.to(x.dtype) for g, x in zip(grads, (q_u, qv, k, v, p))]
-        return (*cast, None, None, None, None)
+        return (*cast, None, None, None, None, None)
 
 
 def flash_rel_attention_train(q_u, qv, k, v, p, kv_lens, seed: int,
-                              scale: float, dropout_rate: float = 0.0):
+                              scale: float, dropout_rate: float = 0.0,
+                              chunk: int = 0):
     """Differentiable fused rel-pos attention (conformer self-attention in
     train mode). ``q_u``/``qv``/``k``/``v`` (BH, T, D), ``p`` (P, T, D),
-    ``kv_lens`` (BH,) int32 or None, ``seed`` an int32 for the dropout hash.
-    Returns fp32 (BH, T, D)."""
+    ``kv_lens`` (BH,) int32 or None, ``seed`` an int32 for the dropout hash,
+    ``chunk`` the chunk width (0 = none). Returns fp32 (BH, T, D)."""
     return FlashRelAttentionTrain.apply(q_u, qv, k, v, p, kv_lens, int(seed),
-                                        float(scale), float(dropout_rate))
+                                        float(scale), float(dropout_rate),
+                                        _chunk_width(chunk))
+
+
+def _chunk_width(chunk) -> int:
+    chunk = int(chunk)
+    if chunk < 0:
+        raise ValueError(f"flash_attention: chunk width {chunk} < 0")
+    return chunk
 
 
 def _check(name, t, dtype, shape, device):
@@ -382,7 +426,7 @@ def _dropout_args(dropout_rate: float, seed: int):
 
 
 def _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse,
-                dropout_rate, dropout_seed):
+                dropout_rate, dropout_seed, chunk):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention: unsupported dtype {q.dtype}")
     if q.dim() != 3:
@@ -424,7 +468,7 @@ def _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse,
             _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(rel_qv),
             _ptr(rel_p), _ptr(mask), _ptr(kv_lens), _ptr(out), _ptr(lse),
             bh, tq, tk, d, mask_div, p_mod, ctypes.c_float(scale), on, seed,
-            thr, ctypes.c_float(1.0 - dropout_rate), tqe, tke,
+            thr, ctypes.c_float(1.0 - dropout_rate), tqe, tke, chunk,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"rel_attention_fwd launch failed: CUDA error {err}")
@@ -432,7 +476,7 @@ def _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse,
 
 
 def _launch_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout, scale,
-                dropout_rate, dropout_seed):
+                dropout_rate, dropout_seed, chunk):
     if q_u.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_rel_attention_bwd: unsupported dtype {q_u.dtype}")
     if q_u.dim() != 3:
@@ -477,7 +521,7 @@ def _launch_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout, scale,
                 _ptr(kv_lens), _ptr(out), _ptr(lse), _ptr(dout), _ptr(dq_u),
                 _ptr(dqv), _ptr(dk), _ptr(dv), _ptr(dp), _ptr(dob), _ptr(dvec),
                 bh, t, d, p_mod, ctypes.c_float(scale), on, seed, thr,
-                ctypes.c_float(inv_keep), tqe, tke, ctypes.c_void_p(stream))
+                ctypes.c_float(inv_keep), tqe, tke, chunk, ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"rel_attention_bwd launch failed: CUDA error {err}")
     return dq_u, dqv, dk, dv, dp
@@ -545,12 +589,12 @@ _ARGTYPES = {
                           + [ctypes.c_int] * 6
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
                              ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_void_p]),
+                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     "rel_attention_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 16
                           + [ctypes.c_int] * 4
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
                              ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_void_p]),
+                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
 }
 
 

@@ -10,8 +10,10 @@ Trains on ``cuda:0``; a caller of :func:`train` may pass another device
 --config-dir <run_dir>`` decodes the checkpoints it saves.
 
 Options the port has not ported raise ``NotImplementedError``, naming the
-ROADMAP item that ports them: multi-device layouts here, the streaming
-encoder options in ``models.u2.U2.build_model``.
+ROADMAP item that ports them: the multi-device layouts (``distributed.dp``/
+``tp``/``sp`` > 1). Streaming models train here too
+(``model.enc_arch=transformer model.dynamic_chunk=true`` or
+``model.static_chunk_size=N``).
 """
 
 import logging
@@ -53,7 +55,8 @@ def check_ported(cfg) -> None:
     dist = cfg.distributed
     if any(int(dist.get(a) or 1) > 1 for a in ("dp", "tp", "sp")):
         raise NotImplementedError(
-            "distributed.dp/tp/sp > 1: multi-device training is ROADMAP item 9")
+            "distributed.dp/tp/sp > 1: multi-device training is the ROADMAP "
+            "item \"DDP\"")
 
 
 def train(cfg, device: Optional[torch.device] = None):

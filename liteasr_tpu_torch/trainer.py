@@ -14,7 +14,8 @@ running statistics move on every micro-step, a skipped one included
 ``save_model`` also writes ``train_state.pt`` (and ``.meta`` with ``iter``
 and ``epoch``) to ``task.save_dir``: the model's state_dict, the
 optimizer's moments, counts and partial accumulation, the micro-step count
-that seeds SpecAugment, and the generators of every dropout.
+that seeds SpecAugment, and the generators of every dropout and of the
+dynamic chunk widths.
 ``common.resume`` (``auto`` or a path) restores it, so that a resumed run
 continues as the uninterrupted one would have (liteasr_tpu/trainer.py:
 314-375). ``common.profile_dir`` traces the run with ``torch.profiler``
@@ -135,6 +136,8 @@ class Trainer:
     def _rng_state(self) -> dict:
         rng = {"cpu": torch.get_rng_state(),
                "dropout": self.model.dropout_generator.get_state()}
+        if hasattr(self.model, "chunk_generator"):
+            rng["chunk"] = self.model.chunk_generator.get_state()
         if self.device.type == "cuda":
             rng["cuda"] = torch.cuda.get_rng_state(self.device)
         return rng
@@ -188,6 +191,8 @@ class Trainer:
         rng = state["rng"]
         torch.set_rng_state(rng["cpu"])
         self.model.dropout_generator.set_state(rng["dropout"])
+        if "chunk" in rng and hasattr(self.model, "chunk_generator"):
+            self.model.chunk_generator.set_state(rng["chunk"])
         if "cuda" in rng and self.device.type == "cuda":
             torch.cuda.set_rng_state(rng["cuda"], self.device)
         meta_path = path + ".meta"

@@ -1,11 +1,15 @@
 """Levenshtein edit distance (reference: liteasr/utils/score.py:4-22).
 
-Pure Python only: the C++ host library of liteasr_tpu/native is not ported.
+The C++ loop of :mod:`liteasr_tpu_torch.native` where its library builds,
+else this module's pure-Python version (the native module warns once).
 """
+
+from liteasr_tpu_torch import native
 
 
 def levenshtein(a, b) -> int:
-    return _levenshtein_py(a, b)
+    out = native.levenshtein(a, b)
+    return _levenshtein_py(a, b) if out is None else out
 
 
 def _levenshtein_py(a, b) -> int:

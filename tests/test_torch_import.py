@@ -1,6 +1,6 @@
-"""liteasr_tpu_torch, training and transducer modules included, imports
-without jax, flax or liteasr_tpu, and its CUDA kernel loader raises (no fallback) where there
-is no CUDA device."""
+"""liteasr_tpu_torch, training, transducer, streaming and native modules
+included, imports without jax, flax or liteasr_tpu, and its CUDA kernel
+loader raises (no fallback) where there is no CUDA device."""
 
 import os
 import subprocess
@@ -32,12 +32,13 @@ def test_port_imports_without_jax():
                      "criterions.hybrid_ctc_attn", "optims.fused_step",
                      "optims.noam", "optims.adam", "trainer", "train",
                      "utils.trigger", "data.loader", "models.transducer",
-                     "nets.rnn_decoder", "ops.rnnt", "criterions.rnnt"):
+                     "nets.rnn_decoder", "ops.rnnt", "criterions.rnnt",
+                     "streaming", "native"):
             assert "liteasr_tpu_torch." + name in names, (name, names)
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 42
+    assert int(proc.stdout.split()[-1]) >= 44
 
 
 def test_kernel_loader_raises_without_cuda():

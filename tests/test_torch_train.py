@@ -380,8 +380,8 @@ def test_train_cli_writes_a_checkpoint_that_infer_decodes(tiny_corpus, tmp_path)
     "common.memory_save=true", "distributed.dp=2", "model.remat=true"])
 def test_unported_options_raise(tiny_corpus, tmp_path, override):
     """Only multi-device layouts are still unported and raise, naming their
-    ROADMAP item; the other options run (tests/test_torch_resume.py and
-    tests/test_torch_frontend.py hold them to the JAX package), and
+    ROADMAP item ("DDP"); the other options run (tests/test_torch_resume.py
+    and tests/test_torch_frontend.py hold them to the JAX package), and
     dataset.fbank on a feats.scp corpus says that it needs wav.scp."""
     import shutil
 
@@ -395,7 +395,7 @@ def test_unported_options_raise(tiny_corpus, tmp_path, override):
         overrides.remove("postprocess.workflow=[]")
     device = torch.device("cpu")
     if override == "distributed.dp=2":
-        with pytest.raises(NotImplementedError, match="ROADMAP item"):
+        with pytest.raises(NotImplementedError, match='ROADMAP item "DDP"'):
             train.main(overrides, device=device)
     elif override == "dataset.fbank=true":
         with pytest.raises(AssertionError, match="wav.scp"):

@@ -182,6 +182,9 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_train_rel_attention_takes_k3_and_refuses_chunk_masks():
+    """A padding mask and a chunk width go through K3 (the chunk policy as
+    the integer, never as a mask); a materialized structured mask (here the
+    causal one) has no kernel and raises."""
     from liteasr_tpu_torch.nets.attention import RelativeMultiHeadAttention
 
     torch.manual_seed(0)
@@ -191,10 +194,11 @@ def test_train_rel_attention_takes_k3_and_refuses_chunk_masks():
     pad[1, ..., 4:] = True
     with mock.patch.object(attn, "_flash_train", wraps=attn._flash_train) as k3:
         assert attn(x, x, x, pos, pad, train=True).shape == (2, 6, 16)
-    k3.assert_called_once()
-    chunk = torch.ones(6, 6, dtype=torch.bool).triu(1)[None, None]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue item 6"):
-        attn(x, x, x, pos, chunk, train=True)
+        assert attn(x, x, x, pos, pad, train=True, chunk=2).shape == (2, 6, 16)
+    assert k3.call_count == 2 and k3.call_args.args[-1] == 2
+    causal = torch.ones(6, 6, dtype=torch.bool).triu(1)[None, None]
+    with pytest.raises(NotImplementedError, match="structured mask"):
+        attn(x, x, x, pos, causal, train=True)
 
 
 @pytest.fixture
