@@ -138,11 +138,43 @@ n. parity in fp32 (TF32 off): on the card the streaming runtime's hidden
    the native host library is loaded and its Levenshtein equals the
    pure-Python one on m's decoded pairs.
 
+The Paraformer (ParaformerConfig's defaults at full width: 12 rel-pos
+conformer layers, 256-d, 4 heads, FF 2048, swish; the CIF predictor; 6
+parallel decoder layers; sample_ratio 0.75, glance_at_eval; vocab 5000;
+bf16 compute over fp32 params):
+
+o. K1 at the parallel decoder's shapes, no rel-pos term: pass 1 of a
+   training step (self-attention without a mask, BH=128 x 48 x 48; source
+   attention with kv_lens, 128 x 48 x 199) and a decoded batch (64 x 399 x
+   399 without a mask and with kv_lens), fp32 (1e-4, TF32 off) and bf16
+   (2e-2) against the plain version, each bf16 call timed beside its bound
+   and one SDPA call with the same mask;
+p. trained through ``train.main`` (paraformer_loss, my_noam, dropout 0.1,
+   clip 5, accum 2, no SpecAugment) on the corpus of 6 for 2 epochs: 12 K1'
+   + 12 K2 + 12 K1 (pass 1) launches per micro-batch and 36 K1 per valid
+   batch, finite loss_ce and loss_mae, moved parameters (every predictor
+   leaf among them), ``valid loss:`` lines and a ``model.ep.2.pt`` that
+   ``infer.infer`` decodes (24 K1 launches per batch);
+q. the micro-step at bench.py's point (B=32, T=800, U=48): median of 5
+   repetitions of 4, utt/s and peak memory; cif_dense and cif_scan each
+   alone, forward and backward, at that CIF shape and at the decode shape
+   (B=16, U=T'=399);
+r. the corpus of 4 decoded through ``infer_dataset`` with random weights
+   (CIF + argmax): s/batch, utt/s, RTF, with and without the host's
+   scoring, 24 K1 launches per batch;
+s. parity in fp32 (TF32 off), the glance noise handed to both sides: one
+   train step (2 encoder and 1 decoder layer at full width, dropout 0) on
+   the card against the CPU's in fp64 under the rule of 8, its CIF fire
+   counts identical; 2 cut utterances decoded on the card and the CPU
+   (linear_out x8): identical fire counts, hypotheses and ulens (a
+   disagreement prints the frames and their csum/beta).
+
 Every failure raises, so the exit code is not 0. The last line is the JSON
 device record; the line before it lists the kernels (for
 rel_attention_fwd, ``ms``/``plain_ms`` are K1 per decoded batch, the
-``lse_*`` keys K1' per training call and the ``chunk*`` keys the chunked
-calls of k; ``launches`` sum the main paths 4, 6, b, c, d, g, i, l and m).
+``lse_*`` keys K1' per training call, the ``chunk*`` keys the chunked
+calls of k and the ``paraformer_*`` keys o's calls; ``launches`` sum the
+main paths 4, 6, b, c, d, g, i, l, m, p and r).
 
     python3 chip_smoke.py --profile-train
 
@@ -152,7 +184,7 @@ of 7 and prints the top kernels by device time.
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --baseline DIR
 
-stop after steps 1-3 and k, or after step 1 time every bf16 kernel call of
+stop after steps 1-3, k and o, or after step 1 time every bf16 kernel call of
 the main paths against the checkout in DIR (another commit unpacked with git
 archive), in the order DIR, this tree, this tree, DIR.
 """
@@ -322,8 +354,8 @@ def bwd_bound(q_u, qv, k, v, p, kv_lens, out, lse, dout, chunk=0):
 def library_call(args, scale):
     """One torch.nn.functional.scaled_dot_product_attention call computing
     a decoder shape's function (no rel-pos term, no dropout): the bool mask
-    (True = masked) broadcast over the heads, or kv_lens as a key-padding
-    mask. Returns the call; the masks are built outside it. A yardstick
+    (True = masked) broadcast over the heads, kv_lens as a key-padding
+    mask, or no mask. Returns the call; the masks are built outside it. A yardstick
     only: the port never calls it."""
     import torch.nn.functional as F
 
@@ -334,10 +366,12 @@ def library_call(args, scale):
         m = args["mask"].shape[0]
         keep = ~args["mask"][:, None]  # (M, 1, Tq, Tk), True = attend
         shp = (m, bh // m)
-    else:
+    elif "kv_lens" in args:
         j = torch.arange(k.shape[1], device=q.device)
         keep = (j[None, :] < args["kv_lens"][:, None])[:, None, None, :]
         shp = (bh, 1)
+    else:  # no mask
+        keep, shp = None, (bh, 1)
     q4, k4, v4 = (x.view(*shp, x.shape[1], d) for x in (q, k, v))
     return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep,
                                                   scale=scale)
@@ -2063,6 +2097,420 @@ def check_stream_parity(task, dev, name, pairs):
         f"call) against {t_py * 1e3:.2f} ms [{name}]")
 
 
+# ---------------------------------------------------------- Paraformer (o-s)
+
+
+def para_kernel_shapes(gen, dev, dtype):
+    """K1's four new calls in the parallel decoder (no rel-pos term): pass 1
+    of a training step at bench.py's point (B=32 x 4 heads, U=48 queries):
+    self-attention with no mask and source attention over T'=199 with
+    kv_lens; and a decoded batch (B=16 x 4 heads, u_max = T' = 399): the
+    same two, 399 x 399."""
+    d = DIM // HEADS
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    def lens(b, t):
+        kv = torch.randint(t // 2, t + 1, (b,), generator=gen)
+        kv[0] = t
+        return kv.repeat_interleave(HEADS).to(dev, torch.int32)
+
+    tb, db, u, t_tr, t_dec = 32 * HEADS, BATCH * HEADS, 48, TRAIN_T, 399
+    return {
+        "pass1_self": dict(q=rnd(tb, u, d), k=rnd(tb, u, d), v=rnd(tb, u, d)),
+        "pass1_src_kv_lens": dict(q=rnd(tb, u, d), k=rnd(tb, t_tr, d), v=rnd(tb, t_tr, d),
+                                  kv_lens=lens(32, t_tr)),
+        "decode_self": dict(q=rnd(db, t_dec, d), k=rnd(db, t_dec, d), v=rnd(db, t_dec, d)),
+        "decode_src_kv_lens": dict(q=rnd(db, t_dec, d), k=rnd(db, t_dec, d),
+                                   v=rnd(db, t_dec, d), kv_lens=lens(BATCH, t_dec)),
+    }
+
+
+def check_para_kernels(fa, dev, name):
+    """Phase o: K1 at the Paraformer decoder's four shapes against the plain
+    version, fp32 (TF32 off) and bf16, each bf16 call timed beside its
+    bound and one SDPA call with the same mask. Returns the bf16 figures by
+    shape and the largest bf16 error."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    report = {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, args in para_kernel_shapes(gen, dev, dtype).items():
+            scale = args["q"].shape[-1] ** -0.5
+            out = fa.flash_attention(scale=scale, **args)
+            ref = fa.flash_attention_plain(scale=scale, **args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = KERNEL_TOL[dtype]
+            if not within(out, ref, tol):
+                raise RuntimeError(f"K1 Paraformer {shape} {dtype}: max abs err {err} "
+                                   f"exceeds atol=rtol={tol}")
+            ms = cuda_time_ms(lambda: fa.flash_attention(scale=scale, **args))
+            plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(scale=scale, **args))
+            lib_ms = cuda_time_ms(library_call(args, scale))
+            bound_ms, bound_by = fwd_bound(**args)
+            log(f"K1 Paraformer {shape} {str(dtype)[6:]} shape={tuple(args['q'].shape)}x"
+                f"{args['k'].shape[1]}: max_abs_err={err:.3g} (tol {tol}) kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA) {lib_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}) = {bound_ms / ms:.2%} of it [{name}]")
+            if dtype == torch.bfloat16:
+                report["max_abs_err"] = max(report["max_abs_err"], err)
+                report[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by)
+    return report
+
+
+def build_para_model(dtype, device, enc_layers=ENC_LAYERS, dec_layers=DEC_LAYERS,
+                     dropout_rate=0.0):
+    """ParaformerConfig's defaults at full width (12 conformer layers, DIM,
+    HEADS, FF 2048, swish; the CIF predictor; 6 parallel decoder layers;
+    sample_ratio 0.75, glance_at_eval), random weights from SEED."""
+    from liteasr_tpu_torch.models.paraformer import Paraformer
+
+    gen = torch.Generator().manual_seed(SEED)
+    rates = {k: dropout_rate for k in (
+        "enc_dropout_rate", "enc_pos_dropout_rate", "enc_attn_dropout_rate",
+        "enc_ff_dropout_rate", "dec_dropout_rate", "dec_self_attn_dropout_rate",
+        "dec_src_attn_dropout_rate", "dec_ff_dropout_rate", "pos_dropout_rate")}
+    return Paraformer(input_dim=FEAT, vocab_size=VOCAB, enc_dim=DIM, enc_ff_dim=2048,
+                      enc_attn_heads=HEADS, enc_layers=enc_layers, dec_dim=DIM,
+                      dec_ff_dim=2048, dec_attn_heads=HEADS, dec_layers=dec_layers,
+                      dtype=dtype, device=device, generator=gen, **rates)
+
+
+def run_para_training(fa, root, dev, name):
+    """Phase p: the Paraformer through train.main at full width on the
+    corpus of 6, then infer.infer of its checkpoint. Returns the (K1, K1',
+    K2) launches of the training run and the K1 launches of the decode."""
+    from liteasr_tpu_torch import infer, train
+    from liteasr_tpu_torch.config import compose
+    from liteasr_tpu_torch.config.core import load_yaml
+    from liteasr_tpu_torch.criterions.paraformer_loss import ParaformerLoss
+
+    run = os.path.join(root, "para_run")
+    overrides = [
+        "task=asr", "model=Paraformer", "criterion=paraformer_loss",
+        "optimizer=my_noam", f"task.vocab={root}/vocab.txt",
+        f"task.train={root}/train", f"task.valid={root}/valid",
+        f"task.test=[{root}/valid]", "task.delimiter=' '",
+        f"task.save_dir={run}/ckpts", f"common.run_dir={run}",
+        f"common.seed={SEED}", "model.dtype=bfloat16",
+        "model.dropout_rate=0.1", f"dataset.batch_size={TRAIN_BATCH}",
+        "dataset.max_len_in=1000", "postprocess.workflow=[]",
+        f"optimization.max_epoch={TRAIN_EPOCHS}",
+        f"optimization.accum_grad={ACCUM}", "optimization.clip_grad_norm=5.0"]
+    parts = []  # (train, loss_ce, loss_mae) of every criterion call
+    call = ParaformerLoss.__call__
+
+    def record(self, model, batch, train=True):
+        loss, aux = call(self, model, batch, train)
+        parts.append((train, aux["loss_ce"].item(), aux["loss_mae"].item()))
+        return loss, aux
+
+    ParaformerLoss.__call__ = record
+    try:
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        trainer = train.main(overrides, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        ParaformerLoss.__call__ = call
+    fwd, lse, bwd = counts(fa)
+    micro = TRAIN_EPOCHS * len(trainer.task.dataset("train"))
+    n_valid = TRAIN_EPOCHS * len(trainer.valid_set)
+    # per micro-batch: the encoder's K1'/K2 and pass 1's K1 (self + source
+    # per decoder layer; pass 2 trains, in plain attention); per valid batch
+    # the encoder's and both passes' K1
+    want = (ENC_LAYERS * micro, ENC_LAYERS * micro,
+            2 * DEC_LAYERS * micro + (ENC_LAYERS + 4 * DEC_LAYERS) * n_valid)
+    if (lse, bwd, fwd - lse) != want:
+        raise RuntimeError(f"Paraformer launches K1' {lse}, K2 {bwd}, K1 {fwd - lse} for "
+                           f"{micro} micro-batches and {n_valid} valid batches, "
+                           f"expected {want}")
+    losses = torch.stack(trainer._loss_accum).float().cpu()
+    train_parts = [p[1:] for p in parts if p[0]]
+    if (len(losses) != micro or not bool(torch.isfinite(losses).all())
+            or len(train_parts) != micro or not np.isfinite(train_parts).all()):
+        raise RuntimeError(f"Paraformer training losses {losses.tolist()}, "
+                           f"(loss_ce, loss_mae) {train_parts}")
+    init = dict(build_para_model(torch.bfloat16, "cpu").named_parameters())
+    moved = [n for n, p in trainer.model.named_parameters()
+             if not torch.equal(p.detach().cpu(), init[n])]  # same seed as train.main
+    pred = [n for n in init if n.startswith("predictor.")]
+    if (int(trainer.tx.count) < 1 or len(moved) < len(init) // 2
+            or not set(pred) <= set(moved)):
+        raise RuntimeError(f"{int(trainer.tx.count)} steps applied, {len(moved)} "
+                           f"parameters moved, predictor leaves not moved: "
+                           f"{sorted(set(pred) - set(moved))}")
+    with open(os.path.join(run, "train.log")) as f:
+        valid_lines = [ln for ln in f if "valid loss:" in ln]
+    if len(valid_lines) != TRAIN_EPOCHS:
+        raise RuntimeError(f"{len(valid_lines)} 'valid loss:' lines")
+    ckpt = os.path.join(run, "ckpts", f"model.ep.{TRAIN_EPOCHS}.pt")
+    if not os.path.isfile(ckpt):
+        raise RuntimeError(f"{ckpt} was not written")
+    log(f"Paraformer train: {micro} micro-batches of <= {TRAIN_BATCH} utts in "
+        f"{TRAIN_EPOCHS} epochs, {int(trainer.tx.count)} optimizer steps "
+        f"({int(trainer.tx.notfinite_count)} skipped), {secs:.2f} s incl. validation and "
+        f"checkpoints; losses {[round(x, 3) for x in losses.tolist()]}; (loss_ce, "
+        f"loss_mae) {[(round(a, 3), round(b, 3)) for a, b in train_parts]}; K1' {lse}, "
+        f"K2 {bwd}, K1 {fwd - lse} launches; {len(moved)} of {len(init)} parameter "
+        f"leaves moved, the {len(pred)} predictor leaves among them; "
+        f"{valid_lines[-1].split(' - ')[-1].strip()} [{name}]")
+    del trainer
+
+    cfg = compose([f"inference.ckpt_name={TRAIN_EPOCHS}", "inference.model_avg=false",
+                   f"inference.batch_size={N_VALID}"],
+                  base=load_yaml(os.path.join(run, "config.yaml")))
+    reset_counts(fa)
+    results = infer.infer(cfg, device=dev)
+    torch.cuda.synchronize()
+    dec_fwd = counts(fa)[0]
+    if dec_fwd != ENC_LAYERS + 2 * DEC_LAYERS or results[0][1] <= 0:
+        raise RuntimeError(f"decoding the Paraformer checkpoint: {results}, K1 {dec_fwd}")
+    log(f"Paraformer infer of model.ep.{TRAIN_EPOCHS}.pt on the {N_VALID} valid "
+        f"utterances: error count {results[0][0]}/{results[0][1]} (2 epochs on random "
+        f"data), K1 launches {dec_fwd} [{name}]")
+    return (fwd - lse, lse, bwd), dec_fwd
+
+
+def time_para_step(dev, name):
+    """Phase q: the Paraformer micro-step at bench.py's point (bf16, dropout
+    0.1, Noam Adam, clip 5, accum 2): median of 5 repetitions of 4
+    micro-steps, utt/s and peak memory; then cif_dense and cif_scan each
+    alone, forward and backward, at its CIF shape (B=32, T'=199, U=48) and
+    at the decode shape (B=16, U=T'=399). Returns {what: ms}."""
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.paraformer_loss import ParaformerLoss
+    from liteasr_tpu_torch.nets.paraformer import DENSE_CIF_MAX_CELLS, cif_dense, cif_scan
+    from liteasr_tpu_torch.optims.fused_step import FusedAdam
+    from liteasr_tpu_torch.optims.noam import noam_schedule
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(SEED)
+    model = build_para_model(torch.bfloat16, dev, dropout_rate=0.1)
+    model.seed_dropout(SEED)
+    crit = ParaformerLoss(DotDict(vocab_size=VOCAB, gamma=1.0))
+    params = list(model.parameters())
+    tx = FusedAdam(params, noam_schedule(256, 1.0, 25000), 0.9, 0.98, 1e-9,
+                   clip=5.0, accum=ACCUM)
+    batch, B = bench_batch(dev)
+
+    def step():
+        loss, _ = crit(model, batch, train=True)
+        loss.backward()
+        tx.update([p.grad for p in params])
+        for p in params:
+            p.grad = None
+        return loss
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    reps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(4):
+            loss = step()
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) / 4)
+    if not bool(torch.isfinite(loss)):
+        raise RuntimeError("non-finite Paraformer loss in the timed steps")
+    med = statistics.median(reps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {"step_ms": med * 1e3, "utt_s": B / med, "peak_gib": peak}
+    del model, tx, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    parts = []
+    for label, b, t, u in (("train", 32, TRAIN_T, 48), ("decode", BATCH, 399, 399)):
+        alpha = (0.05 + 0.9 * torch.rand(b, t, generator=gen)).to(dev).requires_grad_()
+        xs = torch.randn(b, t, DIM, generator=gen).to(dev).requires_grad_()
+        with torch.no_grad():
+            beta = alpha.sum(1) / u - 1e-4
+        beta.requires_grad_()
+        gout = torch.randn(b, u, DIM, generator=gen).to(dev)
+        for fn in (cif_dense, cif_scan):
+            def fwd_bwd(fn=fn):
+                fn(alpha, xs, beta, u).backward(gout)
+                alpha.grad = xs.grad = beta.grad = None
+
+            ms = host_time_ms(fwd_bwd)
+            fwd_ms = host_time_ms(lambda fn=fn: fn(alpha, xs, beta, u))
+            out[f"{fn.__name__}_{label}_ms"] = ms
+            out[f"{fn.__name__}_{label}_fwd_ms"] = fwd_ms
+            parts.append(f"{fn.__name__} {label} (B={b}, T'={t}, U={u}) fwd {fwd_ms:.2f} ms, "
+                         f"fwd+bwd {ms:.2f} ms")
+        pick = "cif_dense" if u * t <= DENSE_CIF_MAX_CELLS else "cif_scan"
+        parts.append(f"the size rule picks {pick} at {label}")
+    log(f"Paraformer train step at bench.py's point (B={B}, T=800, U=48, V={VOCAB}, bf16, "
+        f"accum {ACCUM}): median {med * 1e3:.2f} ms/micro-step (best {min(reps) * 1e3:.2f}; "
+        f"5 x 4 steps), {B / med:.2f} utt/s, peak memory {peak:.2f} GiB; alone: "
+        + "; ".join(parts) + f" [{name}]")
+    return out
+
+
+def run_para_decode(fa, task, dev, name):
+    """Phase r: the test corpus decoded with the full-width Paraformer
+    (random bf16 weights from SEED) through infer_dataset: a warm-up batch,
+    then the timed pass with the counts reset. Returns the K1 launches and
+    s/batch."""
+    from types import SimpleNamespace
+
+    from liteasr_tpu_torch import decode
+    from liteasr_tpu_torch.infer import infer_dataset
+
+    dataset = task.dataset("test")
+    model = build_para_model(torch.bfloat16, dev).eval()
+    n_batches = -(-len(dataset.data) // BATCH)
+    audio_s = sum(a.xlen for a in dataset.data) * FRAME_S
+    cfg = {"batch_size": BATCH}
+    warm = SimpleNamespace(data=dataset.data[:BATCH], feat_dim=dataset.feat_dim)
+    infer_dataset(task, model, warm, cfg, dev, PAD_TIME, verbose=False)
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    decode_fn = decode.paraformer_decode
+    decode_s = []
+
+    def timed(*args, **kwargs):  # the decode alone, without the scoring
+        t1 = time.perf_counter()
+        out = decode_fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t1)
+        return out
+
+    decode.paraformer_decode = timed
+    try:
+        t0 = time.perf_counter()
+        pairs = []
+        err, length = infer_dataset(task, model, dataset, cfg, dev, PAD_TIME,
+                                    verbose=False, collect=pairs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        decode.paraformer_decode = decode_fn
+    launches = fa.flash_attention.launches
+    per_batch = ENC_LAYERS + 2 * DEC_LAYERS
+    if launches != per_batch * n_batches:
+        raise RuntimeError(f"K1 launched {launches} times for {n_batches} batches, "
+                           f"expected {per_batch} per batch")
+    if len(pairs) != len(dataset.data) or length <= 0:
+        raise RuntimeError("infer_dataset did not score every utterance")
+    n_tok = sum(len(hyp.split()) for _, hyp in pairs)
+    dec = sum(decode_s)
+    log(f"Paraformer decode (CIF + argmax): {n_batches} batches of <= {BATCH} utts "
+        f"(longest padded to 1600 frames, u_max 399), {secs / n_batches:.4f} s/batch "
+        f"through infer_dataset, of which the decode {dec / n_batches:.4f} s/batch and "
+        f"the host's scoring the rest; {len(pairs) / secs:.2f} utt/s, RTF "
+        f"{secs / audio_s:.5f} (decode alone {len(pairs) / dec:.2f} utt/s, RTF "
+        f"{dec / audio_s:.5f}); K1 launches {launches} ({per_batch}/batch), {n_tok} "
+        f"tokens emitted, error count {err}/{length} (random weights) [{name}]")
+    return launches, secs / n_batches
+
+
+def fire_mismatch(k_a, k_b, csum, beta) -> str:
+    """The frames where two fire-count tensors (B, T) differ, with csum /
+    beta there (a flip sits at an integer)."""
+    rows, cols = torch.nonzero(k_a != k_b, as_tuple=True)
+    ratio = csum / beta[:, None]
+    return ", ".join(f"utt {int(r)} frame {int(c)}: {int(k_a[r, c])} vs {int(k_b[r, c])} "
+                     f"fires, csum/beta {float(ratio[r, c]):.9f}"
+                     for r, c in zip(rows[:8], cols[:8]))
+
+
+def check_para_parity(task, dev, name):
+    """Phase s, fp32 (TF32 off), the glance noise handed to both sides: one
+    train step (full width, 2 encoder and 1 decoder layer, dropout 0) on
+    the card held to the train-parity rule against the same step on the CPU
+    in fp64, the fire counts of its CIF first; then 2 cut utterances
+    decoded by the full-width model (decoder projection x8 for peaked
+    posteriors) on the card and the CPU: identical fire counts, hypotheses
+    and ulens."""
+    from liteasr_tpu_torch import decode
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.paraformer_loss import ParaformerLoss
+    from liteasr_tpu_torch.nets.paraformer import fire_counts
+    from liteasr_tpu_torch.ops.masks import padding_mask
+    from liteasr_tpu_torch.trainer import to_device
+
+    rng = np.random.default_rng(SEED + 9)
+    B, T, U = 4, 400, 24
+    batch = {"xs": rng.normal(size=(B, T, FEAT)).astype(np.float32),
+             "xlens": np.array([T, 350, 280, 200], np.int32),
+             "ys": rng.integers(1, VOCAB - 1, size=(B, U)).astype(np.int32),
+             "ylens": np.array([U, 20, 16, 10], np.int32),
+             "valid": np.ones(B, np.float32)}
+    batch["ys"][np.arange(U)[None] >= batch["ylens"][:, None]] = -1
+    noise = torch.rand(B, U, generator=torch.Generator().manual_seed(SEED + 10))
+    crit = ParaformerLoss(DotDict(vocab_size=VOCAB, gamma=1.0))
+    res, fires = [], []
+    for device, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float64)):
+        model = build_para_model(dtype, device, enc_layers=2, dec_layers=1).to(dtype)
+        model.draw_glance_noise = lambda b, u, train, d: noise.to(d)
+        b = to_device(batch, device)
+        b["xs"] = b["xs"].to(dtype)
+        loss, aux = crit(model, b, train=True)
+        loss.backward()
+        res.append((loss.item(), {n: p.grad.double().cpu()
+                                  for n, p in model.named_parameters()}))
+        with torch.no_grad():  # the step's CIF (train mode, dropout 0)
+            h = model.encoder(b["xs"], mask=padding_mask(b["xlens"], T), train=True)
+            alpha, beta = model.predictor.alphas(h, model.get_pred_len(b["xlens"]),
+                                                 b["ylens"])
+            csum = torch.cumsum(alpha, 1)
+            fires.append((fire_counts(csum, beta).cpu(), csum.double().cpu(),
+                          beta.double().cpu()))
+    (g_k, _, _), (c_k, c_csum, c_beta) = fires
+    if not torch.equal(g_k, c_k):
+        raise RuntimeError("Paraformer train step: the card's CIF fires differ from the "
+                           "CPU's: " + fire_mismatch(g_k, c_k, c_csum, c_beta))
+    what = grad_agreement(res[0][0], res[0][1], res[1][0], res[1][1])
+    log(f"Paraformer train parity fp32 card vs CPU fp64 (2 encoder + 1 decoder layers, "
+        f"B={B}, T={T}, U={U}, glance noise handed over): fire counts identical "
+        f"({g_k[:, -1].tolist()} fires); {what} [{name}]")
+
+    cut = (600, 480)
+    xs = np.zeros((2, cut[0], FEAT), np.float32)
+    for i, (a, n) in enumerate(zip(task.dataset("test").data, cut)):
+        xs[i, :n] = a.x[:n]
+    xs, xlens = torch.from_numpy(xs), torch.tensor(cut)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        model = build_para_model(torch.float32, device).eval()
+        with torch.no_grad():
+            model.decoder.linear_out.weight.mul_(8.0)
+            model.decoder.linear_out.bias.mul_(8.0)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            x, xl = xs.to(device), xlens.to(device)
+            h = model.encoder(x, mask=padding_mask(xl, x.shape[1]))
+            alpha, beta = model.predictor.alphas(h, model.get_pred_len(xl))
+            csum = torch.cumsum(alpha, 1)
+            k = fire_counts(csum, beta)
+            u_max = max(model.get_pred_len(x.shape[1]), 1)
+            hyp, ulens = model.decode(x, xl, u_max)
+        outs.append([t.cpu() for t in (k, csum, beta, hyp, ulens)]
+                    + [decode.paraformer_decode(model, x, xl), time.perf_counter() - t0])
+    (g_k, _, _, g_hyp, g_ul, g_lists, g_s), (c_k, c_csum, c_beta, c_hyp, c_ul, c_lists,
+                                             c_s) = outs
+    if not torch.equal(g_k, c_k):
+        raise RuntimeError("Paraformer decode: the card's CIF fires differ from the "
+                           "CPU's: " + fire_mismatch(g_k, c_k, c_csum.double(),
+                                                     c_beta.double()))
+    same = torch.equal(g_hyp, c_hyp) and torch.equal(g_ul, c_ul) and g_lists == c_lists
+    log(f"Paraformer decode parity fp32 card vs CPU (2 utts of {list(cut)} frames, "
+        f"linear_out x8): fire counts identical ({g_k[:, -1].tolist()} fires), "
+        f"hypotheses {'identical' if same else 'DIFFER'} (ulens {g_ul.tolist()} vs "
+        f"{c_ul.tolist()}); {g_s:.2f} s card, {c_s:.2f} s CPU [{name}]")
+    if not same:
+        raise RuntimeError("Paraformer decoding differs between the card and the CPU")
+
+
 def load_baseline(root):
     """The flash_attention module of another checkout (the parent commit,
     unpacked with git archive), loaded on its own: it builds that
@@ -2170,6 +2618,7 @@ def main() -> int:
     k2 = check_train_kernels(fa, dev, name)
     time_long_kernels(fa, dev, name)
     kc = check_chunk_kernels(fa, dev, name)  # k
+    kp = check_para_kernels(fa, dev, name)  # o
     if "--kernels-only" in sys.argv[1:]:
         return 0
 
@@ -2213,6 +2662,15 @@ def main() -> int:
         log("streaming decode s/batch: " + ", ".join(f"{k} {v:.4f}" for k, v in stream_s.items())
             + f" (U2 attention_rescore {rescore_s:.4f}) [{name}]")
         check_stream_parity(task, dev, name, stream_pairs)  # n
+
+        (para_fwd, para_lse, para_bwd), para_ckpt_fwd = run_para_training(
+            fa, root, dev, name)  # p
+        para_step = time_para_step(dev, name)  # q
+        para_dec_fwd, para_s = run_para_decode(fa, task, dev, name)  # r
+        log(f"Paraformer decode s/batch {para_s:.4f} (U2 attention_rescore "
+            f"{rescore_s:.4f}); micro-step {para_step['step_ms']:.2f} ms, "
+            f"{para_step['utt_s']:.2f} utt/s, peak {para_step['peak_gib']:.2f} GiB [{name}]")
+        check_para_parity(task, dev, name)  # s
     # launches with a chunk width, as the wrappers counted them: K1 in the
     # static run's validation and the static model's offline decode (chunk
     # 16), K1'/K2 in the chunked draws and the static run
@@ -2228,8 +2686,10 @@ def main() -> int:
         "replaces": "liteasr_tpu/ops/flash_attention.py:177",
         "launches": (decode_fwd + train_fwd + ckpt_fwd + recipe_fwd + recipe_lse
                      + avg_fwd + attention_fwd + td_fwd + td_lse + td_ckpt_fwd
-                     + td_dec_fwd + sum(dyn[:2]) + sum(sta[:2]) + stream_dec_fwd),
-        "max_abs_err": max(k1["max_abs_err"], k2["fwd_err"], kc["fwd_err"], kc["k1_err"]),
+                     + td_dec_fwd + sum(dyn[:2]) + sum(sta[:2]) + stream_dec_fwd
+                     + para_fwd + para_lse + para_ckpt_fwd + para_dec_fwd),
+        "max_abs_err": max(k1["max_abs_err"], k2["fwd_err"], kc["fwd_err"], kc["k1_err"],
+                           kp["max_abs_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
@@ -2241,7 +2701,11 @@ def main() -> int:
         "decoder_src_kv_lens_ms": k1["decoder_src_kv_lens_ms"],
         "decoder_src_kv_lens_bound_ms": k1["decoder_src_kv_lens_bound_ms"],
         "decoder_src_kv_lens_library_ms": k1["decoder_src_kv_lens_library_ms"],
-        "lse_launches": train_lse + recipe_lse + td_lse + dyn[1] + sta[1],
+        # K1 at the Paraformer decoder's shapes (phase o; bf16, one call
+        # each) and its launches on the Paraformer paths (p, r)
+        **{f"paraformer_{shape}_{key}": v for shape, r in kp.items() if shape != "max_abs_err"
+           for key, v in r.items()},
+        "lse_launches": train_lse + recipe_lse + td_lse + dyn[1] + sta[1] + para_lse,
         "lse_max_abs_err": k2["fwd_err"],
         "lse_ms": k2["fwd_ms"],
         "lse_plain_ms": k2["fwd_plain_ms"],
@@ -2265,7 +2729,7 @@ def main() -> int:
         "route": "cuda",
         "source": "liteasr_tpu_torch/csrc/rel_attention_bwd.cu",
         "replaces": "liteasr_tpu/ops/flash_attention.py:566",
-        "launches": train_bwd + recipe_bwd + td_bwd + dyn[2] + sta[2],
+        "launches": train_bwd + recipe_bwd + td_bwd + dyn[2] + sta[2] + para_bwd,
         "max_abs_err": max(k2["bwd_err"], kc["bwd_err"]),
         "ms": k2["bwd_ms"],
         "plain_ms": k2["bwd_plain_ms"],

@@ -8,7 +8,9 @@ layer_0/self_attn/linear_q`` is ``encoder.layer_0.self_attn.linear_q``);
 only the leaves differ:
 
 * Dense ``kernel`` (in, out) <-> Linear ``weight`` (out, in);
-* Conv ``kernel`` HWIO <-> Conv2d ``weight`` OIHW;
+* Conv ``kernel`` HWIO <-> Conv2d ``weight`` OIHW, and the 1-D Conv
+  ``kernel`` (K, I, O) <-> Conv1d ``weight`` (O, I, K) (the Paraformer
+  predictor's ``conv``);
 * ``depthwise_conv_kernel`` (K, 1, C) / ``depthwise_conv_bias`` <->
   ``depthwise_conv.weight`` (C, 1, K) / ``depthwise_conv.bias``;
 * LayerNorm ``<name>/ln/scale|bias`` <-> ``<name>.weight|bias``;
@@ -84,6 +86,8 @@ def _leaf_to_torch(path, arr):
         name = {"scale": "weight", "bias": "bias"}[leaf]
     elif leaf == "kernel" and arr.ndim == 2:
         name, arr = "weight", arr.T
+    elif leaf == "kernel" and arr.ndim == 3:
+        name, arr = "weight", arr.transpose(2, 1, 0)
     elif leaf == "kernel" and arr.ndim == 4:
         name, arr = "weight", arr.transpose(3, 2, 0, 1)
     elif leaf == "depthwise_conv_kernel":
@@ -156,6 +160,8 @@ def state_dict_to_flax(state_dict) -> dict:
             name = "embedding"
         elif name == "weight" and arr.ndim == 2:
             name, arr = "kernel", arr.T
+        elif name == "weight" and arr.ndim == 3:
+            name, arr = "kernel", arr.transpose(2, 1, 0)
         elif name == "weight" and arr.ndim == 4:
             name, arr = "kernel", arr.transpose(2, 3, 1, 0)
         elif name not in ("bias", "pos_bias_u", "pos_bias_v"):

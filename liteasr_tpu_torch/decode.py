@@ -1,7 +1,7 @@
 """Decoding (liteasr_tpu/decode.py). U2: CTC greedy, CTC prefix beam
 search, attention rescoring and attention beam search. Transducer: greedy,
 the batched beam search and the host beam of reference semantics for one
-utterance.
+utterance. Paraformer: CIF + argmax, one non-autoregressive pass.
 
 The reference runs these as jitted ``lax.scan``/``vmap`` programs. Here
 they run eagerly under ``torch.inference_mode()``: a Python loop over
@@ -348,6 +348,17 @@ def decode_batch(model, xs, xlens, beam_size: int = 10,
             for b in range(best_hyp.shape[0])]
 
 
+def paraformer_decode(model, xs, xlens) -> List[List[int]]:
+    """Paraformer: CIF + parallel decoder + argmax over a padded batch
+    (liteasr_tpu/decode.py:467-482), ``u_max = max(get_pred_len(T), 1)`` of
+    the padded length T. Returns the token lists cut at ``ulens``."""
+    u_max = max(model.get_pred_len(xs.shape[1]), 1)
+    with torch.no_grad():
+        hyp, ulens = model.decode(xs, xlens, u_max)
+    hyp, ulens = hyp.cpu(), ulens.cpu()
+    return [hyp[b, :int(ulens[b])].tolist() for b in range(hyp.shape[0])]
+
+
 def _one_utterance(model, x):
     """Features (T, F) or (1, T, F) -> (xs (1, T, F), xlens (1,)) on the
     model's device."""
@@ -361,15 +372,18 @@ def _one_utterance(model, x):
 def decode_utterance(model, x, mode: str = "attention_rescore",
                      beam_size: int = 10, ctc_weight: float = 0.5) -> List[int]:
     """Single-utterance decode (the trainer's inference helper, ad-hoc use),
-    by model family: a transducer runs the batched beam search, U2
-    ``decode_batch`` in ``mode`` (liteasr_tpu/decode.py:506-525)."""
+    by model family: a transducer runs the batched beam search, a
+    Paraformer CIF + argmax, U2 ``decode_batch`` in ``mode``
+    (liteasr_tpu/decode.py:506-525)."""
     xs, xlens = _one_utterance(model, x)
     if hasattr(model, "joint"):
         return transducer_beam_search(model, xs, xlens, beam_size=beam_size)[0]
+    if hasattr(model, "predictor"):  # Paraformer (unpadded: u_max from its length)
+        return paraformer_decode(model, xs, xlens)[0]
     if not hasattr(model, "ctc_logits"):
         raise NotImplementedError(
-            f"decoding {type(model).__name__}: Paraformer decoding is not ported "
-            "yet (ROADMAP section 1, 'Paraformer')")
+            f"decoding {type(model).__name__}: not a model of the decoding families "
+            "(U2, transducer, Paraformer)")
     return decode_batch(model, xs, xlens, beam_size=beam_size,
                         ctc_weight=ctc_weight, mode=mode)[0]
 

@@ -9,7 +9,8 @@ training run. The test set is decoded in length-sorted batches on one
 chunk-by-chunk runtime of :mod:`liteasr_tpu_torch.streaming` with
 ``inference.chunk_sub`` frames a chunk, default 16), a transducer greedily
 (``mode=transducer_greedy``) or else by the beam search with
-``inference.expansions_per_frame``,
+``inference.expansions_per_frame``, a Paraformer by CIF + argmax (whatever
+the mode),
 with the checkpoint, or the average of checkpoints, that
 ``checkpoint.load_ckpt`` picks; raw-wave test sets (``dataset.fbank``) get
 their log-mel features on the device.
@@ -93,6 +94,8 @@ def infer_dataset(task, model, dataset, infer_cfg, device: torch.device,
                 hyps = decode.transducer_beam_search(
                     model, xs, xlens.long(), beam_size=beam_size,
                     expansions_per_frame=expansions)
+        elif hasattr(model, "predictor"):  # Paraformer: CIF + argmax
+            hyps = decode.paraformer_decode(model, xs, xlens.long())
         elif mode.startswith("streaming"):  # streaming_ctc_greedy | ..._prefix_beam_search
             hyps = streaming_decode(
                 model, xs, xlens, chunk_sub=int(infer_cfg.get("chunk_sub", 16)),

@@ -13,7 +13,9 @@ Options the port has not ported raise ``NotImplementedError``, naming the
 ROADMAP item that ports them: the multi-device layouts (``distributed.dp``/
 ``tp``/``sp`` > 1). Streaming models train here too
 (``model.enc_arch=transformer model.dynamic_chunk=true`` or
-``model.static_chunk_size=N``).
+``model.static_chunk_size=N``), and so do the transducer
+(``model=my_transducer criterion=my_rnnt``) and the Paraformer
+(``model=Paraformer criterion=paraformer_loss``).
 """
 
 import logging

@@ -14,8 +14,8 @@ running statistics move on every micro-step, a skipped one included
 ``save_model`` also writes ``train_state.pt`` (and ``.meta`` with ``iter``
 and ``epoch``) to ``task.save_dir``: the model's state_dict, the
 optimizer's moments, counts and partial accumulation, the micro-step count
-that seeds SpecAugment, and the generators of every dropout and of the
-dynamic chunk widths.
+that seeds SpecAugment, and the generators of every dropout, of the
+dynamic chunk widths and of the Paraformer's glance noise.
 ``common.resume`` (``auto`` or a path) restores it, so that a resumed run
 continues as the uninterrupted one would have (liteasr_tpu/trainer.py:
 314-375). ``common.profile_dir`` traces the run with ``torch.profiler``
@@ -115,6 +115,9 @@ class Trainer:
             gen = step_generator(self.cfg.common.seed, self.step, self.device)
             batch = dict(batch, xs=spec_augment(batch["xs"], batch["xlens"], gen,
                                                 **self.spec_aug))
+        # the criterion sees the micro-steps taken before this one, as JAX's
+        # batch["step"] = state.step (the glancing-ratio schedule reads it)
+        batch = dict(batch, step=self.step)
         self.step += 1
         loss, _ = self.criterion(self.model, batch, train=True)
         loss.backward()
@@ -136,8 +139,9 @@ class Trainer:
     def _rng_state(self) -> dict:
         rng = {"cpu": torch.get_rng_state(),
                "dropout": self.model.dropout_generator.get_state()}
-        if hasattr(self.model, "chunk_generator"):
-            rng["chunk"] = self.model.chunk_generator.get_state()
+        for key in ("chunk", "glance"):
+            if hasattr(self.model, f"{key}_generator"):
+                rng[key] = getattr(self.model, f"{key}_generator").get_state()
         if self.device.type == "cuda":
             rng["cuda"] = torch.cuda.get_rng_state(self.device)
         return rng
@@ -191,8 +195,9 @@ class Trainer:
         rng = state["rng"]
         torch.set_rng_state(rng["cpu"])
         self.model.dropout_generator.set_state(rng["dropout"])
-        if "chunk" in rng and hasattr(self.model, "chunk_generator"):
-            self.model.chunk_generator.set_state(rng["chunk"])
+        for key in ("chunk", "glance"):
+            if key in rng and hasattr(self.model, f"{key}_generator"):
+                getattr(self.model, f"{key}_generator").set_state(rng[key])
         if "cuda" in rng and self.device.type == "cuda":
             torch.cuda.set_rng_state(rng["cuda"], self.device)
         meta_path = path + ".meta"

@@ -1,5 +1,5 @@
-"""liteasr_tpu_torch, training, transducer, streaming and native modules
-included, imports without jax, flax or liteasr_tpu, and its CUDA kernel
+"""liteasr_tpu_torch, training, transducer, streaming, Paraformer and native
+modules included, imports without jax, flax or liteasr_tpu, and its CUDA kernel
 loader raises (no fallback) where there is no CUDA device."""
 
 import os
@@ -33,7 +33,8 @@ def test_port_imports_without_jax():
                      "optims.noam", "optims.adam", "trainer", "train",
                      "utils.trigger", "data.loader", "models.transducer",
                      "nets.rnn_decoder", "ops.rnnt", "criterions.rnnt",
-                     "streaming", "native"):
+                     "streaming", "native", "nets.paraformer", "models.paraformer",
+                     "criterions.paraformer_loss"):
             assert "liteasr_tpu_torch." + name in names, (name, names)
         print(len(names))
     """)
