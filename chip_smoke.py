@@ -169,12 +169,43 @@ s. parity in fp32 (TF32 off), the glance noise handed to both sides: one
    (linear_out x8): identical fire counts, hypotheses and ulens (a
    disagreement prints the frames and their csum/beta).
 
+wav2vec 2.0 pretraining (Wav2Vec2Config's defaults at full width: the
+7-conv /320 extractor, 12 transformer layers, 768-d, 12 heads, FF 3072,
+relu, conv positional embedding k=128 / 16 groups, 2 x 320 Gumbel codes,
+100 negatives, mask_prob 0.65 span 10; bf16 compute over fp32 params;
+random weights from the seed):
+
+t. K1 at the encoder's validation shapes without a mask (BH = 24 rows x 12
+   heads, T = 174: the operating point's batch; 8 x 12, T = 774: the
+   250,000-sample crop's), fp32 (1e-4, TF32 off) and bf16 (2e-2) against
+   the plain version, each bf16 call timed beside its bound and one SDPA
+   call;
+u. ``task=pretrain`` trained through ``train.main`` (tools/run_pretrain.sh's
+   recipe: diversity 1.0, Adam lr 2e-4, clip 5, accum 1) on a's raw-wave
+   corpus for 2 epochs: no K1'/K2 launch in a micro-batch, 12 K1 per valid
+   batch, finite losses, every parameter moved (quantizer.vars and
+   mask_emb among them), ``valid loss: ... | accuracy: ... | code_ppl:``
+   lines and a ``model.ep.2.pt``; then 1 epoch and a ``common.resume=auto``
+   continuation whose epoch-2 valid line equals the uninterrupted run's
+   (both in torch's deterministic mode);
+v. the micro-step at the operating point (23 utterances + 1 dummy row x
+   56,000 samples, F = 174): median of 5 repetitions of 4, utt/s, peak
+   memory and MFU from the step's operations; the device-busy share and
+   the top device ops of 4 steps traced with device activity only; the
+   conv extractor, the conv positional embedding and the negatives' gather
+   with compute_logits each alone, forward and backward; the host's draws;
+w. parity in fp32 (TF32 off): 2 encoder layers at full width with the
+   full conv stack, dropout 0, on the card against the CPU in fp64 at the
+   same weights and draws: the eval -inf count (printed first), loss,
+   accuracy and code_ppl; one train step under the train-parity rule.
+
 Every failure raises, so the exit code is not 0. The last line is the JSON
 device record; the line before it lists the kernels (for
 rel_attention_fwd, ``ms``/``plain_ms`` are K1 per decoded batch, the
 ``lse_*`` keys K1' per training call, the ``chunk*`` keys the chunked
-calls of k and the ``paraformer_*`` keys o's calls; ``launches`` sum the
-main paths 4, 6, b, c, d, g, i, l, m, p and r).
+calls of k, the ``paraformer_*`` keys o's calls and the ``wav2vec2_*``
+keys t's; ``launches`` sum the main paths 4, 6, b, c, d, g, i, l, m, p, r
+and u).
 
     python3 chip_smoke.py --profile-train
 
@@ -184,7 +215,7 @@ of 7 and prints the top kernels by device time.
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --baseline DIR
 
-stop after steps 1-3, k and o, or after step 1 time every bf16 kernel call of
+stop after steps 1-3, k, o and t, or after step 1 time every bf16 kernel call of
 the main paths against the checkout in DIR (another commit unpacked with git
 archive), in the order DIR, this tree, this tree, DIR.
 """
@@ -243,6 +274,13 @@ TD_ENC_LAYERS, TD_LSTM_LAYERS, TD_UNITS, TD_JOINT = 4, 2, 2048, 768
 CHUNKS, STATIC_CHUNK = (1, 5, 16, 25), 16
 STREAM_B, STREAM_CHUNK_SUB, STREAM_N_CHUNKS = 8, 16, 24
 STREAM_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_streaming_decode.py:63-64
+# wav2vec 2.0 (t-w): Wav2Vec2Config's defaults; K1's validation shapes
+# (BH, T) at D = 64: the operating point's 24 rows x 174 frames and the
+# 250,000-sample crop's 8 rows x 774; the operating point of
+# tools/run_pretrain.sh (23 utts of the corpus's 3.75 s mean + 1 dummy row)
+W2V_LAYERS, W2V_HEADS, W2V_DIM = 12, 12, 768
+W2V_SHAPES = {"step_batch": (24 * 12, 174), "long_crop": (8 * 12, 774)}
+W2V_STEP_ROWS, W2V_STEP_SAMPLES, W2V_EPOCHS = 24, 56000, 2
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2127,15 +2165,15 @@ def para_kernel_shapes(gen, dev, dtype):
     }
 
 
-def check_para_kernels(fa, dev, name):
-    """Phase o: K1 at the Paraformer decoder's four shapes against the plain
-    version, fp32 (TF32 off) and bf16, each bf16 call timed beside its
-    bound and one SDPA call with the same mask. Returns the bf16 figures by
-    shape and the largest bf16 error."""
-    gen = torch.Generator().manual_seed(SEED + 7)
+def check_k1_calls(fa, dev, name, label, shapes, seed):
+    """K1 at a family's call shapes (``shapes(gen, dev, dtype)`` -> {shape:
+    args}) against the plain version, fp32 (TF32 off) and bf16, each bf16
+    call timed beside its bound and one SDPA call with the same mask.
+    Returns the bf16 figures by shape and the largest bf16 error."""
+    gen = torch.Generator().manual_seed(seed)
     report = {"max_abs_err": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for shape, args in para_kernel_shapes(gen, dev, dtype).items():
+        for shape, args in shapes(gen, dev, dtype).items():
             scale = args["q"].shape[-1] ** -0.5
             out = fa.flash_attention(scale=scale, **args)
             ref = fa.flash_attention_plain(scale=scale, **args)
@@ -2143,13 +2181,13 @@ def check_para_kernels(fa, dev, name):
             err = (out.float() - ref.float()).abs().max().item()
             tol = KERNEL_TOL[dtype]
             if not within(out, ref, tol):
-                raise RuntimeError(f"K1 Paraformer {shape} {dtype}: max abs err {err} "
+                raise RuntimeError(f"K1 {label} {shape} {dtype}: max abs err {err} "
                                    f"exceeds atol=rtol={tol}")
             ms = cuda_time_ms(lambda: fa.flash_attention(scale=scale, **args))
             plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(scale=scale, **args))
             lib_ms = cuda_time_ms(library_call(args, scale))
             bound_ms, bound_by = fwd_bound(**args)
-            log(f"K1 Paraformer {shape} {str(dtype)[6:]} shape={tuple(args['q'].shape)}x"
+            log(f"K1 {label} {shape} {str(dtype)[6:]} shape={tuple(args['q'].shape)}x"
                 f"{args['k'].shape[1]}: max_abs_err={err:.3g} (tol {tol}) kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA) {lib_ms:.4f} ms, "
                 f"bound {bound_ms:.4f} ms ({bound_by}) = {bound_ms / ms:.2%} of it [{name}]")
@@ -2158,6 +2196,11 @@ def check_para_kernels(fa, dev, name):
                 report[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                      bound_ms=bound_ms, bound_by=bound_by)
     return report
+
+
+def check_para_kernels(fa, dev, name):
+    """Phase o: K1 at the Paraformer decoder's four shapes."""
+    return check_k1_calls(fa, dev, name, "Paraformer", para_kernel_shapes, SEED + 7)
 
 
 def build_para_model(dtype, device, enc_layers=ENC_LAYERS, dec_layers=DEC_LAYERS,
@@ -2511,6 +2554,359 @@ def check_para_parity(task, dev, name):
         raise RuntimeError("Paraformer decoding differs between the card and the CPU")
 
 
+# ---------------------------------------------------------- wav2vec 2.0 (t-w)
+
+
+def w2v_kernel_shapes(gen, dev, dtype):
+    """K1's validation calls in the w2v2 encoder (12 heads of 64, no mask):
+    the operating point's batch (24 rows x 174 frames) and the
+    250,000-sample crop's (5 rows + 3 dummy rows x 774 frames)."""
+    d = W2V_DIM // W2V_HEADS
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    return {shape: dict(q=rnd(bh, t, d), k=rnd(bh, t, d), v=rnd(bh, t, d))
+            for shape, (bh, t) in W2V_SHAPES.items()}
+
+
+def check_w2v_kernels(fa, dev, name):
+    """Phase t: K1 at the two w2v2 validation shapes."""
+    return check_k1_calls(fa, dev, name, "wav2vec2", w2v_kernel_shapes, SEED + 11)
+
+
+def build_w2v_model(dtype, device, encoder_layers=W2V_LAYERS, dropout=0.1):
+    """Wav2Vec2Config's defaults (12 layers, 768-d, 12 heads, FF 3072, relu,
+    the 7-conv /320 extractor, conv positional embedding k=128 / 16 groups,
+    2 x 320 codes, 100 negatives), random weights from SEED, the model's
+    generators seeded from SEED as train.main seeds them."""
+    from liteasr_tpu_torch.models.wav2vec2 import Wav2Vec2
+
+    model = Wav2Vec2(encoder_layers=encoder_layers, dropout=dropout,
+                     attention_dropout=dropout, dtype=dtype, device=device,
+                     generator=torch.Generator().manual_seed(SEED))
+    model.seed_dropout(SEED)
+    return model
+
+
+def w2v_overrides(wave_root, run, epochs):
+    """tools/run_pretrain.sh's recipe (diversity 1.0, Adam lr 2e-4, clip 5,
+    bf16) on phase a's raw-wave corpus."""
+    return ["task=pretrain", "model=wav2vec2", "criterion=wav2vec", "optimizer=my_adam",
+            "optimizer.lr=2e-4", "criterion.diversity_weight=1.0", "model.dtype=bfloat16",
+            f"task.train={wave_root}/train", f"task.valid={wave_root}/valid",
+            f"task.save_dir={run}/ckpts", f"common.run_dir={run}", f"common.seed={SEED}",
+            f"optimization.max_epoch={epochs}", "optimization.accum_grad=1",
+            "optimization.clip_grad_norm=5.0"]
+
+
+def w2v_valid_lines(run):
+    with open(os.path.join(run, "train.log")) as f:
+        return [ln.split(" - ", 1)[-1].strip() for ln in f if "valid loss:" in ln]
+
+
+def run_w2v_training(fa, root, wave_root, dev, name):
+    """Phase u: task=pretrain through train.main at full width on phase a's
+    corpus for W2V_EPOCHS epochs, then the same for 1 epoch and a
+    ``common.resume=auto`` continuation, in torch's deterministic mode (the
+    negatives' gather backward otherwise sums by atomics), whose last valid
+    line must equal the uninterrupted run's. Returns the K1 launches of the
+    uninterrupted run."""
+    from liteasr_tpu_torch import train
+    from liteasr_tpu_torch.criterions.wav2vec_loss import Wav2Vec2Loss
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    run = os.path.join(root, "w2v_run")
+    seen = []  # (train, loss, accuracy, code_ppl) of every criterion call
+    call = Wav2Vec2Loss.__call__
+
+    def record(self, model, batch, train=True):
+        loss, aux = call(self, model, batch, train)
+        seen.append((train, loss.item(), aux["accuracy"].item(), aux["code_ppl"].item()))
+        return loss, aux
+
+    Wav2Vec2Loss.__call__ = record
+    try:
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        trainer = train.main(w2v_overrides(wave_root, run, W2V_EPOCHS), device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        fwd, lse, bwd = counts(fa)
+        micro = W2V_EPOCHS * len(trainer.task.dataset("train"))
+        n_valid = W2V_EPOCHS * len(trainer.valid_set)
+        if (fwd, lse, bwd) != (W2V_LAYERS * n_valid, 0, 0):
+            raise RuntimeError(f"wav2vec2 launches K1 {fwd - lse}, K1' {lse}, K2 {bwd} for "
+                               f"{micro} micro-batches and {n_valid} valid batches, expected "
+                               f"{W2V_LAYERS} K1 per valid batch and no K1'/K2")
+        train_seen = [s[1:] for s in seen if s[0]]
+        if len(train_seen) != micro or not np.isfinite(train_seen).all():
+            raise RuntimeError(f"wav2vec2 training (loss, accuracy, code_ppl): {train_seen}")
+        init = dict(build_w2v_model(torch.bfloat16, "cpu").named_parameters())
+        moved = {n for n, p in trainer.model.named_parameters()
+                 if not torch.equal(p.detach().cpu(), init[n])}
+        if moved != set(init):
+            raise RuntimeError(f"parameters that did not move: {sorted(set(init) - moved)}")
+        lines = w2v_valid_lines(run)
+        if (len(lines) != W2V_EPOCHS
+                or not all(re.search(r"\| accuracy: \S+ \| code_ppl: \S+$", ln) for ln in lines)):
+            raise RuntimeError(f"wav2vec2 valid lines: {lines}")
+        ckpt = os.path.join(run, "ckpts", f"model.ep.{W2V_EPOCHS}.pt")
+        if not os.path.isfile(ckpt):
+            raise RuntimeError(f"{ckpt} was not written")
+        shapes = sorted({tuple(trainer.task.dataset("train").collator(
+            trainer.task.dataset("train")[i])["xs"].shape)
+            for i in range(len(trainer.task.dataset("train")))})
+        log(f"wav2vec2 train: {micro} micro-batches {shapes} in {W2V_EPOCHS} epochs, "
+            f"{int(trainer.tx.count)} optimizer steps ({int(trainer.tx.notfinite_count)} "
+            f"skipped), {secs:.2f} s incl. validation and checkpoints; (loss, accuracy, "
+            f"code_ppl) {[tuple(round(x, 3) for x in s) for s in train_seen]}; K1 {fwd} "
+            f"({W2V_LAYERS} per valid batch), K1' {lse}, K2 {bwd}; all {len(moved)} parameter "
+            f"leaves ({sum(p.numel() for p in trainer.params)} parameters) moved "
+            f"(quantizer.vars and mask_emb among them); {lines} [{name}]")
+        params = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+        del trainer, init
+        gc.collect()
+
+        resumed_run = os.path.join(root, "w2v_resumed")
+        train.main(w2v_overrides(wave_root, resumed_run, 1), device=dev)
+        resumed = train.main(w2v_overrides(wave_root, resumed_run, W2V_EPOCHS)
+                             + ["common.resume=auto"], device=dev)
+        r_lines = w2v_valid_lines(resumed_run)
+        diff = max((p - params[n]).abs().max().item()
+                   for n, p in resumed.model.named_parameters())
+        log(f"wav2vec2 resume: 1 epoch, then resume=auto to {W2V_EPOCHS}: last valid line "
+            f"{r_lines[-1]!r} against the uninterrupted run's {lines[-1]!r}; parameters "
+            f"max abs diff {diff:.3g} [{name}]")
+        if len(r_lines) != W2V_EPOCHS or r_lines[-1] != lines[-1]:
+            raise RuntimeError("the resumed wav2vec2 run's valid lines differ from the "
+                               f"uninterrupted run's: {r_lines} vs {lines}")
+        del resumed
+    finally:
+        Wav2Vec2Loss.__call__ = call
+        torch.use_deterministic_algorithms(False)
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        gc.collect()
+    return fwd
+
+
+def w2v_step_flops(rows: int, samples: int) -> float:
+    """Operations of one fwd+bwd micro-step of the base configuration (3x
+    the forward's products): the conv stack, the conv positional embedding,
+    the 12 transformer layers (projections, FF, both attention products),
+    the input, final, quantizer and codebook projections, and the
+    candidates' dot products."""
+    from liteasr_tpu_torch.models.wav2vec2 import DEFAULT_CONV_LAYERS
+
+    flops, t, c_in = 0.0, samples, 1
+    for dim, k, s in eval(DEFAULT_CONV_LAYERS):  # noqa: S307
+        t = (t - k) // s + 1
+        flops += 2.0 * rows * t * dim * c_in * k
+        c_in = dim
+    n, d = rows * t, W2V_DIM
+    flops += 2.0 * n * d * (d // 16) * 128  # pos_conv, 16 groups
+    flops += W2V_LAYERS * (2.0 * n * 4 * d * d + 2.0 * n * 2 * d * 3072
+                           + 2 * 2.0 * rows * t * t * d)
+    flops += 2.0 * n * (c_in * d + d * d + c_in * 640 + 640 * 384 + d * d)
+    flops += 2.0 * 101 * n * d
+    return 3 * flops
+
+
+def w2v_step_batch(dev):
+    """The operating point: 23 utterances of 56,000 samples (the corpus's
+    3.75 s mean crops to 56,000) + 1 weight-0 dummy row, as the collator
+    pads them."""
+    rng = np.random.default_rng(SEED + 12)
+    rows, real = W2V_STEP_ROWS, W2V_STEP_ROWS - 1
+    xs = (rng.normal(size=(rows, W2V_STEP_SAMPLES))
+          * 10.0 ** rng.uniform(-2.5, -0.7, (rows, 1))).astype(np.float32)
+    xs[real:] = 0.0
+    xlens = np.array([W2V_STEP_SAMPLES] * real + [0], np.int64)
+    valid = np.array([1.0] * real + [0.0], np.float32)
+    return {"xs": torch.from_numpy(xs).to(dev), "xlens": torch.from_numpy(xlens).to(dev),
+            "valid": torch.from_numpy(valid).to(dev)}, real
+
+
+def time_w2v_step(dev, name):
+    """Phase v: the micro-step at the operating point (bf16, dropout 0.1,
+    diversity 1.0, Adam lr 2e-4, clip 5): 3 warm-up steps, the median of 5
+    repetitions of 4, utt/s, peak memory and MFU against 989 TFLOP/s; 4
+    more traced with device activity only (the busy share and the top
+    device ops); then alone, fwd+bwd: the conv extractor, the conv
+    positional embedding, and the negatives' gather with compute_logits;
+    and the host's draws of one step."""
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.wav2vec_loss import Wav2Vec2Loss
+    from torch.profiler import ProfilerActivity
+
+    from liteasr_tpu_torch.models.wav2vec2 import conv_output_length, negative_indices
+    from liteasr_tpu_torch.optims.fused_step import FusedAdam, constant_schedule
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(SEED)
+    model = build_w2v_model(torch.bfloat16, dev)
+    crit = Wav2Vec2Loss(DotDict(diversity_weight=1.0))
+    params = list(model.parameters())
+    tx = FusedAdam(params, constant_schedule(2e-4), 0.9, 0.999, 1e-8, clip=5.0)
+    batch, real = w2v_step_batch(dev)
+    count = [0]
+
+    def step():
+        loss, _ = crit(model, dict(batch, step=count[0]), train=True)
+        count[0] += 1
+        loss.backward()
+        tx.update([p.grad for p in params])
+        for p in params:
+            p.grad = None
+        return loss
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    reps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(4):
+            loss = step()
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) / 4)
+    if not bool(torch.isfinite(loss)):
+        raise RuntimeError("non-finite wav2vec2 loss in the timed steps")
+    med = statistics.median(reps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flops = w2v_step_flops(W2V_STEP_ROWS, W2V_STEP_SAMPLES)
+    out = {"step_ms": med * 1e3, "utt_s": real / med, "peak_gib": peak,
+           "mfu": flops / med / H100_BF16_PEAK}
+    prof, wall_us, busy, ops = traced_steps(step, 4, [ProfilerActivity.CUDA])
+    top = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    log(f"wav2vec2 device busy (4 micro-steps traced with device activity only): "
+        f"{busy / 4e3:.2f} ms/micro-step of {wall_us / 4e3:.2f} ms traced wall = "
+        f"{busy / wall_us:.1%}; {ops / 4:.0f} device ops/micro-step; top device time "
+        f"a step: " + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 4e3:.2f} ms"
+                                for e in top) + f" [{name}]")
+
+    xs = batch["xs"]
+    B, F, D = W2V_STEP_ROWS, conv_output_length(W2V_STEP_SAMPLES, model.conv_layers), W2V_DIM
+    n1 = model.num_negatives + 1
+    grad = torch.randn(B, F, model.conv_layers[-1][0], device=dev, dtype=torch.bfloat16)
+
+    def extractor():
+        model.feature_extractor(xs).backward(grad)
+
+    out["extractor_ms"] = host_time_ms(extractor)
+    h = torch.randn(B, F, D, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    g_h = torch.randn(B, F, D, device=dev, dtype=torch.bfloat16)
+
+    def pos_conv():  # the conv positional embedding and embed_norm
+        model.encoder.embed(h).backward(g_h)
+
+    out["pos_conv_ms"] = host_time_ms(pos_conv)
+    for p in params:
+        p.grad = None
+    x = torch.randn(B, F, D, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    y = torch.randn(B, F, D, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    flens = model.feature_lengths(batch["xlens"])
+    mask = model.draw_mask(B, F, flens, True)
+    u = model.draw_negatives_uniform(B, F, True, dev)
+    g_logits = torch.randn(n1, B, F, device=dev)
+
+    def logits():
+        idx = negative_indices(u, mask, flens)
+        cand = torch.cat([torch.arange(F, device=dev)[None, :, None].expand(B, F, 1), idx],
+                         2).reshape(B, -1)
+        tgt = y[torch.arange(B, device=dev)[:, None], cand].reshape(B, F, n1, D)
+        lg = model.compute_logits(x, tgt)
+        lg.masked_fill(torch.isinf(lg), 0.0).backward(g_logits)
+
+    out["logits_ms"] = host_time_ms(logits)
+
+    def draws():
+        model.draw_mask(B, F, flens, True)
+        model.draw_negatives_uniform(B, F, True, dev)
+        model.draw_gumbel_noise(B * F * 2, dev)
+
+    out["draws_ms"] = host_time_ms(draws)
+    out["skipped"] = int(tx.notfinite_count)
+    log(f"wav2vec2 train step at the operating point ({W2V_STEP_ROWS} rows = {real} utts + 1 "
+        f"dummy x {W2V_STEP_SAMPLES} samples, F={F}, bf16, dropout 0.1, diversity 1.0): median "
+        f"{med * 1e3:.2f} ms/micro-step (best {min(reps) * 1e3:.2f}; 5 x 4 steps), "
+        f"{real / med:.2f} utt/s, peak memory {peak:.2f} GiB, {flops / 1e12:.3f} TFLOP a step, "
+        f"{out['skipped']} of {count[0]} updates skipped as non-finite (the dummy row at the "
+        f"init's zero LayerNorm biases), "
+        f"MFU {out['mfu']:.2%}; alone, fwd+bwd: conv extractor {out['extractor_ms']:.2f} ms "
+        f"({out['extractor_ms'] / (med * 1e3):.1%} of the step), the conv positional "
+        f"embedding {out['pos_conv_ms']:.2f} ms ({out['pos_conv_ms'] / (med * 1e3):.1%}), "
+        f"negatives' gather + "
+        f"compute_logits {out['logits_ms']:.2f} ms ({out['logits_ms'] / (med * 1e3):.1%}); the "
+        f"host's draws (mask, negatives, Gumbel) {out['draws_ms']:.2f} ms [{name}]")
+    del model, tx, params, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_w2v_parity(dev, name):
+    """Phase w, fp32 (TF32 off): the base configuration with 2 encoder
+    layers (the full conv stack, dropout 0) on the card against the CPU in
+    fp64 at the same weights and draws, on 4 rows x 16,000 samples (two
+    shorter): the eval loss, accuracy, code_ppl and -inf count, the count
+    printed first; then one train step under the train-parity rule, the
+    -inf count of the frames the loss weights printed first. No dummy row:
+    at the init's zero LayerNorm biases, a dummy row's masked frame 0 sends
+    the diversity term's gradient through 8 zero-variance LayerNorms, x1e6
+    each (a reference behaviour), past fp32's range."""
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.wav2vec_loss import Wav2Vec2Loss, gumbel_temperature
+    from liteasr_tpu_torch.trainer import to_device
+
+    rng = np.random.default_rng(SEED + 13)
+    batch = {"xs": (rng.normal(size=(4, 16000)) * 0.1).astype(np.float32),
+             "xlens": np.array([16000, 14000, 12000, 16000], np.int64),
+             "valid": np.ones(4, np.float32)}
+    crit = Wav2Vec2Loss(DotDict(diversity_weight=1.0))
+    res = []
+    for device, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float64)):
+        model = build_w2v_model(dtype, device, encoder_layers=2, dropout=0.0).to(dtype)
+        b = to_device(batch, device)
+        b["xs"] = b["xs"].to(dtype)
+        with torch.no_grad():
+            logits, mask, _ = model(b["xs"], b["xlens"], train=False)
+            loss, aux = crit(model, b, train=False)
+        weight = (mask & (b["valid"][:, None] > 0)).cpu()
+        ev = (int(torch.isneginf(logits).sum()), loss.item(), aux["accuracy"].item(),
+              aux["code_ppl"].item(), float(weight.sum()))
+        loss, aux = crit(model, dict(b, step=1000), train=True)
+        loss.backward()
+        with torch.no_grad():  # the step's forward again, at the same draws
+            model.seed_dropout(SEED)
+            logits, mask, _ = model(b["xs"], b["xlens"], train=True,
+                                    temp=gumbel_temperature(model.latent_temp, 1000))
+        w = (mask & (b["valid"][:, None] > 0)).cpu()
+        tr_inf = int((torch.isneginf(logits).cpu() & w[None]).sum())
+        res.append((ev, tr_inf, loss.item(),
+                    {n: p.grad.double().cpu() for n, p in model.named_parameters()}))
+        del model
+    (g_ev, g_inf, g_loss, g_grads), (c_ev, c_inf, c_loss, c_grads) = res
+    log(f"wav2vec2 parity fp32 card vs CPU fp64 (2 layers at full width, the full conv "
+        f"stack, 4 rows x <= 16000 samples): eval -inf logits {g_ev[0]} vs {c_ev[0]}; loss "
+        f"{g_ev[1]:.6f} vs {c_ev[1]:.6f}, accuracy {g_ev[2]:.6f} vs {c_ev[2]:.6f}, code_ppl "
+        f"{g_ev[3]:.4f} vs {c_ev[3]:.4f}; train -inf logits at weighted frames {g_inf} vs "
+        f"{c_inf} [{name}]")
+    one_frame = 1.0 / max(c_ev[4], 1.0)
+    if (g_ev[0] != c_ev[0] or abs(g_ev[1] - c_ev[1]) > PARITY_TOL * abs(c_ev[1])
+            or abs(g_ev[2] - c_ev[2]) > one_frame / 2
+            or abs(g_ev[3] - c_ev[3]) > PARITY_TOL * abs(c_ev[3]) or g_inf != c_inf):
+        raise RuntimeError("wav2vec2 eval or train -inf logits differ between the card "
+                           "and the CPU")
+    what = grad_agreement(g_loss, g_grads, c_loss, c_grads)
+    log(f"wav2vec2 train parity fp32 card vs CPU fp64 (step 1000, diversity 1.0): {what} "
+        f"[{name}]")
+
+
 def load_baseline(root):
     """The flash_attention module of another checkout (the parent commit,
     unpacked with git archive), loaded on its own: it builds that
@@ -2619,6 +3015,7 @@ def main() -> int:
     time_long_kernels(fa, dev, name)
     kc = check_chunk_kernels(fa, dev, name)  # k
     kp = check_para_kernels(fa, dev, name)  # o
+    kw = check_w2v_kernels(fa, dev, name)  # t
     if "--kernels-only" in sys.argv[1:]:
         return 0
 
@@ -2671,6 +3068,13 @@ def main() -> int:
             f"{rescore_s:.4f}); micro-step {para_step['step_ms']:.2f} ms, "
             f"{para_step['utt_s']:.2f} utt/s, peak {para_step['peak_gib']:.2f} GiB [{name}]")
         check_para_parity(task, dev, name)  # s
+
+        w2v_fwd = run_w2v_training(fa, root, wave_root, dev, name)  # u
+        w2v_step = time_w2v_step(dev, name)  # v
+        log(f"wav2vec2 micro-step {w2v_step['step_ms']:.2f} ms, {w2v_step['utt_s']:.2f} utt/s, "
+            f"peak {w2v_step['peak_gib']:.2f} GiB, MFU {w2v_step['mfu']:.2%} (U2 at bench.py's "
+            f"point: phase 7) [{name}]")
+        check_w2v_parity(dev, name)  # w
     # launches with a chunk width, as the wrappers counted them: K1 in the
     # static run's validation and the static model's offline decode (chunk
     # 16), K1'/K2 in the chunked draws and the static run
@@ -2687,9 +3091,9 @@ def main() -> int:
         "launches": (decode_fwd + train_fwd + ckpt_fwd + recipe_fwd + recipe_lse
                      + avg_fwd + attention_fwd + td_fwd + td_lse + td_ckpt_fwd
                      + td_dec_fwd + sum(dyn[:2]) + sum(sta[:2]) + stream_dec_fwd
-                     + para_fwd + para_lse + para_ckpt_fwd + para_dec_fwd),
+                     + para_fwd + para_lse + para_ckpt_fwd + para_dec_fwd + w2v_fwd),
         "max_abs_err": max(k1["max_abs_err"], k2["fwd_err"], kc["fwd_err"], kc["k1_err"],
-                           kp["max_abs_err"]),
+                           kp["max_abs_err"], kw["max_abs_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
@@ -2705,6 +3109,11 @@ def main() -> int:
         # each) and its launches on the Paraformer paths (p, r)
         **{f"paraformer_{shape}_{key}": v for shape, r in kp.items() if shape != "max_abs_err"
            for key, v in r.items()},
+        # K1 at the wav2vec 2.0 validation shapes (phase t; bf16, one call
+        # each) and its launches in the pretraining run (u)
+        **{f"wav2vec2_{shape}_{key}": v for shape, r in kw.items() if shape != "max_abs_err"
+           for key, v in r.items()},
+        "wav2vec2_launches": w2v_fwd,
         "lse_launches": train_lse + recipe_lse + td_lse + dyn[1] + sta[1] + para_lse,
         "lse_max_abs_err": k2["fwd_err"],
         "lse_ms": k2["fwd_ms"],

@@ -17,7 +17,12 @@ only the leaves differ:
 * BatchNorm ``conv/norm`` ``scale``/``bias`` (params) and ``mean``/``var``
   (batch_stats) <-> ``weight``/``bias``/``running_mean``/``running_var``;
 * Embed ``embedding`` <-> Embedding ``weight``;
-* ``pos_bias_u``/``pos_bias_v`` (H, Dk) and every ``bias`` keep their name.
+* ``pos_bias_u``/``pos_bias_v`` (H, Dk), wav2vec 2.0's ``mask_emb`` (D,)
+  and quantizer codebook ``vars`` (1, G V, D / G), and every ``bias`` keep
+  their name;
+* a grouped 1-D Conv ``kernel`` (K, I / groups, O) <-> Conv1d ``weight``
+  (O, I / groups, K) by the 1-D rule (wav2vec 2.0's ``pos_conv``), and the
+  conv feature extractor's LayerNorms ``ln_<i>`` like any other.
 
 Every leaf maps to exactly one tensor, in both directions, with one
 exception: an LSTM layer's ``cell`` (flax's ``OptimizedLSTMCell``) holds
@@ -27,12 +32,14 @@ tensors ``weight_ih`` (4H, in), ``weight_hh`` (4H, H) and ``bias`` (4H,):
 the gates concatenated in i, f, g, o order, the kernels transposed.
 """
 
+import re
 from typing import Dict
 
 import numpy as np
 import torch
 
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
+_KEEP = ("bias", "pos_bias_u", "pos_bias_v", "mask_emb", "vars")
 _BN_STATS_INV = {v: k for k, v in _BN_STATS.items()}
 
 
@@ -98,7 +105,7 @@ def _leaf_to_torch(path, arr):
         name = "weight"
     elif leaf == "embedding":
         name = "weight"
-    elif leaf in ("bias", "pos_bias_u", "pos_bias_v"):
+    elif leaf in _KEEP:
         name = leaf
     else:
         raise ValueError(f"unknown flax leaf {'/'.join(path)}")
@@ -153,7 +160,7 @@ def state_dict_to_flax(state_dict) -> dict:
                 name = "depthwise_conv_bias"
         elif parent == "norm":  # BatchNorm
             name = {"weight": "scale", "bias": "bias"}[name]
-        elif parent.endswith("norm"):  # LayerNorm
+        elif parent.endswith("norm") or re.fullmatch(r"ln_\d+", parent):  # LayerNorm
             mods = mods + ["ln"]
             name = {"weight": "scale", "bias": "bias"}[name]
         elif name == "weight" and parent == "embed" and arr.ndim == 2:
@@ -164,7 +171,7 @@ def state_dict_to_flax(state_dict) -> dict:
             name, arr = "kernel", arr.transpose(2, 1, 0)
         elif name == "weight" and arr.ndim == 4:
             name, arr = "kernel", arr.transpose(2, 3, 1, 0)
-        elif name not in ("bias", "pos_bias_u", "pos_bias_v"):
+        elif name not in _KEEP:
             raise ValueError(f"unknown torch tensor {key}")
         _set(variables["params"], tuple(mods) + (name,), np.ascontiguousarray(arr))
     if not variables["batch_stats"]:

@@ -1,5 +1,9 @@
 """Task registry (liteasr_tpu/tasks/__init__.py)."""
 
+import os
+
+import torch
+
 from liteasr_tpu_torch import criterions, models, optims
 from liteasr_tpu_torch.registry import Registry, import_modules
 
@@ -27,6 +31,13 @@ class LiteasrTask:
 
     def build_criterion(self, cfg):
         return criterions.build_criterion(cfg, self)
+
+    def save_model(self, model_name: str, state_dict) -> str:
+        """Write ``state_dict`` to ``<save_dir>/<model_name>``; returns the
+        path."""
+        path = os.path.join(self.save_dir, model_name)
+        torch.save(state_dict, path)
+        return path
 
 
 def setup_task(cfg) -> LiteasrTask:

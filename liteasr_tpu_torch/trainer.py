@@ -14,8 +14,9 @@ running statistics move on every micro-step, a skipped one included
 ``save_model`` also writes ``train_state.pt`` (and ``.meta`` with ``iter``
 and ``epoch``) to ``task.save_dir``: the model's state_dict, the
 optimizer's moments, counts and partial accumulation, the micro-step count
-that seeds SpecAugment, and the generators of every dropout, of the
-dynamic chunk widths and of the Paraformer's glance noise.
+that seeds SpecAugment, and the model's own generators: the rel-pos
+attention dropout's, the dynamic chunk widths', the Paraformer's glance
+noise's and wav2vec 2.0's span masks', negatives' and Gumbel noise's.
 ``common.resume`` (``auto`` or a path) restores it, so that a resumed run
 continues as the uninterrupted one would have (liteasr_tpu/trainer.py:
 314-375). ``common.profile_dir`` traces the run with ``torch.profiler``
@@ -40,6 +41,8 @@ from liteasr_tpu_torch.optims.fused_step import build_tx
 from liteasr_tpu_torch.utils.trigger import EventManager
 
 TRAIN_STATE = "train_state.pt"
+# the CPU generators a model may own (``<key>_generator``), saved for resume
+MODEL_GENERATORS = ("dropout", "chunk", "glance", "mask", "negatives", "gumbel")
 
 logger = logging.getLogger(__name__)
 
@@ -111,7 +114,7 @@ class Trainer:
     def train_step(self, batch) -> torch.Tensor:
         """One micro-step on a device batch; returns the detached loss."""
         batch = self.frontend(batch)
-        if self.spec_aug is not None:
+        if self.spec_aug is not None and batch["xs"].dim() == 3:  # not raw waves
             gen = step_generator(self.cfg.common.seed, self.step, self.device)
             batch = dict(batch, xs=spec_augment(batch["xs"], batch["xlens"], gen,
                                                 **self.spec_aug))
@@ -137,9 +140,8 @@ class Trainer:
         return os.path.join(self.task.save_dir, TRAIN_STATE)
 
     def _rng_state(self) -> dict:
-        rng = {"cpu": torch.get_rng_state(),
-               "dropout": self.model.dropout_generator.get_state()}
-        for key in ("chunk", "glance"):
+        rng = {"cpu": torch.get_rng_state()}
+        for key in MODEL_GENERATORS:
             if hasattr(self.model, f"{key}_generator"):
                 rng[key] = getattr(self.model, f"{key}_generator").get_state()
         if self.device.type == "cuda":
@@ -194,8 +196,7 @@ class Trainer:
         self.step = int(state["step"])
         rng = state["rng"]
         torch.set_rng_state(rng["cpu"])
-        self.model.dropout_generator.set_state(rng["dropout"])
-        for key in ("chunk", "glance"):
+        for key in MODEL_GENERATORS:
             if key in rng and hasattr(self.model, f"{key}_generator"):
                 getattr(self.model, f"{key}_generator").set_state(rng[key])
         if "cuda" in rng and self.device.type == "cuda":
@@ -322,28 +323,37 @@ class Trainer:
             throughput)
 
     def valid(self):
-        losses = []
+        """The mean validation loss and the mean of each scalar the criterion
+        returns beside it, as ``valid loss: %.2f | key: %.4f ...`` (keys
+        sorted) and in the ``results_file`` row (liteasr_tpu/trainer.py:
+        501-529)."""
+        losses, extras = [], []
         for idx in range(len(self.valid_set)):
             batch = self.valid_set.collator(self.valid_set[idx])
-            loss, _ = self.eval_step(to_device(batch, self.device))
+            loss, aux = self.eval_step(to_device(batch, self.device))
             losses.append(loss)
+            extras.append({k: v for k, v in aux.items()
+                           if torch.is_tensor(v) and v.dim() == 0})
         reduced = float(torch.stack(losses).float().mean()) if losses \
             else float("nan")
+        means = ({k: float(torch.stack([e[k] for e in extras]).float().mean())
+                  for k in extras[0]} if extras else {})
+        suffix = "".join(f" | {k}: {v:.4f}" for k, v in sorted(means.items()))
         # keep the exact "valid loss:" phrasing: checkpoint averaging parses
         # it from train.log (liteasr/utils/checkpoint.py:55-67)
-        logger.info("%s / %s iters, %s / %s epochs - valid loss: %.2f",
+        logger.info("%s / %s iters, %s / %s epochs - valid loss: %.2f%s",
                     self.iter, self.max_iter, self.epoch, self.max_epoch,
-                    reduced)
+                    reduced, suffix)
         self._results_append({"kind": "valid", "iter": int(self.iter),
-                              "epoch": int(self.epoch), "valid_loss": reduced})
+                              "epoch": int(self.epoch), "valid_loss": reduced,
+                              **{k: round(v, 6) for k, v in means.items()}})
 
     def save_model(self):
         """``model.ep.<epoch>.pt``: the model's state_dict (parameters and
         BatchNorm running statistics), what checkpoint.load_ckpt reads; and
         the training state that ``common.resume`` restores."""
         state = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
-        path = os.path.join(self.task.save_dir, CKPT_TEMPLATE.format(self.epoch))
-        torch.save(state, path)
+        path = self.task.save_model(CKPT_TEMPLATE.format(self.epoch), state)
         self._save_train_state()
         logger.info("saved %s and %s", path, TRAIN_STATE)
 

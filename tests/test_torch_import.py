@@ -1,6 +1,6 @@
-"""liteasr_tpu_torch, training, transducer, streaming, Paraformer and native
-modules included, imports without jax, flax or liteasr_tpu, and its CUDA kernel
-loader raises (no fallback) where there is no CUDA device."""
+"""liteasr_tpu_torch, training, transducer, streaming, Paraformer, wav2vec 2.0
+and native modules included, imports without jax, flax or liteasr_tpu, and its
+CUDA kernel loader raises (no fallback) where there is no CUDA device."""
 
 import os
 import subprocess
@@ -34,12 +34,14 @@ def test_port_imports_without_jax():
                      "utils.trigger", "data.loader", "models.transducer",
                      "nets.rnn_decoder", "ops.rnnt", "criterions.rnnt",
                      "streaming", "native", "nets.paraformer", "models.paraformer",
-                     "criterions.paraformer_loss"):
+                     "criterions.paraformer_loss", "nets.wav2vec2",
+                     "models.wav2vec2", "criterions.wav2vec_loss", "tasks.pretrain",
+                     "ops.masks"):
             assert "liteasr_tpu_torch." + name in names, (name, names)
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 44
+    assert int(proc.stdout.split()[-1]) >= 48
 
 
 def test_kernel_loader_raises_without_cuda():
