@@ -199,13 +199,43 @@ w. parity in fp32 (TF32 off): 2 encoder layers at full width with the
    same weights and draws: the eval -inf count (printed first), loss,
    accuracy and code_ppl; one train step under the train-parity rule.
 
+Data parallelism on the one card (NCCL refuses two ranks on one device, so
+the group has one rank; tests/test_torch_dp*.py hold 2 ranks to 1 on the
+CPU over gloo):
+
+x. my_U2 at full width trained through ``train.main`` with
+   ``distributed.coordinator_address=127.0.0.1:<free port>
+   distributed.num_processes=1 distributed.process_id=0`` on 6's corpus for
+   1 epoch: the backend is NCCL, 12 K1' and 12 K2 launches per micro-batch
+   (as 6), the collectives counted by kind (the flat gradient once per
+   applied step, BatchNorm's forward and backward in each of the 12 layers
+   per micro-batch, the utterance count per criterion call, the valid
+   scalars, the generator states at save), finite losses, the valid line's
+   aux keys; its checkpoint decoded through ``infer.infer`` inside a group
+   (24 K1 launches per batch) and without one: the same error count and
+   decoded pairs; then phase 8's fp32 step (TF32 off, dropout 0, 2 + 1
+   layers at full width) inside the group and twice without it: the loss,
+   every gradient leaf (as the optimizer takes it, after its all-reduce)
+   and the BatchNorm running statistics within 1e-5 of the leaf's max (the
+   leaves whose gradient is 0 in exact arithmetic: of the largest
+   gradient), beside the two ungrouped runs' difference (K2's fp32
+   atomics);
+y. the micro-step at bench.py's point in turns without a group and inside
+   a one-rank group started afresh each turn (5 x 10 micro-steps each way),
+   the medians against each other and 7's, utt/s, peak memory, the
+   collectives per micro-step, the host's time inside them, the NCCL
+   kernels and their device time in a trace of 10 micro-steps (device
+   activity only), and one flat all-reduce of the parameters alone in the
+   one-rank group, a call that moves no bytes (the host's cost of the call,
+   not the all-reduce's cost on 2+ cards, which one card cannot show).
+
 Every failure raises, so the exit code is not 0. The last line is the JSON
 device record; the line before it lists the kernels (for
 rel_attention_fwd, ``ms``/``plain_ms`` are K1 per decoded batch, the
 ``lse_*`` keys K1' per training call, the ``chunk*`` keys the chunked
 calls of k, the ``paraformer_*`` keys o's calls and the ``wav2vec2_*``
-keys t's; ``launches`` sum the main paths 4, 6, b, c, d, g, i, l, m, p, r
-and u).
+keys t's, the ``dp_*`` keys x's and y's; ``launches`` sum the main paths
+4, 6, b, c, d, g, i, l, m, p, r, u and x).
 
     python3 chip_smoke.py --profile-train
 
@@ -213,11 +243,13 @@ runs only a host+device torch.profiler window over the train micro-step
 of 7 and prints the top kernels by device time.
 
     python3 chip_smoke.py --kernels-only
+    python3 chip_smoke.py --dp-only
     python3 chip_smoke.py --baseline DIR
 
-stop after steps 1-3, k, o and t, or after step 1 time every bf16 kernel call of
-the main paths against the checkout in DIR (another commit unpacked with git
-archive), in the order DIR, this tree, this tree, DIR.
+stop after steps 1-3, k, o and t; or after them run only 7, x and y; or
+after step 1 time every bf16 kernel call of the main paths against the
+checkout in DIR (another commit unpacked with git archive), in the order
+DIR, this tree, this tree, DIR.
 """
 
 import gc
@@ -769,6 +801,23 @@ def check_parity(task, dev, name):
         raise RuntimeError("GPU and CPU paths disagree beyond the bound")
 
 
+def u2_overrides(root, run, epochs):
+    """train.main's overrides of phase 6 (and x): my_U2 in bf16, dropout
+    0.1, my_hybrid_ctc, my_noam, clip 5, accum 2, on the corpus under
+    ``root``."""
+    return [
+        "task=asr", "model=my_U2", "criterion=my_hybrid_ctc",
+        "optimizer=my_noam", f"task.vocab={root}/vocab.txt",
+        f"task.train={root}/train", f"task.valid={root}/valid",
+        f"task.test=[{root}/valid]", "task.delimiter=' '",
+        f"task.save_dir={run}/ckpts", f"common.run_dir={run}",
+        f"common.seed={SEED}", "model.dtype=bfloat16",
+        "model.dropout_rate=0.1", f"dataset.batch_size={TRAIN_BATCH}",
+        "dataset.max_len_in=1000", "postprocess.workflow=[]",
+        f"optimization.max_epoch={epochs}",
+        f"optimization.accum_grad={ACCUM}", "optimization.clip_grad_norm=5.0"]
+
+
 def run_training(fa, root, dev, name):
     """train.main at full width; returns the forward (K1 and K1'), K1' and
     K2 launches of the training run and the K1 launches of the decode of
@@ -778,17 +827,7 @@ def run_training(fa, root, dev, name):
     from liteasr_tpu_torch.config.core import load_yaml
 
     run = os.path.join(root, "run")
-    overrides = [
-        "task=asr", "model=my_U2", "criterion=my_hybrid_ctc",
-        "optimizer=my_noam", f"task.vocab={root}/vocab.txt",
-        f"task.train={root}/train", f"task.valid={root}/valid",
-        f"task.test=[{root}/valid]", "task.delimiter=' '",
-        f"task.save_dir={run}/ckpts", f"common.run_dir={run}",
-        f"common.seed={SEED}", "model.dtype=bfloat16",
-        "model.dropout_rate=0.1", f"dataset.batch_size={TRAIN_BATCH}",
-        "dataset.max_len_in=1000", "postprocess.workflow=[]",
-        f"optimization.max_epoch={TRAIN_EPOCHS}",
-        f"optimization.accum_grad={ACCUM}", "optimization.clip_grad_norm=5.0"]
+    overrides = u2_overrides(root, run, TRAIN_EPOCHS)
     reset_counts(fa)
     t0 = time.perf_counter()
     trainer = train.main(overrides, device=dev)
@@ -858,7 +897,8 @@ def bench_batch(dev):
 
 def bench_step(dev, remat=False, **streaming):
     """The full-width bf16 train micro-step (dropout 0.1, hybrid loss, Noam
-    Adam, clip 5, accum 2) on bench_batch; returns (step, B)."""
+    Adam, clip 5, accum 2) on bench_batch; returns (step, B). Inside a
+    process group the optimizer all-reduces its flat gradient (phase y)."""
     from liteasr_tpu_torch.config.core import DotDict
     from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
     from liteasr_tpu_torch.optims.fused_step import FusedAdam
@@ -881,6 +921,7 @@ def bench_step(dev, remat=False, **streaming):
             p.grad = None
         return loss
 
+    step.params = params
     return step, B
 
 
@@ -946,6 +987,7 @@ def time_train_step(dev, name):
         f"{wall_us / 1e7 / med:.3f}; derived estimate, traced device time over "
         f"the untraced median: {busy / 1e7 / med:.1%}; {ops / 10:.0f} device "
         f"ops/micro-step [{name}]")
+    return med * 1e3
 
 
 def profile_train_step(dev, name, steps: int = 4):
@@ -2907,6 +2949,282 @@ def check_w2v_parity(dev, name):
         f"[{name}]")
 
 
+# ------------------------------------- data parallelism on one card (x-y)
+
+
+def free_address() -> str:
+    """127.0.0.1 and a port the OS hands out (bound to 0, then released)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{sock.getsockname()[1]}"
+
+
+def dp_group(dev):
+    """A process group of one rank on the card over NCCL (there is one
+    H100: NCCL refuses two ranks on one device); returns ``parallel``."""
+    from liteasr_tpu_torch import parallel
+    from liteasr_tpu_torch.config.core import DotDict
+
+    parallel.distributed_init(DotDict(coordinator_address=free_address(),
+                                      num_processes=1, process_id=0), dev)
+    if torch.distributed.get_backend() != "nccl":
+        raise RuntimeError(f"backend {torch.distributed.get_backend()}, not nccl")
+    return parallel
+
+
+def run_dp_training(fa, root, dev, name, per_micro):
+    """Phase x: my_U2 through train.main inside a one-rank NCCL group
+    (``distributed.coordinator_address/num_processes/process_id``) on phase
+    6's corpus for 1 epoch; K1'/K2 launches per micro-batch equal to phase
+    6's (``per_micro``), the collectives counted by kind, finite losses,
+    the valid line's aux keys; then ``infer.infer`` of the checkpoint inside
+    a group (24 K1 launches per batch) and without one: the same error
+    count and decoded pairs. Returns x's (K1, K1', K2) launches: the
+    training run's and the grouped decode's."""
+    from liteasr_tpu_torch import infer, parallel, train
+    from liteasr_tpu_torch.config import compose
+    from liteasr_tpu_torch.config.core import load_yaml
+
+    run = os.path.join(root, "dp_run")
+    overrides = u2_overrides(root, run, 1) + [
+        f"distributed.coordinator_address={free_address()}",
+        "distributed.num_processes=1", "distributed.process_id=0"]
+    reset_counts(fa)
+    parallel.counts.clear()
+    t0 = time.perf_counter()
+    trainer = train.main(overrides, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fwd, lse, bwd = counts(fa)
+    coll = dict(parallel.counts)
+    micro, n_valid = len(trainer.task.dataset("train")), len(trainer.valid_set)
+    steps = int(trainer.tx.count) + int(trainer.tx.notfinite_count)
+    if trainer.backend != "nccl" or trainer.world != 1 or parallel.is_initialized():
+        raise RuntimeError(f"backend {trainer.backend}, world {trainer.world}; the "
+                           "group must end with the run")
+    if ((lse / micro, bwd / micro) != per_micro
+            or fwd - lse != (ENC_LAYERS + 2 * DEC_LAYERS) * n_valid):
+        raise RuntimeError(f"launches K1' {lse}, K2 {bwd}, K1 {fwd - lse} for {micro} "
+                           f"micro-batches (phase 6: {per_micro} per micro-batch) and "
+                           f"{n_valid} valid batches")
+    want = {"grad": steps, "batch_norm": 2 * ENC_LAYERS * micro,
+            "count": micro + n_valid, "metrics": 1, "gather": 1}
+    if coll != want:
+        raise RuntimeError(f"collectives {coll}, expected {want}")
+    losses = torch.stack(trainer._loss_accum).float().cpu()
+    if len(losses) != micro or not bool(torch.isfinite(losses).all()):
+        raise RuntimeError(f"training losses {losses.tolist()}")
+    with open(os.path.join(run, "train.log")) as f:
+        valid = [ln for ln in f if "valid loss:" in ln]
+    if len(valid) != 1 or not all(f"| {k}:" in valid[0]
+                                  for k in ("ctc_infeasible", "loss_attn", "loss_ctc")):
+        raise RuntimeError(f"valid lines {valid}")
+    log(f"dp train (one-rank NCCL group): {micro} micro-batches, {steps} optimizer steps "
+        f"in {secs:.2f} s incl. the group's start, validation and checkpoint; losses "
+        f"{[round(x, 3) for x in losses.tolist()]}; K1' {lse}, K2 {bwd}, K1 {fwd - lse} "
+        f"launches ({lse // micro} + {bwd // micro} per micro-batch, as phase 6); "
+        f"collectives {coll} (BatchNorm: forward and backward of {ENC_LAYERS} layers "
+        f"per micro-batch); {valid[0].split(' - ')[-1].strip()} [{name}]")
+
+    results, pairs, dec = [], [], 0
+    for grouped in (True, False):
+        dump = os.path.join(run, f"decode_{grouped}.tsv")
+        cfg = compose(["inference.ckpt_name=1", "inference.model_avg=false",
+                       f"inference.batch_size={N_VALID}", f"inference.beam_size={BEAM}",
+                       f"inference.dump={dump}"],
+                      base=load_yaml(os.path.join(run, "config.yaml")))
+        if grouped:
+            dp_group(dev)
+        try:
+            reset_counts(fa)
+            parallel.counts.clear()
+            results.append(infer.infer(cfg, device=dev))
+            torch.cuda.synchronize()
+            gathered = parallel.counts["gather"]
+        finally:
+            parallel.destroy()
+        if grouped:
+            dec = counts(fa)[0]
+            if dec != ENC_LAYERS + 2 * DEC_LAYERS or gathered != 0:
+                raise RuntimeError(f"grouped decode: K1 {dec}, gathers {gathered}")
+        with open(dump) as f:
+            pairs.append(f.read())
+    if results[0] != results[1] or pairs[0] != pairs[1]:
+        raise RuntimeError(f"the checkpoint decodes differently in the group: {results}")
+    log(f"dp decode of model.ep.1.pt inside the group: error count {results[0][0][0]}/"
+        f"{results[0][0][1]}, K1 launches {dec}; the same {len(pairs[0].splitlines())} "
+        f"decoded pairs as without a group [{name}]")
+    return fwd + dec, lse, bwd
+
+
+def dp_step(dev):
+    """Phase 8's fp32 step (2 + 1 layers at full width, dropout 0): the
+    loss, the flat gradient the optimizer takes (after its all-reduce, when
+    a group is up) by leaf, and the BatchNorm running statistics."""
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
+    from liteasr_tpu_torch.optims.fused_step import FusedAdam, constant_schedule
+    from liteasr_tpu_torch.trainer import to_device
+
+    rng = np.random.default_rng(SEED + 2)
+    B, T, U = 4, 400, 24
+    batch = {"xs": rng.normal(size=(B, T, FEAT)).astype(np.float32),
+             "xlens": np.array([T, 350, 280, 200], np.int32),
+             "ys": rng.integers(1, VOCAB - 1, size=(B, U)).astype(np.int32),
+             "ylens": np.array([U, 20, 16, 10], np.int32),
+             "valid": np.ones(B, np.float32)}
+    crit = HybridCTCLoss(DotDict(vocab_size=VOCAB, padding_idx=-1,
+                                 smoothing=0.1, ctc_weight=0.3))
+    model = build_model(torch.float32, dev, enc_layers=2, dec_layers=1)
+    named = list(model.named_parameters())
+    tx = FusedAdam([p for _, p in named], constant_schedule(0.0), 0.9, 0.999, 1e-8)
+    flat = []
+    tx._step = flat.append  # the gradient the update takes
+    loss, _ = crit(model, to_device(batch, dev), train=True)
+    loss.backward()
+    tx.update([p.grad for _, p in named])
+    grads = flat[0].split([p.numel() for _, p in named])
+    return (loss.item(), {n: g.cpu() for (n, _), g in zip(named, grads)},
+            {n: b.cpu() for n, b in model.named_buffers()})
+
+
+def leaf_diffs(ref, got):
+    """{leaf: max abs diff over the leaf's max} of dp_step's gradients and
+    BatchNorm statistics; the leaves whose gradient is 0 in exact
+    arithmetic over the step's largest gradient, as in phase 8."""
+    top = max(g.abs().max().item() for g in ref[1].values())
+    out = {}
+    for what, r, g in (("grad", ref[1], got[1]), ("stat", ref[2], got[2])):
+        for n, c in r.items():
+            zero = what == "grad" and n.endswith((".conv.depthwise_conv.bias",
+                                                  ".linear_k.bias"))
+            scale = top if zero else c.abs().max().item()
+            out[f"{what} {n}"] = (g[n] - c).abs().max().item() / max(scale, 1e-30)
+    return out
+
+
+def check_dp_parity(dev, name):
+    """Phase x, fp32 (TF32 off): the step inside a one-rank NCCL group
+    against the same step without a group: the loss, every gradient leaf
+    (the flat gradient after the optimizer's all-reduce) and the BatchNorm
+    running statistics within 1e-5 of the leaf's own max. K2 sums dQ and dP
+    by fp32 atomics in whatever order its blocks finish, so no two runs of
+    a step on the card agree to the bit: two ungrouped runs show that floor
+    (printed). The leaves whose gradient is 0 in exact arithmetic are held
+    to the largest gradient, as in phase 8."""
+    ref, again = dp_step(dev), dp_step(dev)
+    parallel = dp_group(dev)
+    try:
+        parallel.counts.clear()
+        got = dp_step(dev)
+        coll = dict(parallel.counts)
+    finally:
+        parallel.destroy()
+    if coll != {"grad": 1, "count": 1, "batch_norm": 4}:
+        raise RuntimeError(f"collectives of the grouped step: {coll}")
+    floor = leaf_diffs(ref, again)
+    worst = sorted((e, n) for n, e in leaf_diffs(ref, got).items())
+    bound = 1e-5
+    loss_err = abs(got[0] - ref[0]) / abs(ref[0])
+    log(f"dp step parity fp32 (2+1 layers at full width): loss {got[0]:.6f} vs "
+        f"{ref[0]:.6f} (rel {loss_err:.3g}); collectives {coll}; worst of "
+        f"{len(worst)} leaves (gradients and BatchNorm statistics) over their max: "
+        f"{', '.join(f'{n} {e:.3g}' for e, n in worst[:-4:-1])}; two ungrouped runs "
+        f"differ by up to {max(floor.values()):.3g} ({max(floor, key=floor.get)}); "
+        f"bound {bound:.3g} [{name}]")
+    if loss_err > 1e-5 or worst[-1][0] > bound:
+        raise RuntimeError("the grouped step disagrees with the ungrouped one")
+
+
+def time_dp_step(dev, name, plain_ms):
+    """Phase y: the micro-step at bench.py's point (the optimizer's
+    flat-gradient all-reduce hooked in) timed in turns without a group and
+    inside a one-rank NCCL group, started afresh for each turn: 5 turns of
+    10 micro-steps each way, after 2 warm-up steps, the medians against
+    each other and against phase 7's ``plain_ms``; utt/s, peak memory; the
+    collectives per micro-step by kind, the host's time inside them, and
+    their NCCL kernels and device time in a trace of 10 micro-steps (device
+    activity only); one flat all-reduce of the parameters alone, which in
+    a one-rank group moves no bytes and launches no kernel: its time is the
+    call's, not the cost of an all-reduce across cards."""
+    from liteasr_tpu_torch import parallel
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    dist = torch.distributed
+    step, B = bench_step(dev)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(5):
+        step()
+    times = {False: [], True: []}
+    for _ in range(5):
+        for grouped in (False, True):
+            if grouped:
+                dp_group(dev)
+            try:
+                for _ in range(2):
+                    step()
+                torch.cuda.synchronize()
+                parallel.counts.clear()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    loss = step()
+                torch.cuda.synchronize()
+                times[grouped].append((time.perf_counter() - t0) / 10)
+                per_step = {k: v / 10 for k, v in sorted(parallel.counts.items())}
+            finally:
+                parallel.destroy()
+    if not bool(torch.isfinite(loss)):
+        raise RuntimeError("non-finite loss in the timed steps")
+    med = {g: statistics.median(t) for g, t in times.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    dp_group(dev)
+    try:
+        all_reduce, host = dist.all_reduce, [0.0, 0]
+
+        def timed(*args, **kw):  # the host's time inside each collective call
+            t = time.perf_counter()
+            out = all_reduce(*args, **kw)
+            host[0] += time.perf_counter() - t
+            host[1] += 1
+            return out
+
+        dist.all_reduce = timed
+        try:
+            for _ in range(10):
+                step()
+            torch.cuda.synchronize()
+        finally:
+            dist.all_reduce = all_reduce
+        prof, wall_us, busy, ops = traced_steps(step, 10, [ProfilerActivity.CUDA])
+        nccl = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and "nccl" in e.name.lower()]
+        nccl_us = sum(e.time_range.end - e.time_range.start for e in nccl)
+        n_params = sum(p.numel() for p in step.params)
+        flat = torch.zeros(n_params, device=dev)
+        noop_ms = cuda_time_ms(lambda: dist.all_reduce(flat), reps=10, inner=10)
+    finally:
+        parallel.destroy()
+    log(f"dp micro-step at bench.py's point (B={B}, T=800, U=48, bf16, accum {ACCUM}), "
+        f"5 turns of 10 each way: in a one-rank NCCL group median {med[True] * 1e3:.2f} ms "
+        f"(best {min(times[True]) * 1e3:.2f}), without a group {med[False] * 1e3:.2f} ms "
+        f"(best {min(times[False]) * 1e3:.2f}): {med[True] / med[False]:.3f}x; phase 7 "
+        f"{plain_ms:.2f} ms; {B / med[True]:.2f} utt/s in the group; peak mem {peak:.2f} "
+        f"GiB; collectives per micro-step {per_step}; host time inside them "
+        f"{host[0] * 1e3 / 10:.3f} ms/micro-step ({host[1] / 10:.1f} calls); device: "
+        f"{len(nccl) / 10:.1f} NCCL kernels, {nccl_us / 1e4:.4f} ms per micro-step of "
+        f"{busy / 1e4:.2f} ms busy ({ops / 10:.0f} device ops); one flat all-reduce of "
+        f"{n_params} fp32 ({4 * n_params / 2**20:.1f} MiB) alone in the one-rank group, "
+        f"which moves no bytes, {noop_ms:.4f} ms (the call only; across cards: not "
+        f"measured) [{name}]")
+    return dict(step_ms=med[True] * 1e3, nogroup_ms=med[False] * 1e3,
+                nccl_kernels=len(nccl) / 10, nccl_ms=nccl_us / 1e4, noop_ms=noop_ms,
+                host_ms=host[0] * 1e3 / 10)
+
+
 def load_baseline(root):
     """The flash_attention module of another checkout (the parent commit,
     unpacked with git archive), loaded on its own: it builds that
@@ -3018,6 +3336,14 @@ def main() -> int:
     kw = check_w2v_kernels(fa, dev, name)  # t
     if "--kernels-only" in sys.argv[1:]:
         return 0
+    if "--dp-only" in sys.argv[1:]:  # phase 7's step, then x and y
+        with tempfile.TemporaryDirectory() as root:
+            write_corpus(root)
+            plain_step_ms = time_train_step(dev, name)
+            run_dp_training(fa, root, dev, name, (ENC_LAYERS, ENC_LAYERS))
+            check_dp_parity(dev, name)
+            time_dp_step(dev, name, plain_step_ms)
+        return 0
 
     with tempfile.TemporaryDirectory() as root:
         write_corpus(root)
@@ -3030,7 +3356,7 @@ def main() -> int:
         check_parity(task, dev, name)
         train_fwd, train_lse, train_bwd, ckpt_fwd = run_training(
             fa, root, dev, name)
-        time_train_step(dev, name)
+        plain_step_ms = time_train_step(dev, name)
         check_train_parity(dev, name)
 
         wave_root = write_wave_corpus(root)
@@ -3075,6 +3401,12 @@ def main() -> int:
             f"peak {w2v_step['peak_gib']:.2f} GiB, MFU {w2v_step['mfu']:.2%} (U2 at bench.py's "
             f"point: phase 7) [{name}]")
         check_w2v_parity(dev, name)  # w
+
+        # phase 6 held K1'/K2 to ENC_LAYERS launches each per micro-batch
+        dp_fwd, dp_lse, dp_bwd = run_dp_training(
+            fa, root, dev, name, (ENC_LAYERS, ENC_LAYERS))  # x
+        check_dp_parity(dev, name)  # x
+        dp_step = time_dp_step(dev, name, plain_step_ms)  # y
     # launches with a chunk width, as the wrappers counted them: K1 in the
     # static run's validation and the static model's offline decode (chunk
     # 16), K1'/K2 in the chunked draws and the static run
@@ -3091,7 +3423,8 @@ def main() -> int:
         "launches": (decode_fwd + train_fwd + ckpt_fwd + recipe_fwd + recipe_lse
                      + avg_fwd + attention_fwd + td_fwd + td_lse + td_ckpt_fwd
                      + td_dec_fwd + sum(dyn[:2]) + sum(sta[:2]) + stream_dec_fwd
-                     + para_fwd + para_lse + para_ckpt_fwd + para_dec_fwd + w2v_fwd),
+                     + para_fwd + para_lse + para_ckpt_fwd + para_dec_fwd + w2v_fwd
+                     + dp_fwd),
         "max_abs_err": max(k1["max_abs_err"], k2["fwd_err"], kc["fwd_err"], kc["k1_err"],
                            kp["max_abs_err"], kw["max_abs_err"]),
         "ms": k1["ms"],
@@ -3114,7 +3447,19 @@ def main() -> int:
         **{f"wav2vec2_{shape}_{key}": v for shape, r in kw.items() if shape != "max_abs_err"
            for key, v in r.items()},
         "wav2vec2_launches": w2v_fwd,
-        "lse_launches": train_lse + recipe_lse + td_lse + dyn[1] + sta[1] + para_lse,
+        "lse_launches": (train_lse + recipe_lse + td_lse + dyn[1] + sta[1] + para_lse
+                         + dp_lse),
+        # phase x: K1 (valid and the decode in the group) and K1' in the
+        # one-rank NCCL group; phase y's micro-step in that group
+        "dp_launches": dp_fwd,
+        "dp_lse_launches": dp_lse,
+        "dp_step_ms": dp_step["step_ms"],
+        "dp_nogroup_step_ms": dp_step["nogroup_ms"],
+        "dp_collectives_host_ms_per_step": dp_step["host_ms"],
+        "dp_nccl_kernels_per_step": dp_step["nccl_kernels"],
+        "dp_nccl_ms_per_step": dp_step["nccl_ms"],
+        # one rank: the call moves no bytes; not the all-reduce's cost on 2+ cards
+        "dp_flat_all_reduce_noop_ms": dp_step["noop_ms"],
         "lse_max_abs_err": k2["fwd_err"],
         "lse_ms": k2["fwd_ms"],
         "lse_plain_ms": k2["fwd_plain_ms"],
@@ -3138,7 +3483,8 @@ def main() -> int:
         "route": "cuda",
         "source": "liteasr_tpu_torch/csrc/rel_attention_bwd.cu",
         "replaces": "liteasr_tpu/ops/flash_attention.py:566",
-        "launches": train_bwd + recipe_bwd + td_bwd + dyn[2] + sta[2] + para_bwd,
+        "launches": train_bwd + recipe_bwd + td_bwd + dyn[2] + sta[2] + para_bwd + dp_bwd,
+        "dp_launches": dp_bwd,
         "max_abs_err": max(k2["bwd_err"], kc["bwd_err"]),
         "ms": k2["bwd_ms"],
         "plain_ms": k2["bwd_plain_ms"],

@@ -2,6 +2,13 @@
 
 A criterion calls the model itself and returns ``(scalar loss, aux)``;
 ``aux`` holds detached scalars for logging.
+
+Under a process group each rank holds a row block of the global batch. The
+loss and every aux scalar are then this rank's share: their sums over the
+ranks are the values on the global batch (the denominators are all-reduced
+counts, ``parallel.global_sum``), so that the optimizer's gradient
+all-reduce sums the ranks' shares into the global batch's gradient. Without
+a group the share is the whole.
 """
 
 from liteasr_tpu_torch.registry import Registry, import_modules

@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from liteasr_tpu_torch import parallel
 from liteasr_tpu_torch.config import MISSING, LiteasrDataclass
 from liteasr_tpu_torch.criterions import LiteasrLoss, register_criterion
 from liteasr_tpu_torch.ops.ctc import ctc_loss_logits
@@ -76,7 +77,7 @@ class HybridCTCLoss(LiteasrLoss):
         valid = batch.get("valid")  # (B,) 1.0 for real utts, 0.0 for pad rows
         if valid is None:
             valid = torch.ones(xs.shape[0], device=xs.device)
-        nutt = torch.clamp(valid.sum(), min=1.0)
+        nutt = torch.clamp(parallel.global_sum(valid.sum()), min=1.0)  # global batch
 
         h_attn, h_ctc = model(xs, xlens, ys, ylens, train=train)
 

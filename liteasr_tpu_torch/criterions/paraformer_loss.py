@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from liteasr_tpu_torch import parallel
 from liteasr_tpu_torch.config import MISSING, LiteasrDataclass
 from liteasr_tpu_torch.criterions import LiteasrLoss, register_criterion
 
@@ -54,11 +55,12 @@ class ParaformerLoss(LiteasrLoss):
         h = hs_attn.reshape(-1, self.vocab_size)
         lse = torch.logsumexp(h.float(), dim=-1)
         h_tgt = h.gather(1, torch.where(ignore, 0, tgt).long()[:, None])[:, 0].float()
-        n_tok = torch.clamp((~ignore).sum(), min=1)
-        loss_ce = torch.where(ignore, 0.0, lse - h_tgt).sum() / n_tok
+        # the global batch's token and utterance counts, in one all-reduce
+        n_tok, nutt = parallel.global_sum((~ignore).sum(), valid.sum())
+        loss_ce = torch.where(ignore, 0.0, lse - h_tgt).sum() / torch.clamp(n_tok, min=1)
 
         mae = (sum_alpha - ylens.float()).abs()
-        loss_mae = (mae * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+        loss_mae = (mae * valid).sum() / torch.clamp(nutt, min=1.0)
 
         loss = self.gamma * loss_ce + loss_mae
         return loss, {"loss_ce": loss_ce.detach(), "loss_mae": loss_mae.detach()}

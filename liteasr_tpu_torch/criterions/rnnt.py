@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from liteasr_tpu_torch import parallel
 from liteasr_tpu_torch.config import LiteasrDataclass
 from liteasr_tpu_torch.criterions import LiteasrLoss, register_criterion
 from liteasr_tpu_torch.ops.rnnt import rnnt_loss
@@ -34,7 +35,7 @@ class RNNTLoss(LiteasrLoss):
         valid = batch.get("valid")
         if valid is None:
             valid = torch.ones(xs.shape[0], device=xs.device)
-        nutt = torch.clamp(valid.sum(), min=1.0)
+        nutt = torch.clamp(parallel.global_sum(valid.sum()), min=1.0)  # global batch
 
         logits = model(xs, xlens, ys, ylens, train=train)
         per_utt = rnnt_loss(logits, model.get_target(ys, ylens),

@@ -6,6 +6,13 @@ valid frames and the real utterances (``valid``), plus, with
 groups' perplexities) / GV``. The Gumbel temperature anneals from
 ``batch["step"]`` (the micro-steps taken): ``max(start * decay^step,
 end)`` in fp32.
+
+Under a process group of W ranks the code usage is the global batch's (the
+quantizer all-reduces it), so every rank computes the same perplexities;
+each adds 1/W of the diversity term and reports 1/W of ``code_ppl``, so that
+the sums over the ranks count them once. The all-reduce's backward sums the
+ranks' 1/W gradients of the one global term, which gives every rank's
+inputs the gradient of the whole term.
 """
 
 from dataclasses import dataclass, field
@@ -13,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from liteasr_tpu_torch import parallel
 from liteasr_tpu_torch.config import LiteasrDataclass
 from liteasr_tpu_torch.criterions import LiteasrLoss, register_criterion
 from liteasr_tpu_torch.nets.wav2vec2 import wide_float
@@ -56,15 +64,19 @@ class Wav2Vec2Loss(LiteasrLoss):
         wide = wide_float(logits.dtype)
         nll = -torch.log_softmax(logits.to(wide), dim=0)[0]  # (B, F)
         weight = mask.to(wide) * valid[:, None].to(wide)
-        denom = torch.clamp(weight.sum(), min=1.0)
+        denom = torch.clamp(parallel.global_sum(weight.sum()), min=1.0)  # global batch
         loss = (nll * weight).sum() / denom
 
         code_probs = code_probs.to(wide)
         ppl = torch.exp(-torch.sum(code_probs * torch.log(code_probs + 1e-9), dim=-1))
         n_codes = code_probs.shape[0] * code_probs.shape[1]
+        world = parallel.process_count()
         if self.diversity_weight:
-            loss = loss + self.diversity_weight * (n_codes - ppl.sum()) / n_codes
+            diversity = self.diversity_weight * (n_codes - ppl.sum()) / n_codes
+            loss = loss + (diversity if world == 1 else diversity / world)
 
         correct = (torch.argmax(logits, dim=0) == 0).to(wide)
         acc = (correct * weight).sum() / denom
-        return loss, {"accuracy": acc.detach(), "code_ppl": ppl.sum().detach()}
+        code_ppl = ppl.sum().detach()
+        return loss, {"accuracy": acc.detach(),
+                      "code_ppl": code_ppl if world == 1 else code_ppl / world}

@@ -24,10 +24,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from liteasr_tpu_torch import decode, tasks
+from liteasr_tpu_torch import decode, parallel, tasks
 from liteasr_tpu_torch.checkpoint import load_ckpt
 from liteasr_tpu_torch.config import compose
 from liteasr_tpu_torch.config.core import load_yaml
+from liteasr_tpu_torch.data.dataset import dummy_min_xlen
 from liteasr_tpu_torch.ops.fbank import log_mel_fbank
 from liteasr_tpu_torch.streaming import streaming_decode
 from liteasr_tpu_torch.utils.misc import round_up
@@ -60,6 +61,12 @@ def infer_dataset(task, model, dataset, infer_cfg, device: torch.device,
 
     ``model`` must already live on ``device``. ``collect``: optional list
     that receives ``(ref, hyp)`` text pairs in decode order (length-sorted).
+
+    Under a process group of W ranks (liteasr_tpu/infer.py:41-84) each
+    batch's rows are padded to a multiple of W with dummy rows (zeros of
+    ``dummy_min_xlen`` frames), each rank decodes its block of rows, and the
+    hypotheses are gathered to every rank, so that every rank returns the
+    same error count and ``collect``. Every rank must call it.
     """
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
@@ -74,17 +81,21 @@ def infer_dataset(task, model, dataset, infer_cfg, device: torch.device,
     expansions = int(infer_cfg.get("expansions_per_frame", 5))
     mode = str(infer_cfg.get("mode", "attention_rescore"))
 
+    world, rank = parallel.process_count(), parallel.process_index()
     data = sorted(dataset.data, key=lambda a: a.xlen, reverse=True)
     total_err, total_len = 0, 0
     for lo in range(0, len(data), batch_size):
         chunk = data[lo:lo + batch_size]
+        rows = round_up(len(chunk), world)
         T = round_up(max(a.xlen for a in chunk), pad_time_multiple)
-        xs = np.zeros((len(chunk), T) if fbank else (len(chunk), T, dataset.feat_dim),
-                      np.float32)
-        xlens = np.array([a.xlen for a in chunk], np.int64)
+        xs = np.zeros((rows, T) if fbank else (rows, T, dataset.feat_dim), np.float32)
+        xlens = np.full(rows, min(dummy_min_xlen(fbank), T), np.int64)
         for i, a in enumerate(chunk):
             xs[i, : a.xlen] = a.x
-        xs, xlens = torch.from_numpy(xs).to(device), torch.from_numpy(xlens).to(device)
+            xlens[i] = a.xlen
+        mine = slice(rank * rows // world, (rank + 1) * rows // world)
+        xs = torch.from_numpy(xs[mine]).to(device)
+        xlens = torch.from_numpy(xlens[mine]).to(device)
         if fbank:  # raw waves (samples) -> log-mel features on the device
             xs, xlens = log_mel_fbank(xs, xlens, num_mel_bins=dataset.num_mel_bins)
         if hasattr(model, "joint"):  # the transducer family
@@ -104,6 +115,9 @@ def infer_dataset(task, model, dataset, infer_cfg, device: torch.device,
         else:
             hyps = decode.decode_batch(model, xs, xlens.long(), beam_size=beam_size,
                                        ctc_weight=ctc_weight, mode=mode)
+        if world > 1:  # every rank's block, in row order
+            hyps = [h for block in parallel.all_gather_object(
+                [[int(t) for t in h] for h in hyps]) for h in block]
         for a, hyp_ids in zip(chunk, hyps):
             hyp = task.ids_to_text(hyp_ids)
             ref = task.normalize_ref(a.text)

@@ -25,6 +25,8 @@ from torch import nn
 from liteasr_tpu_torch.config import II, MISSING, LiteasrDataclass
 from liteasr_tpu_torch.models import LiteasrModel, register_model
 from liteasr_tpu_torch.models.u2 import _DTYPES
+from liteasr_tpu_torch import parallel
+from liteasr_tpu_torch.parallel import rank_seed
 from liteasr_tpu_torch.nets.attention import RelativeMultiHeadAttention
 from liteasr_tpu_torch.nets.common import Dense, lecun_normal_, positional_encoding
 from liteasr_tpu_torch.nets.encoder import TransformerEncoder
@@ -165,20 +167,26 @@ class Paraformer(LiteasrModel):
             elif isinstance(module, RelativeMultiHeadAttention):
                 module.reset_pos_bias(generator)
 
-    def seed_dropout(self, seed: int):
+    def seed_dropout(self, seed: int, rank: int = 0):
         """Seed the model's own generators: the attention kernels' dropout
-        seeds and, from a salted seed, the glance noise (the other dropouts
-        follow ``torch.manual_seed``)."""
+        seeds (the same on every ``rank``: each moves to the rank's rows
+        where it is used) and, from a salted seed, the glance noise, a
+        stream of the rank's own rows (the other dropouts follow
+        ``torch.manual_seed``)."""
         self.dropout_generator.manual_seed(seed)
-        self.glance_generator.manual_seed(seed ^ GLANCE_SEED_SALT)
+        self.glance_generator.manual_seed(rank_seed(seed ^ GLANCE_SEED_SALT, rank))
 
     def draw_glance_noise(self, batch: int, length: int, train: bool, device):
         """(B, U) uniform [0, 1) noise of the glancing sampler: from
         ``glance_generator`` in train mode, from a fresh generator seeded
-        with EVAL_GLANCE_SEED in eval mode (the same draws every call)."""
-        gen = (self.glance_generator if train
-               else torch.Generator().manual_seed(EVAL_GLANCE_SEED))
-        return torch.rand((batch, length), generator=gen).to(device)
+        with EVAL_GLANCE_SEED in eval mode (the same draws every call; under
+        a process group, the rank's rows of the global batch's draw)."""
+        if train:
+            return torch.rand((batch, length), generator=self.glance_generator).to(device)
+        world, rank = parallel.process_count(), parallel.process_index()
+        noise = torch.rand((batch * world, length),
+                           generator=torch.Generator().manual_seed(EVAL_GLANCE_SEED))
+        return noise[rank * batch:(rank + 1) * batch].to(device)
 
     def _glance_ratio(self, train: bool, step=None):
         """The glancing ratio (liteasr_tpu/models/paraformer.py:156-169): 0 at

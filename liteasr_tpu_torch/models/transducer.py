@@ -116,9 +116,10 @@ class Transducer(LiteasrModel):
                 module.reset_pos_bias(generator)
         self.decoder.reset_parameters(generator)
 
-    def seed_dropout(self, seed: int):
-        """Seed the attention kernels' dropout seeds (the other dropouts
-        follow ``torch.manual_seed``)."""
+    def seed_dropout(self, seed: int, rank: int = 0):
+        """Seed the attention kernels' dropout seeds, the same on every
+        ``rank`` (each moves to the rank's rows where it is used; the other
+        dropouts follow ``torch.manual_seed``)."""
         self.dropout_generator.manual_seed(seed)
 
     def joint(self, h_enc, h_dec):

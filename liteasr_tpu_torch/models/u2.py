@@ -162,10 +162,12 @@ class U2(LiteasrModel):
             elif isinstance(module, RelativeMultiHeadAttention):
                 module.reset_pos_bias(generator)
 
-    def seed_dropout(self, seed: int):
+    def seed_dropout(self, seed: int, rank: int = 0):
         """Seed the model's own generators: the attention kernels' dropout
         seeds and, from a salted seed, the dynamic chunk widths (the other
-        dropouts follow ``torch.manual_seed``)."""
+        dropouts follow ``torch.manual_seed``). Both are the same on every
+        ``rank``: a kernel seed moves to the rank's rows where it is used,
+        and the width is one draw for the global batch, as in JAX."""
         self.dropout_generator.manual_seed(seed)
         self.chunk_generator.manual_seed(seed ^ CHUNK_SEED_SALT)
 

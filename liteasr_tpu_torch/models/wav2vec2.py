@@ -26,6 +26,8 @@ from torch import nn
 from liteasr_tpu_torch.config import LiteasrDataclass
 from liteasr_tpu_torch.models import LiteasrModel, register_model
 from liteasr_tpu_torch.models.u2 import _DTYPES
+from liteasr_tpu_torch import parallel
+from liteasr_tpu_torch.parallel import rank_seed
 from liteasr_tpu_torch.nets.common import Dense, LayerNorm, dropout, lecun_normal_
 from liteasr_tpu_torch.nets.wav2vec2 import (
     ConvFeatureExtractor, GumbelVectorQuantizer, Wav2Vec2TransformerEncoder,
@@ -260,31 +262,44 @@ class Wav2Vec2(LiteasrModel):
         self.quantizer.vars.uniform_(0.0, 1.0, generator=generator)
         self.mask_emb.uniform_(0.0, 1.0, generator=generator)
 
-    def seed_dropout(self, seed: int):
+    def seed_dropout(self, seed: int, rank: int = 0):
         """Seed the model's generators, each from a salted seed: the span
-        mask, the negatives and the Gumbel noise (the dropouts follow
-        ``torch.manual_seed``)."""
-        self.mask_generator.manual_seed(seed ^ MASK_SEED_SALT)
-        self.negatives_generator.manual_seed(seed ^ NEGATIVES_SEED_SALT)
-        self.gumbel_generator.manual_seed(seed ^ GUMBEL_SEED_SALT)
+        mask, the negatives and the Gumbel noise, streams of ``rank``'s own
+        rows (the dropouts follow ``torch.manual_seed``)."""
+        self.mask_generator.manual_seed(rank_seed(seed ^ MASK_SEED_SALT, rank))
+        self.negatives_generator.manual_seed(rank_seed(seed ^ NEGATIVES_SEED_SALT, rank))
+        self.gumbel_generator.manual_seed(rank_seed(seed ^ GUMBEL_SEED_SALT, rank))
 
     # ---- the random draws
 
     def draw_mask(self, batch: int, frame: int, flens: torch.Tensor, train: bool):
         """(B, F) span mask on ``flens``'s device: from ``mask_generator``
-        in training, from the fixed eval stream otherwise."""
-        gen = (self.mask_generator if train
-               else torch.Generator().manual_seed(EVAL_MASK_SEED))
-        return device_span_mask(gen, batch, frame, self.mask_prob, self.mask_length,
-                                flens=flens, policy=self.mask_policy,
+        in training, from the fixed eval stream otherwise (under a process
+        group, the rank's rows of the global batch's draw: each row is
+        drawn and built alone, so the other rows' lengths do not matter)."""
+        if train:
+            return device_span_mask(self.mask_generator, batch, frame, self.mask_prob,
+                                    self.mask_length, flens=flens,
+                                    policy=self.mask_policy, other=self.mask_other)
+        world, rank = parallel.process_count(), parallel.process_index()
+        mask = device_span_mask(torch.Generator().manual_seed(EVAL_MASK_SEED),
+                                batch * world, frame, self.mask_prob, self.mask_length,
+                                flens=flens.repeat(world), policy=self.mask_policy,
                                 other=self.mask_other)
+        return mask[rank * batch:(rank + 1) * batch]
 
     def draw_negatives_uniform(self, batch: int, frame: int, train: bool, device):
-        """(B, F, N) uniform [0, 1) fp32 of the negatives' draw."""
-        gen = (self.negatives_generator if train
-               else torch.Generator().manual_seed(EVAL_NEGATIVES_SEED))
-        return place_draw(torch.rand((batch, frame, self.num_negatives), generator=gen),
-                         device)
+        """(B, F, N) uniform [0, 1) fp32 of the negatives' draw (at eval
+        under a process group, the rank's rows of the global draw)."""
+        if train:
+            u = torch.rand((batch, frame, self.num_negatives),
+                           generator=self.negatives_generator)
+        else:
+            world, rank = parallel.process_count(), parallel.process_index()
+            u = torch.rand((batch * world, frame, self.num_negatives),
+                           generator=torch.Generator().manual_seed(EVAL_NEGATIVES_SEED))
+            u = u[rank * batch:(rank + 1) * batch]
+        return place_draw(u, device)
 
     def draw_gumbel_noise(self, n: int, device):
         """(n, V) standard Gumbel noise of the training quantizer,

@@ -16,7 +16,10 @@ Train mode: rel-pos self-attention with a padding mask (or none) and a
 chunk width goes through K3, :func:`ops.flash_attention.
 flash_rel_attention_train` (the kernels K1' and K2 on the card), with
 attention dropout from the kernel's counter hash seeded from the layer's
-``generator``; any other structured mask raises. The absolute-position
+``generator``; any other structured mask raises. The generator draws the
+same seeds on every rank of a process group; the seed is moved to the
+rank's first row of the global batch (``dropout_seed_at_row``), so that
+each row keeps the mask it has in a one-process run. The absolute-position
 attention, like the reference, computes its scores, fp32 softmax, dropout
 and context in plain PyTorch (``apply_attention``,
 liteasr_tpu/nets/attention.py:35-44).
@@ -32,9 +35,10 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from liteasr_tpu_torch import parallel
 from liteasr_tpu_torch.nets.common import Dense, dropout, xavier_uniform_
 from liteasr_tpu_torch.ops.flash_attention import (
-    chunk_mask, flash_attention, flash_rel_attention_train)
+    chunk_mask, dropout_seed_at_row, flash_attention, flash_rel_attention_train)
 
 MASK_FILL = -1e38  # the reference's masked score in plain attention
 
@@ -201,6 +205,8 @@ class RelativeMultiHeadAttention(MultiHeadAttention):
             kv_lens = kv_lens.repeat_interleave(H)
         if seed is None:
             seed = self.draw_seed()
+        if parallel.process_count() > 1:  # rank r holds global rows r B ..
+            seed = dropout_seed_at_row(seed, parallel.process_index() * B * H)
         out = flash_rel_attention_train(
             fold(q_u), fold(q_v), fold(k), fold(v), p, kv_lens, seed,
             Dk ** -0.5, self.dropout_rate, chunk)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from liteasr_tpu_torch import parallel
 from liteasr_tpu_torch.nets.common import Dense, LayerNorm, dropout, get_activation
 from liteasr_tpu_torch.nets.layers import EncoderLayer
 
@@ -96,7 +97,8 @@ class GumbelVectorQuantizer(nn.Module):
                 gumbels: Optional[torch.Tensor] = None):
         """x (B, T, D) -> (quantized (B, T, vq_dim) in the compute dtype,
         avg_probs (G, V)). ``frame_weight`` (B, T) weights the code-usage
-        statistics; ``gumbels`` (B T G, V) is the training noise."""
+        statistics, taken over the global batch under a process group;
+        ``gumbels`` (B T G, V) is the training noise."""
         B, T, _ = x.shape
         G, V = self.groups, self.num_vars
         wide = wide_float(self.compute_dtype)
@@ -104,10 +106,15 @@ class GumbelVectorQuantizer(nn.Module):
 
         probs = torch.softmax(logits.reshape(B * T, G, V), dim=-1)
         if frame_weight is None:
-            avg_probs = probs.mean(dim=0)
+            num, den = probs.sum(dim=0), probs.new_full((), float(B * T))
         else:
             w = frame_weight.to(wide).reshape(B * T, 1, 1)
-            avg_probs = (probs * w).sum(dim=0) / torch.clamp(w.sum(), min=1.0)
+            num, den = (probs * w).sum(dim=0), w.sum()
+        if parallel.is_initialized():  # the global batch's usage
+            tot = parallel.global_sum_grad(
+                torch.cat([num.reshape(-1), den.reshape(1)]), "code_usage")
+            num, den = tot[:-1].reshape(G, V), tot[-1]
+        avg_probs = num / torch.clamp(den.detach(), min=1.0)
 
         if train:
             if gumbels is None:

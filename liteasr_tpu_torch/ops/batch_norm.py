@@ -9,9 +9,19 @@ backward is
 
 one reduction pass over (dy, dy * xhat) and one elementwise pass; the
 statistics it returns carry no gradient.
+
+Under a process group the statistics are the global batch's, as under the
+JAX package's dp sharding: the forward all-reduces the channel sums of x
+and x^2 (the frame count is the rank's times the world size), and the
+backward all-reduces sum(dy) and sum(dy * xhat) to form dx. dgamma and
+dbeta stay this rank's sums: the optimizer's gradient all-reduce adds the
+ranks' shares, so returning the global sums would count them once per
+rank.
 """
 
 import torch
+
+from liteasr_tpu_torch import parallel
 
 
 class TrainBatchNorm(torch.autograd.Function):
@@ -19,10 +29,20 @@ class TrainBatchNorm(torch.autograd.Function):
     def forward(ctx, x, gamma, beta, eps: float):
         x32 = x.float()
         n = x.shape[0] * x.shape[1]
-        mean = x32.sum(dim=(0, 1)) / n
-        var = torch.clamp(x32.square().sum(dim=(0, 1)) / n - mean * mean, min=0.0)
+        s1, s2 = x32.sum(dim=(0, 1)), x32.square().sum(dim=(0, 1))
+        if parallel.is_initialized():
+            c = s1.shape[0]
+            stats = parallel.global_sum_(torch.cat([s1, s2]), "batch_norm")
+            s1, s2 = stats[:c], stats[c:]
+            # every rank holds a block of the same shape (the collator pads
+            # the global batch), so the global count is known here; a host
+            # number also keeps the division the one-process step's
+            n = n * parallel.process_count()
+        mean = s1 / n
+        var = torch.clamp(s2 / n - mean * mean, min=0.0)
         rstd = torch.rsqrt(var + eps)
         y = ((x32 - mean) * rstd * gamma + beta).to(x.dtype)
+        ctx.n = n
         ctx.save_for_backward(x, mean, rstd, gamma)
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
@@ -30,12 +50,17 @@ class TrainBatchNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, mean, rstd, gamma = ctx.saved_tensors
-        n = x.shape[0] * x.shape[1]
+        n = ctx.n
         dy32 = dy.float()
         xhat = (x.float() - mean) * rstd
         sum_dy = dy32.sum(dim=(0, 1))
         sum_dy_xhat = (dy32 * xhat).sum(dim=(0, 1))
-        dx = (gamma * rstd) * (dy32 - sum_dy / n - xhat * (sum_dy_xhat / n))
+        g_dy, g_dy_xhat = sum_dy, sum_dy_xhat
+        if parallel.is_initialized():
+            c = sum_dy.shape[0]
+            sums = parallel.global_sum_(torch.cat([sum_dy, sum_dy_xhat]), "batch_norm")
+            g_dy, g_dy_xhat = sums[:c], sums[c:]
+        dx = (gamma * rstd) * (dy32 - g_dy / n - xhat * (g_dy_xhat / n))
         return dx.to(x.dtype), sum_dy_xhat, sum_dy, None
 
 

@@ -169,6 +169,17 @@ def dropout_keep_global(bh: int, t_q: int, t_k: int, seed: int, rate: float,
     return _murmur_keep(t % tqe, j % tke, tile, rate)
 
 
+def dropout_seed_at_row(seed: int, row0: int) -> int:
+    """The int32 seed whose keep masks at folded rows ``bh`` are ``seed``'s
+    at rows ``row0 + bh``. The tile id is linear in the row modulo 2**32
+    (``_tile_id``: ((b 65537 + qi) 8191 + kj) 131071 + seed), so moving the
+    row by ``row0`` moves the seed by ``row0`` 65537 8191 131071. A rank
+    holding rows ``row0..`` of the global batch draws the masks those rows
+    have in a one-process run."""
+    u = (int(seed) + int(row0) * (65537 * 8191 * 131071)) & _MASK32
+    return u - (1 << 32) if u >= 1 << 31 else u
+
+
 def chunk_mask(tq: int, tk: int, chunk: int, device=None) -> torch.Tensor:
     """(Tq, Tk) bool, True where key j is hidden from query t under the
     chunk width: j // chunk > t // chunk (``triangle_mask(stage=chunk)``)."""

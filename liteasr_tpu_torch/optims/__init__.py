@@ -13,11 +13,14 @@ register_optimizer = _REGISTRY.register
 
 class LiteasrOptimizer:
     """An optimizer config and its schedule: ``schedule(count)`` maps the
-    (tensor) count of applied steps to the learning rate; None = ``lr``."""
+    (tensor) count of applied steps to the learning rate; None = ``lr``.
+    ``amsgrad``: the update divides by the running max of the corrected
+    second moment."""
 
-    def __init__(self, cfg, schedule=None):
+    def __init__(self, cfg, schedule=None, amsgrad: bool = False):
         self.cfg = cfg
         self.schedule = schedule
+        self.amsgrad = bool(amsgrad)
 
     @classmethod
     def build_optimizer(cls, cfg, task=None):

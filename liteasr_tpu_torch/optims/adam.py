@@ -15,11 +15,11 @@ class AdamConfig(LiteasrDataclass):
     beta2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 0.0
-    amsgrad: bool = False  # not ported: raises in build_tx
+    amsgrad: bool = False
 
 
 @register_optimizer("adam", dataclass=AdamConfig)
 class Adam(LiteasrOptimizer):
     @classmethod
     def build_optimizer(cls, cfg, task=None):
-        return cls(cfg)
+        return cls(cfg, amsgrad=bool(cfg.amsgrad))

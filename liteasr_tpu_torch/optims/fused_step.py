@@ -11,7 +11,18 @@ scale_by_adam, scale_by_schedule(-lr)))`` under ``accumulate_every_k``
 * a non-finite mean skips the step: params, mu, nu and the count stay bit
   identical (the skip and clip decisions are device scalars folded into the
   arithmetic, so no step waits on the host), ``notfinite_count`` grows;
-* the learning rate is the schedule at the count of steps applied before.
+* the learning rate is the schedule at the count of steps applied before;
+* ``amsgrad`` (``optax.scale_by_amsgrad``, liteasr_tpu/optims/adam.py:31)
+  keeps ``nu_max``, the running max of the bias-corrected second moment
+  ``nu / (1 - b2^t)``, and divides by its root: ``mu_hat / (sqrt(nu_max) +
+  eps)``. That is not ``torch.optim.Adam(amsgrad=True)``, which takes the
+  max of the uncorrected moment and corrects afterwards. A skipped step
+  leaves ``nu_max`` bit identical too;
+* under a process group, the flat gradient is summed over the ranks at the
+  applying micro-step (after the window's accumulation, before the mean,
+  the finiteness check and the clip), so every rank takes the same
+  decisions on the same vector: the psum of the accumulated gradient.
+  Without a group the sum is the identity and launches nothing.
 
 The parameters, moments and accumulator are handled as one flat fp32
 vector, so a step is a fixed handful of kernels whatever the number of
@@ -23,12 +34,15 @@ from typing import Callable, List, Optional
 
 import torch
 
+from liteasr_tpu_torch import parallel
+
 
 class FusedAdam:
     def __init__(self, params: List[torch.Tensor],
                  schedule: Callable[[torch.Tensor], torch.Tensor],
                  b1: float, b2: float, eps: float, clip: float = 0.0,
-                 weight_decay: float = 0.0, accum: int = 1):
+                 weight_decay: float = 0.0, accum: int = 1,
+                 amsgrad: bool = False):
         self.params = list(params)
         if not self.params:
             raise ValueError("FusedAdam: no parameters")
@@ -40,6 +54,7 @@ class FusedAdam:
         self.clip = float(clip or 0.0)
         self.weight_decay = float(weight_decay or 0.0)
         self.accum = max(int(accum), 1)
+        self.amsgrad = bool(amsgrad)
         dev = self.params[0].device
         n = sum(p.numel() for p in self.params)
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
@@ -48,6 +63,7 @@ class FusedAdam:
         self.mu = torch.zeros(n, device=dev)
         self.nu = torch.zeros(n, device=dev)
         self.acc = torch.zeros(n, device=dev) if self.accum > 1 else None
+        self.nu_max = torch.zeros(n, device=dev) if self.amsgrad else None
 
     def _flat(self, grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
         return torch.cat([
@@ -63,8 +79,10 @@ class FusedAdam:
             self.mini_step = (self.mini_step + 1) % self.accum
             if self.mini_step:
                 return
-            g = self.acc / self.accum
+            g = parallel.global_sum_(self.acc, "grad") / self.accum
             self.acc.zero_()
+        else:
+            parallel.global_sum_(g, "grad")
         self._step(g)
 
     def _step(self, g: torch.Tensor) -> None:
@@ -95,7 +113,12 @@ class FusedAdam:
                 [p.reshape(-1) for p in self.params])
         self.mu.mul_(b1e).add_((1.0 - b1e) * g32)
         self.nu.mul_(b2e).add_((1.0 - b2e) * g32.square())
-        u = (self.mu / bc1) / (torch.sqrt(self.nu / bc2) + self.eps)
+        nu_hat = self.nu / bc2
+        if self.amsgrad:
+            self.nu_max = torch.where(finite, torch.maximum(self.nu_max, nu_hat),
+                                      self.nu_max)
+            nu_hat = self.nu_max
+        u = (self.mu / bc1) / (torch.sqrt(nu_hat) + self.eps)
         delta = step_size * u
         torch._foreach_sub_(self.params, [
             d.view_as(p) for d, p in zip(
@@ -112,14 +135,16 @@ def constant_schedule(lr: float):
 
 
 def build_tx(optimizer, optimization_cfg, params) -> FusedAdam:
-    """clip -> Adam(+schedule), NaN-protected, accumulated over
-    ``accum_grad`` (liteasr_tpu/trainer.py:96-134), over ``params``."""
+    """clip -> Adam or AMSGrad (+schedule), NaN-protected, accumulated over
+    ``accum_grad`` (liteasr_tpu/trainer.py:96-134), over ``params``. AMSGrad is the
+    optimizer's ``amsgrad`` (only ``adam`` sets it: noam's chain is
+    scale_by_adam whatever its config says, liteasr_tpu/optims/noam.py:
+    40-49)."""
     ocfg = optimizer.cfg
-    if ocfg.get("amsgrad"):
-        raise NotImplementedError("optimizer.amsgrad is not ported")
     schedule = optimizer.schedule or constant_schedule(float(ocfg.lr))
     return FusedAdam(params, schedule, b1=ocfg.beta1, b2=ocfg.beta2,
                      eps=ocfg.eps,
                      clip=float(optimization_cfg.get("clip_grad_norm") or 0.0),
                      weight_decay=float(ocfg.get("weight_decay", 0.0) or 0.0),
-                     accum=int(optimization_cfg.get("accum_grad") or 1))
+                     accum=int(optimization_cfg.get("accum_grad") or 1),
+                     amsgrad=optimizer.amsgrad)

@@ -4,14 +4,27 @@
         criterion=my_hybrid_ctc optimizer=my_noam task.vocab=... \\
         task.train=... task.valid=... postprocess.workflow=[]
 
-Trains on ``cuda:0``; a caller of :func:`train` may pass another device
-(the CPU tests do). The composed config is written to
-``<run_dir>/config.yaml``, so ``python -m liteasr_tpu_torch.infer
---config-dir <run_dir>`` decodes the checkpoints it saves.
+Trains on ``cuda:0``; ``--device cpu`` (or a caller of :func:`train`
+passing a device, as the CPU tests do) trains elsewhere. The composed config
+is written to ``<run_dir>/config.yaml``, so ``python -m
+liteasr_tpu_torch.infer --config-dir <run_dir>`` decodes the checkpoints it
+saves.
 
-Options the port has not ported raise ``NotImplementedError``, naming the
-ROADMAP item that ports them: the multi-device layouts (``distributed.dp``/
-``tp``/``sp`` > 1). Streaming models train here too
+Data parallelism: start one process per device with the JAX CLI's fields,
+
+    python -m liteasr_tpu_torch.train ... \
+        distributed.coordinator_address=127.0.0.1:29500 \
+        distributed.num_processes=N distributed.process_id=R
+
+Rank R trains on ``cuda:<R % device count>`` in an NCCL process group (gloo
+with ``--device cpu``) on its row block of the global batch, which the
+criterions, BatchNorm and the optimizer reduce over the group
+(``liteasr_tpu_torch.parallel``). ``distributed.dp`` must be -1 or N. The
+master alone writes ``train.log``, the results rows, the checkpoints and
+``config.yaml``; the other ranks log to the console.
+
+Tensor and sequence parallelism (``distributed.tp``/``sp`` > 1) raise
+``NotImplementedError``, naming their ROADMAP item. Streaming models train here too
 (``model.enc_arch=transformer model.dynamic_chunk=true`` or
 ``model.static_chunk_size=N``), and so do the transducer
 (``model=my_transducer criterion=my_rnnt``) and the Paraformer
@@ -26,7 +39,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from liteasr_tpu_torch import tasks
+from liteasr_tpu_torch import parallel, tasks
 from liteasr_tpu_torch.config import compose
 from liteasr_tpu_torch.config.core import to_yaml
 
@@ -38,8 +51,9 @@ LOG_FORMAT = (
 
 
 def setup_logging(run_dir: str, level: str = "INFO",
-                  filename: str = "train.log") -> None:
-    os.makedirs(run_dir, exist_ok=True)
+                  filename: Optional[str] = "train.log") -> None:
+    """The console, and ``<run_dir>/<filename>`` unless ``filename`` is None
+    (a rank other than the master)."""
     root = logging.getLogger()
     root.setLevel(getattr(logging, level.upper()))
     for h in list(root.handlers):
@@ -47,39 +61,43 @@ def setup_logging(run_dir: str, level: str = "INFO",
     console = logging.StreamHandler()
     console.setFormatter(logging.Formatter("[%(levelname)s]: %(message)s"))
     root.addHandler(console)
+    if filename is None:
+        return
+    os.makedirs(run_dir, exist_ok=True)
     fileh = logging.FileHandler(os.path.join(run_dir, filename))
     fileh.setFormatter(logging.Formatter(LOG_FORMAT))
     root.addHandler(fileh)
 
 
-def check_ported(cfg) -> None:
-    """Raise on the options the port does not have yet."""
-    dist = cfg.distributed
-    if any(int(dist.get(a) or 1) > 1 for a in ("dp", "tp", "sp")):
-        raise NotImplementedError(
-            "distributed.dp/tp/sp > 1: multi-device training is the ROADMAP "
-            "item \"DDP\"")
-
-
 def train(cfg, device: Optional[torch.device] = None):
-    """Build everything and run the trainer on ``device`` (default
-    ``cuda:0``, which must exist); returns the Trainer.
+    """Join the process group that ``distributed.*`` names (if any), then
+    build everything and run the trainer on ``device`` (default
+    ``cuda:<process_id % device count>``, which must exist); returns the
+    Trainer. A group started here ends here, after a barrier. Layouts the
+    port does not have raise first (``parallel.mesh.check_layout``).
 
     ``common.prng_impl`` and ``common.compile_cache_dir`` are JAX settings
     and have no effect here; ``optimization.fused_step`` neither (the port
     has one optimizer path)."""
+    device = parallel.distributed_init(cfg.distributed, device)  # before the device is used
+    if not cfg.distributed.get("coordinator_address"):
+        return _train(cfg, device)
+    try:
+        trainer = _train(cfg, device)
+        parallel.barrier()  # no rank leaves while another still needs it
+    finally:
+        parallel.destroy()
+    return trainer
+
+
+def _train(cfg, device: torch.device):
     from liteasr_tpu_torch.trainer import Trainer
 
-    check_ported(cfg)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device; pass device=torch.device('cpu') "
-                               "to train on the CPU")
-        device = torch.device("cuda", 0)
-    device = torch.device(device)
-
-    seed = int(cfg.common.seed)
-    np.random.seed(seed)
+    seed, rank = int(cfg.common.seed), parallel.process_index()
+    # the host's draws are per-row streams: the rank's own (rank 0 keeps the
+    # run's); so are the device's, once the model's init has drawn the same
+    # weights on every rank
+    np.random.seed(parallel.rank_seed(seed))
     torch.manual_seed(seed)  # dropout masks draw from the device generator
     logger.info("set random seed as %d", seed)
 
@@ -88,15 +106,26 @@ def train(cfg, device: Optional[torch.device] = None):
 
     logger.info("1. load data...")
     # common.memory_save: the batchified train set is staged to
-    # <train dir>/.dump and read back one batch at a time (one process, so
-    # no barrier; liteasr_tpu/train.py:90-111)
-    task.load_dataset("train", task.cfg.train, cfg.dataset, cfg.postprocess,
-                      memory_save=bool(cfg.common.get("memory_save")))
-    task.load_dataset("valid", task.cfg.valid, cfg.dataset, cfg.postprocess)
+    # <train dir>/.dump and read back one batch at a time; the master builds
+    # the dump while the others wait on a barrier, then they read it
+    # (liteasr_tpu/train.py:90-111)
+    config = (cfg.dataset, cfg.postprocess)
+    if cfg.common.get("memory_save") and parallel.process_count() > 1:
+        if parallel.is_master():
+            task.load_dataset("train", task.cfg.train, *config, memory_save=True)
+        parallel.barrier()
+        if not parallel.is_master():
+            task.load_dataset("train", task.cfg.train, *config, memory_save=True)
+    else:
+        task.load_dataset("train", task.cfg.train, *config,
+                          memory_save=bool(cfg.common.get("memory_save")))
+    task.load_dataset("valid", task.cfg.valid, *config)
 
     generator = torch.Generator().manual_seed(seed)
     model = task.build_model(cfg.model, device=device, generator=generator)
-    model.seed_dropout(seed)
+    model.seed_dropout(seed, rank)
+    if rank:
+        torch.manual_seed(parallel.rank_seed(seed))
     logger.info("2. build model    : %s", model.__class__.__name__)
 
     optim = task.build_optimizer(cfg.optimizer)
@@ -105,8 +134,10 @@ def train(cfg, device: Optional[torch.device] = None):
     criter = task.build_criterion(cfg.criterion)
     logger.info("4. build criterion: %s", criter.__class__.__name__)
 
-    with open(os.path.join(cfg.common.run_dir, "config.yaml"), "w") as f:
-        f.write(to_yaml(cfg))
+    if parallel.is_master():
+        os.makedirs(cfg.common.run_dir, exist_ok=True)
+        with open(os.path.join(cfg.common.run_dir, "config.yaml"), "w") as f:
+            f.write(to_yaml(cfg))
 
     trainer = Trainer(cfg, task, model, criter, optim, device)
     trainer.run()
@@ -115,9 +146,17 @@ def train(cfg, device: Optional[torch.device] = None):
 
 def main(argv: Optional[List[str]] = None,
          device: Optional[torch.device] = None):
+    """``argv``: config overrides, and ``--device DEVICE`` (e.g. ``cpu``)
+    where ``device`` is not given."""
     overrides = list(argv if argv is not None else sys.argv[1:])
+    if "--device" in overrides:
+        i = overrides.index("--device")
+        device = device if device is not None else torch.device(overrides[i + 1])
+        del overrides[i:i + 2]
     cfg = compose(overrides)
-    setup_logging(cfg.common.run_dir, cfg.common.log_level)
+    master = int(cfg.distributed.get("process_id") or 0) == 0
+    setup_logging(cfg.common.run_dir, cfg.common.log_level,
+                  filename="train.log" if master else None)
     return train(cfg, device)
 
 

@@ -21,6 +21,21 @@ noise's and wav2vec 2.0's span masks', negatives' and Gumbel noise's.
 continues as the uninterrupted one would have (liteasr_tpu/trainer.py:
 314-375). ``common.profile_dir`` traces the run with ``torch.profiler``
 into a Chrome trace there.
+
+Under a process group (``parallel.distributed_init``; liteasr_tpu/trainer.py
+:150-159, 336-370, 454, 492, 532-578) each rank trains on its row shard of
+the global batch: the datasets' ``num_shards``/``shard_index`` pick it and
+every rank shuffles with the same seed, so the ranks stay in lockstep. The
+criterion's loss is the rank's share of the global batch's, the optimizer
+sums the flat gradient over the ranks at each applied step, ``valid`` and
+``report_loss`` sum the ranks' shares, and ``inference`` decodes on every
+rank (``infer_dataset`` gathers the hypotheses). The master alone writes
+logs to file, results rows and checkpoints; ``train_state.pt`` holds every
+rank's generator states (``rng_ranks``), and every rank reads it on resume.
+The per-row random streams (device dropout, SpecAugment, the Paraformer's
+glance noise, wav2vec 2.0's draws) are seeded per rank (rank 0 keeps the
+one-process streams); the attention kernels' dropout seeds move to the
+rank's rows.
 """
 
 import hashlib
@@ -33,6 +48,7 @@ import time
 import numpy as np
 import torch
 
+from liteasr_tpu_torch import parallel
 from liteasr_tpu_torch.checkpoint import CKPT_TEMPLATE
 from liteasr_tpu_torch.data.loader import EpochDataLoader
 from liteasr_tpu_torch.ops.fbank import log_mel_fbank
@@ -72,7 +88,19 @@ class Trainer:
         self._loss_accum = []
         self._report_time = time.time()
         self._report_utts = 0
+        self.world, self.rank = parallel.process_count(), parallel.process_index()
+        self.backend = (torch.distributed.get_backend()
+                        if parallel.is_initialized() else None)
+        if self.backend:
+            logger.info("data parallel: rank %d of %d over %s", self.rank,
+                        self.world, self.backend)
 
+        # one device per process: each rank collates its row block of the
+        # global batch, padded to a multiple of the world size
+        for ds in (task.dataset("train"), task.dataset("valid")):
+            ds.batch_multiple = 1
+            ds.num_shards = self.world
+            ds.shard_index = self.rank
         self.train_iter = EpochDataLoader(
             task.dataset("train"), shuffle=True, seed=cfg.common.seed,
             prefetch=2, num_workers=max(1, cfg.dataset.get("num_workers", 2)))
@@ -115,7 +143,8 @@ class Trainer:
         """One micro-step on a device batch; returns the detached loss."""
         batch = self.frontend(batch)
         if self.spec_aug is not None and batch["xs"].dim() == 3:  # not raw waves
-            gen = step_generator(self.cfg.common.seed, self.step, self.device)
+            gen = step_generator(parallel.rank_seed(self.cfg.common.seed),
+                                 self.step, self.device)
             batch = dict(batch, xs=spec_augment(batch["xs"], batch["xlens"], gen,
                                                 **self.spec_aug))
         # the criterion sees the micro-steps taken before this one, as JAX's
@@ -148,7 +177,8 @@ class Trainer:
             rng["cuda"] = torch.cuda.get_rng_state(self.device)
         return rng
 
-    def _save_train_state(self):
+    def _save_train_state(self, rng_ranks):
+        """``rng_ranks``: every rank's ``_rng_state()``, rank 0's first."""
         tx = self.tx
         state = {
             "model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
@@ -156,10 +186,13 @@ class Trainer:
                 "mu": tx.mu.cpu(), "nu": tx.nu.cpu(), "count": tx.count.cpu(),
                 "notfinite_count": tx.notfinite_count.cpu(),
                 "acc": None if tx.acc is None else tx.acc.cpu(),
+                "nu_max": None if tx.nu_max is None else tx.nu_max.cpu(),
                 "mini_step": tx.mini_step},
             "step": self.step,
-            "rng": self._rng_state(),
+            "rng": rng_ranks[0],
         }
+        if self.world > 1:
+            state["rng_ranks"] = rng_ranks
         path = self._train_state_path()
         torch.save(state, path)
         with open(path + ".meta", "w") as f:
@@ -178,29 +211,35 @@ class Trainer:
         tx, opt = self.tx, state["optimizer"]
         try:
             self.model.load_state_dict(state["model"], strict=True)
-            if opt["mu"].shape != tx.mu.shape or (opt["acc"] is None) != (tx.acc is None):
+            nu_max = opt.get("nu_max")
+            if (opt["mu"].shape != tx.mu.shape or (opt["acc"] is None) != (tx.acc is None)
+                    or (nu_max is None) != (tx.nu_max is None)):
                 raise ValueError(
                     f"optimizer state of {opt['mu'].numel()} parameters "
-                    f"(accumulating: {opt['acc'] is not None}) against "
-                    f"{tx.mu.numel()} (accumulating: {tx.acc is not None})")
+                    f"(accumulating: {opt['acc'] is not None}, amsgrad: "
+                    f"{nu_max is not None}) against {tx.mu.numel()} "
+                    f"(accumulating: {tx.acc is not None}, amsgrad: "
+                    f"{tx.nu_max is not None})")
         except (RuntimeError, ValueError) as e:
             raise RuntimeError(
                 f"cannot restore {path}: its layout does not match this run's "
                 "model and optimizer; resume with the model config and "
-                f"optimization.accum_grad the run was started with ({e})") from e
+                f"optimization.accum_grad and optimizer.amsgrad the run was "
+                f"started with ({e})") from e
         for name in ("mu", "nu", "count", "notfinite_count"):
             getattr(tx, name).copy_(opt[name])
         if tx.acc is not None:
             tx.acc.copy_(opt["acc"])
+        if tx.nu_max is not None:
+            tx.nu_max.copy_(opt["nu_max"])
         tx.mini_step = int(opt["mini_step"])
         self.step = int(state["step"])
-        rng = state["rng"]
-        torch.set_rng_state(rng["cpu"])
-        for key in MODEL_GENERATORS:
-            if key in rng and hasattr(self.model, f"{key}_generator"):
-                getattr(self.model, f"{key}_generator").set_state(rng[key])
-        if "cuda" in rng and self.device.type == "cuda":
-            torch.cuda.set_rng_state(rng["cuda"], self.device)
+        ranks = state.get("rng_ranks") or [state["rng"]]
+        if self.rank < len(ranks):
+            self._set_rng_state(ranks[self.rank])
+        else:  # a run saved by fewer processes: this rank keeps fresh streams
+            logger.warning("%s holds the generator states of %d rank(s); rank %d "
+                           "starts its own streams afresh", path, len(ranks), self.rank)
         meta_path = path + ".meta"
         if os.path.isfile(meta_path):
             with open(meta_path) as f:
@@ -209,6 +248,14 @@ class Trainer:
             self.train_iter.epoch = int(meta.get("epoch", 0))
         logger.info("resumed training state from %s (iter %d, epoch %d)",
                     path, self.iter, self.epoch)
+
+    def _set_rng_state(self, rng: dict):
+        torch.set_rng_state(rng["cpu"])
+        for key in MODEL_GENERATORS:
+            if key in rng and hasattr(self.model, f"{key}_generator"):
+                getattr(self.model, f"{key}_generator").set_state(rng[key])
+        if "cuda" in rng and self.device.type == "cuda":
+            torch.cuda.set_rng_state(rng["cuda"], self.device)
 
     # ------------------------------------------------------------- events
 
@@ -244,7 +291,7 @@ class Trainer:
 
     def run(self):
         profile_dir = self.cfg.common.get("profile_dir")
-        if not profile_dir:
+        if not profile_dir or not parallel.is_master():
             return self._run()
         from torch.profiler import ProfilerActivity, profile
 
@@ -280,9 +327,9 @@ class Trainer:
     # ----------------------------------------------- durable results rows
 
     def _results_append(self, row: dict):
-        """Append one JSONL row to ``common.results_file``."""
+        """Append one JSONL row to ``common.results_file`` (the master)."""
         path = self.cfg.common.get("results_file")
-        if not path:
+        if not path or not parallel.is_master():
             return
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         with open(path, "a") as f:
@@ -306,14 +353,17 @@ class Trainer:
     # ------------------------------------------------------- event bodies
 
     def report_loss(self):
+        """The mean loss of the window on the global batch (the sum of the
+        ranks' shares) and the throughput of every rank together."""
         if self._loss_accum:
-            window = float(torch.stack(self._loss_accum).float().mean())
+            window = float(parallel.global_sum_(
+                torch.stack(self._loss_accum).float().mean(), "metrics"))
             self._loss_accum = []
         else:
             window = float("nan")
         now = time.time()
         dt = max(now - self._report_time, 1e-6)
-        throughput = self._report_utts / dt
+        throughput = self._report_utts * self.world / dt
         self._report_time = now
         self._report_utts = 0
         logger.info(
@@ -326,7 +376,8 @@ class Trainer:
         """The mean validation loss and the mean of each scalar the criterion
         returns beside it, as ``valid loss: %.2f | key: %.4f ...`` (keys
         sorted) and in the ``results_file`` row (liteasr_tpu/trainer.py:
-        501-529)."""
+        501-529). Under a process group, of the global batches: the ranks'
+        shares are summed in one all-reduce."""
         losses, extras = [], []
         for idx in range(len(self.valid_set)):
             batch = self.valid_set.collator(self.valid_set[idx])
@@ -334,10 +385,16 @@ class Trainer:
             losses.append(loss)
             extras.append({k: v for k, v in aux.items()
                            if torch.is_tensor(v) and v.dim() == 0})
-        reduced = float(torch.stack(losses).float().mean()) if losses \
-            else float("nan")
-        means = ({k: float(torch.stack([e[k] for e in extras]).float().mean())
-                  for k in extras[0]} if extras else {})
+        keys = list(extras[0]) if extras else []
+        if losses:  # (batches, 1 + keys): the loss, then each aux scalar
+            table = torch.stack([torch.stack([l.float()] + [e[k].float() for k in keys])
+                                 for l, e in zip(losses, extras)])
+            table = [float(col.contiguous().mean())
+                     for col in parallel.global_sum_(table, "metrics").unbind(1)]
+        else:
+            table = [float("nan")]
+        reduced = table[0]
+        means = dict(zip(keys, table[1:]))
         suffix = "".join(f" | {k}: {v:.4f}" for k, v in sorted(means.items()))
         # keep the exact "valid loss:" phrasing: checkpoint averaging parses
         # it from train.log (liteasr/utils/checkpoint.py:55-67)
@@ -352,13 +409,20 @@ class Trainer:
         """``model.ep.<epoch>.pt``: the model's state_dict (parameters and
         BatchNorm running statistics), what checkpoint.load_ckpt reads; and
         the training state that ``common.resume`` restores."""
+        # a collective: every rank reaches it, the master writes
+        rng_ranks = parallel.all_gather_object(self._rng_state())
+        if not parallel.is_master():
+            return
         state = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
         path = self.task.save_model(CKPT_TEMPLATE.format(self.epoch), state)
-        self._save_train_state()
+        self._save_train_state(rng_ranks)
         logger.info("saved %s and %s", path, TRAIN_STATE)
 
     def inference(self):
-        """Decode the test sets mid-training through ``infer_dataset``."""
+        """Decode the test sets mid-training through ``infer_dataset``. Every
+        rank decodes: under a process group each decodes its row block of a
+        batch and the hypotheses are gathered (a collective, so a
+        master-only return would stall the others); the master logs."""
         from liteasr_tpu_torch.infer import infer_dataset
 
         if "test" not in self.task.datasets:
@@ -373,6 +437,8 @@ class Trainer:
                 self.device,
                 pad_time_multiple=self.cfg.dataset.get("pad_time_multiple", 128),
                 verbose=False)
+            if not parallel.is_master():
+                continue
             logger.info(
                 "%s / %s iters, %s / %s epochs - test error rate: "
                 "%d / %d = %.2f%%",

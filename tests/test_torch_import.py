@@ -1,6 +1,7 @@
-"""liteasr_tpu_torch, training, transducer, streaming, Paraformer, wav2vec 2.0
-and native modules included, imports without jax, flax or liteasr_tpu, and its
-CUDA kernel loader raises (no fallback) where there is no CUDA device."""
+"""liteasr_tpu_torch, training, transducer, streaming, Paraformer, wav2vec 2.0,
+native and data-parallel modules included, imports without jax, flax or
+liteasr_tpu, and its CUDA kernel loader raises (no fallback) where there is
+no CUDA device."""
 
 import os
 import subprocess
@@ -36,12 +37,12 @@ def test_port_imports_without_jax():
                      "streaming", "native", "nets.paraformer", "models.paraformer",
                      "criterions.paraformer_loss", "nets.wav2vec2",
                      "models.wav2vec2", "criterions.wav2vec_loss", "tasks.pretrain",
-                     "ops.masks"):
+                     "ops.masks", "parallel", "parallel.mesh", "tasks.synthetic"):
             assert "liteasr_tpu_torch." + name in names, (name, names)
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 48
+    assert int(proc.stdout.split()[-1]) >= 51
 
 
 def test_kernel_loader_raises_without_cuda():

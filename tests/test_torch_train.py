@@ -238,13 +238,49 @@ def test_skipped_step_leaves_state_bit_identical():
     assert int(tx.notfinite_count) == 1
 
 
-def test_amsgrad_raises():
+def test_amsgrad_matches_optax_chain():
+    """optimizer=adam with amsgrad through the port's build_tx against the
+    JAX trainer's chain, accumulate_every_k(apply_if_finite(chain(
+    clip_by_global_norm(5), scale_by_amsgrad, scale(-lr))), 2): 12
+    micro-steps whose gradients shrink (so that nu_max, not the corrected
+    nu, sets the step), window 3 non-finite. Within 1e-5 at every
+    micro-step; the skipped window leaves params, mu, nu and nu_max bit
+    identical; plain Adam on the same stream ends elsewhere."""
+    from liteasr_tpu.optims import build_optimizer as jax_build_optimizer
+    from liteasr_tpu.trainer import build_tx as jax_build_tx
     from liteasr_tpu_torch.optims import build_optimizer
     from liteasr_tpu_torch.optims.fused_step import build_tx
 
-    opt = build_optimizer({"name": "adam", "amsgrad": True})
-    with pytest.raises(NotImplementedError):
-        build_tx(opt, DotDict(accum_grad=1), [torch.zeros(2)])
+    cfg = dict(name="adam", lr=1e-2, beta1=0.9, beta2=0.99, eps=1e-8,
+               weight_decay=0.0, amsgrad=True)
+    ocfg = DotDict(accum_grad=2, clip_grad_norm=5.0)
+    chain = jax_build_tx(jax_build_optimizer(JaxDotDict(cfg)),
+                         JaxDotDict(accum_grad=2, clip_grad_norm=5.0))
+    p0 = {"w": np.arange(6, dtype=np.float32).reshape(2, 3) / 10,
+          "b": np.ones(3, np.float32)}
+    cp, cs = dict(p0), chain.init(dict(p0))
+    params = [t(p0["w"]).clone(), t(p0["b"]).clone()]
+    plain = [p.clone() for p in params]
+    tx = build_tx(build_optimizer(dict(cfg)), ocfg, params)
+    tx_plain = build_tx(build_optimizer(dict(cfg, amsgrad=False)), ocfg, plain)
+    assert tx.amsgrad and not tx_plain.amsgrad
+    grads = _grad_stream(12, nan_at=(5,))
+    for i, g in enumerate(grads):
+        g = {k: v * 0.5 ** (i // 2) for k, v in g.items()}
+        upd, cs = chain.update({k: jnp.asarray(v) for k, v in g.items()}, cs, cp)
+        cp = optax.apply_updates(cp, upd)
+        before = [x.clone() for x in (*params, tx.mu, tx.nu, tx.nu_max)]
+        tx.update([t(g["w"]), t(g["b"])])
+        tx_plain.update([t(g["w"]), t(g["b"])])
+        if i == 5:  # the non-finite window
+            for a, b in zip(before, (*params, tx.mu, tx.nu, tx.nu_max)):
+                assert torch.equal(a, b)
+        for p, key in zip(params, ("w", "b")):
+            np.testing.assert_allclose(p.numpy(), np.asarray(cp[key]), rtol=1e-5,
+                                       atol=1e-5, err_msg=f"step {i}")
+    assert int(tx.count) == 5 and int(tx.notfinite_count) == 1
+    assert torch.any(tx.nu_max > tx.nu / (1 - 0.99 ** 5))  # the max held
+    assert not torch.allclose(params[0], plain[0], rtol=1e-3, atol=1e-4)
 
 
 # ------------------------------------------------------ whole train step
@@ -377,11 +413,13 @@ def test_train_cli_writes_a_checkpoint_that_infer_decodes(tiny_corpus, tmp_path)
 
 @pytest.mark.parametrize("override", [
     "postprocess.on_device=true", "dataset.fbank=true", "common.resume=auto",
-    "common.memory_save=true", "distributed.dp=2", "model.remat=true"])
+    "common.memory_save=true", "distributed.dp=2", "model.remat=true",
+    "distributed.tp=2"])
 def test_unported_options_raise(tiny_corpus, tmp_path, override):
-    """Only multi-device layouts are still unported and raise, naming their
-    ROADMAP item ("DDP"); the other options run (tests/test_torch_resume.py
-    and tests/test_torch_frontend.py hold them to the JAX package), and
+    """Tensor parallelism is still unported and raises, naming its ROADMAP
+    item; distributed.dp must be -1 or the number of processes (one here);
+    the other options run (tests/test_torch_resume.py and
+    tests/test_torch_frontend.py hold them to the JAX package), and
     dataset.fbank on a feats.scp corpus says that it needs wav.scp."""
     import shutil
 
@@ -395,7 +433,11 @@ def test_unported_options_raise(tiny_corpus, tmp_path, override):
         overrides.remove("postprocess.workflow=[]")
     device = torch.device("cpu")
     if override == "distributed.dp=2":
-        with pytest.raises(NotImplementedError, match='ROADMAP item "DDP"'):
+        with pytest.raises(ValueError, match="dp must be -1 or the number of processes"):
+            train.main(overrides, device=device)
+    elif override == "distributed.tp=2":
+        with pytest.raises(NotImplementedError,
+                           match='ROADMAP item "tensor and sequence parallelism"'):
             train.main(overrides, device=device)
     elif override == "dataset.fbank=true":
         with pytest.raises(AssertionError, match="wav.scp"):
