@@ -229,13 +229,50 @@ y. the micro-step at bench.py's point in turns without a group and inside
    one-rank group, a call that moves no bytes (the host's cost of the call,
    not the all-reduce's cost on 2+ cards, which one card cannot show).
 
+Tensor and sequence parallelism (U2), on the one card: the kernels at their
+offsets, then 2 ranks that share the card in a gloo group over CUDA
+tensors, which each rank starts itself and the port joins (NCCL refuses
+two ranks on one device); every kernel runs on the card, only the
+collectives go through the host:
+
+z1. K1' and K2 in bf16 at the training shape on the shards tp = 2 gives
+   (BH = 64 of 128, head0 0 or 2) and sp = 2 gives (queries 0..100 and
+   100..199 of T' = 199 with the next block's first q_v row, also under
+   chunk 16), dropout 0.1, a kv_len = 0 row: against the plain versions at
+   the same offsets (3's tolerances), against the rows and heads of the
+   whole kernel call within 1e-5 (out, lse, K1, the five gradients and the
+   halo's dQ_v row: the same arithmetic); the keep mask read off
+   the kernel (zero scores, V the unit vectors of 64 keys at a time)
+   bit-equal to the whole call's slice and to dropout_keep_global's; K1 at
+   the same offsets (validation's call) against the plain version; each
+   call timed beside its bound and the plain version;
+z2. for tp = 2 and for sp = 2 in turn: my_U2 at full width through
+   ``train.main`` in the 2 processes on 6's corpus for 1 epoch with the
+   valid, save_model and inference (ctc_greedy) triggers: 12 K1' + 12 K2
+   launches per micro-batch per rank at the shard's shapes (the rank's
+   heads, or its block of T' with the halo row), finite losses, the
+   checkpoint in the one-process layout (the same keys and shapes),
+   decoded in one process to the error count the run's trigger logged;
+z3. 8's fp32 step (TF32 off, dropout 0, 2 + 1 layers at full width) in the
+   layout against the one-process step: the loss within 1e-5, every
+   gathered gradient leaf and the BatchNorm statistics within 3e-4 of the
+   leaf's max (the layouts reorder sums, and the step resolves no better
+   in fp32), beside two one-process runs' own difference and the
+   one-process step's with its input moved by 1-2 ulps; then the same
+   step with a planted layout fault (BatchNorm counting one frame too many
+   a row; under sp also one halo frame of the depthwise conv dropped),
+   which the bound must catch;
+z4. the bf16 micro-step at bench.py's point in the layout: ms per rank,
+   informational (the two ranks share the card).
+
 Every failure raises, so the exit code is not 0. The last line is the JSON
 device record; the line before it lists the kernels (for
 rel_attention_fwd, ``ms``/``plain_ms`` are K1 per decoded batch, the
 ``lse_*`` keys K1' per training call, the ``chunk*`` keys the chunked
 calls of k, the ``paraformer_*`` keys o's calls and the ``wav2vec2_*``
-keys t's, the ``dp_*`` keys x's and y's; ``launches`` sum the main paths
-4, 6, b, c, d, g, i, l, m, p, r, u and x).
+keys t's, the ``dp_*`` keys x's and y's, the ``shard_*`` keys z1's calls
+and the ``tp_sp_*`` keys z2's launches and z4's step; ``launches`` sum the
+main paths 4, 6, b, c, d, g, i, l, m, p, r, u, x and z2).
 
     python3 chip_smoke.py --profile-train
 
@@ -244,14 +281,16 @@ of 7 and prints the top kernels by device time.
 
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --dp-only
+    python3 chip_smoke.py --tp-sp-only
     python3 chip_smoke.py --baseline DIR
 
-stop after steps 1-3, k, o and t; or after them run only 7, x and y; or
-after step 1 time every bf16 kernel call of the main paths against the
-checkout in DIR (another commit unpacked with git archive), in the order
-DIR, this tree, this tree, DIR.
+stop after steps 1-3, k, o, t and z1; or after them run only 7, x and y;
+or only z2-z4; or after step 1 time every bf16 kernel call of the main
+paths against the checkout in DIR (another commit unpacked with git
+archive), in the order DIR, this tree, this tree, DIR.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -381,28 +420,29 @@ def bound(flops: float, nbytes_: float, dtype):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def live_keys(bh: int, tq: int, tk: int, kv_lens, chunk: int = 0) -> torch.Tensor:
+def live_keys(bh: int, tq: int, tk: int, kv_lens, chunk: int = 0,
+              q0: int = 0) -> torch.Tensor:
     """(BH, Tq) keys each query needs: those below kv_len (capped at Tk) and,
     under a chunk width, below the end of the query's chunk ((t // chunk +
-    1) chunk); all Tk for a row with no key (kv_len 0, whose output is the
-    mean of V)."""
+    1) chunk, t = q0 + the local query for a block of the queries); all Tk
+    for a row with no key (kv_len 0, whose output is the mean of V)."""
     kv = (torch.full((bh,), tk, dtype=torch.int64) if kv_lens is None
           else kv_lens.cpu().long().clamp(max=tk))
     end = kv[:, None].expand(bh, tq)
     if chunk > 0:
-        t = torch.arange(tq)
+        t = q0 + torch.arange(tq)
         end = torch.minimum(end, ((t // chunk + 1) * chunk)[None, :])
     return torch.where(kv[:, None] > 0, end, tk)
 
 
 def fwd_bound(q, k, v, mask=None, kv_lens=None, rel_qv=None, rel_p=None,
-              lse=False, chunk=0):
+              lse=False, chunk=0, q0=0):
     """Bound of one K1/K1' call from its shapes: Q K^T, P V and (with the
     rel-pos term) Q_v P^T over the scores the data leaves live; each input
     read once and each output written once (K and V only up to the row's
     last live key)."""
     bh, tq, d = q.shape
-    live = live_keys(bh, tq, k.shape[1], kv_lens, chunk)
+    live = live_keys(bh, tq, k.shape[1], kv_lens, chunk, q0)
     keys = live.max(dim=1).values.sum().item()
     flops = (3 if rel_qv is not None else 2) * 2.0 * live.sum().item() * d
     kv_bytes = 2 * keys * d * k.element_size()
@@ -411,12 +451,12 @@ def fwd_bound(q, k, v, mask=None, kv_lens=None, rel_qv=None, rel_p=None,
                  q.dtype)
 
 
-def bwd_bound(q_u, qv, k, v, p, kv_lens, out, lse, dout, chunk=0):
+def bwd_bound(q_u, qv, k, v, p, kv_lens, out, lse, dout, chunk=0, q0=0):
     """Bound of one K2 call: eight products over the live (query, key)
     scores x D, the inputs read once, the five fp32 gradients written once."""
     bh, t, d = q_u.shape
-    flops = 8 * 2.0 * live_keys(bh, t, t, kv_lens, chunk).sum().item() * d
-    grads = 4 * (4 * bh * t * d + p.numel())
+    flops = 8 * 2.0 * live_keys(bh, t, k.shape[1], kv_lens, chunk, q0).sum().item() * d
+    grads = 4 * (q_u.numel() + qv.numel() + k.numel() + v.numel() + p.numel())
     return bound(flops, nbytes(q_u, qv, k, v, p, kv_lens, out, lse, dout) + grads,
                  q_u.dtype)
 
@@ -895,10 +935,13 @@ def bench_batch(dev):
     return to_device(batch, dev), B
 
 
-def bench_step(dev, remat=False, **streaming):
+def bench_step(dev, remat=False, shard=False, **streaming):
     """The full-width bf16 train micro-step (dropout 0.1, hybrid loss, Noam
     Adam, clip 5, accum 2) on bench_batch; returns (step, B). Inside a
-    process group the optimizer all-reduces its flat gradient (phase y)."""
+    process group the optimizer all-reduces its flat gradient (phase y);
+    ``shard``: on this rank's tp/sp shard of the model (z4)."""
+    from liteasr_tpu_torch import parallel
+    from liteasr_tpu_torch.parallel import sharding
     from liteasr_tpu_torch.config.core import DotDict
     from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
     from liteasr_tpu_torch.optims.fused_step import FusedAdam
@@ -906,11 +949,13 @@ def bench_step(dev, remat=False, **streaming):
 
     torch.manual_seed(SEED)
     model = build_model(torch.bfloat16, dev, dropout_rate=0.1, remat=remat, **streaming)
+    if shard:
+        sharding.shard_model(model, parallel.layout())
     crit = HybridCTCLoss(DotDict(vocab_size=VOCAB, padding_idx=-1,
                                  smoothing=0.1, ctc_weight=0.3))
     params = list(model.parameters())
     tx = FusedAdam(params, noam_schedule(256, 1.0, 25000), 0.9, 0.98, 1e-9,
-                   clip=5.0, accum=ACCUM)
+                   clip=5.0, accum=ACCUM, sharded=sharding.sharded_parameters(model))
     batch, B = bench_batch(dev)
 
     def step():
@@ -3059,10 +3104,16 @@ def run_dp_training(fa, root, dev, name, per_micro):
     return fwd + dec, lse, bwd
 
 
-def dp_step(dev):
+def dp_step(dev, shard=False, perturb=0.0):
     """Phase 8's fp32 step (2 + 1 layers at full width, dropout 0): the
     loss, the flat gradient the optimizer takes (after its all-reduce, when
-    a group is up) by leaf, and the BatchNorm running statistics."""
+    a group is up) by leaf, and the BatchNorm running statistics. ``shard``:
+    on this rank's tp/sp shard of the model (z3), the loss being the rank's
+    share, the gradient and statistics gathered to the one-process layout.
+    ``perturb``: the input features scaled by 1 + perturb (2**-23: moved by
+    one or two ulps), the step's fp32 resolution."""
+    from liteasr_tpu_torch import parallel
+    from liteasr_tpu_torch.parallel import sharding
     from liteasr_tpu_torch.config.core import DotDict
     from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
     from liteasr_tpu_torch.optims.fused_step import FusedAdam, constant_schedule
@@ -3075,19 +3126,29 @@ def dp_step(dev):
              "ys": rng.integers(1, VOCAB - 1, size=(B, U)).astype(np.int32),
              "ylens": np.array([U, 20, 16, 10], np.int32),
              "valid": np.ones(B, np.float32)}
+    batch["xs"] = batch["xs"] * np.float32(1.0 + perturb)
     crit = HybridCTCLoss(DotDict(vocab_size=VOCAB, padding_idx=-1,
                                  smoothing=0.1, ctc_weight=0.3))
     model = build_model(torch.float32, dev, enc_layers=2, dec_layers=1)
+    if shard:
+        sharding.shard_model(model, parallel.layout())
     named = list(model.named_parameters())
-    tx = FusedAdam([p for _, p in named], constant_schedule(0.0), 0.9, 0.999, 1e-8)
+    tx = FusedAdam([p for _, p in named], constant_schedule(0.0), 0.9, 0.999, 1e-8,
+                   sharded=sharding.sharded_parameters(model))
     flat = []
     tx._step = flat.append  # the gradient the update takes
     loss, _ = crit(model, to_device(batch, dev), train=True)
     loss.backward()
     tx.update([p.grad for _, p in named])
-    grads = flat[0].split([p.numel() for _, p in named])
-    return (loss.item(), {n: g.cpu() for (n, _), g in zip(named, grads)},
-            {n: b.cpu() for n, b in model.named_buffers()})
+    if not shard:
+        grads = flat[0].split([p.numel() for _, p in named])
+        return (loss.item(), {n: g.cpu() for (n, _), g in zip(named, grads)},
+                {n: b.cpu() for n, b in model.named_buffers()})
+    state = sharding.gather_state_dict(model)
+    shapes = [state[n].shape for n, _ in named]
+    grads = sharding.gather_flat(flat[0], named).split([s.numel() for s in shapes])
+    return (loss.item(), {n: g for (n, _), g in zip(named, grads)},
+            {n: state[n] for n, _ in model.named_buffers()})
 
 
 def leaf_diffs(ref, got):
@@ -3225,6 +3286,423 @@ def time_dp_step(dev, name, plain_ms):
                 host_ms=host[0] * 1e3 / 10)
 
 
+# ---- tensor and sequence parallelism (z1-z4) ----
+
+TP_SP_CASES = (  # label: (head0, heads, q0, q1, chunk) at the training shape
+    ("tp_h0", 0, 2, 0, TRAIN_T, 0), ("tp_h2", 2, 2, 0, TRAIN_T, 0),
+    ("sp_q0", 0, HEADS, 0, 100, 0), ("sp_q100", 0, HEADS, 100, TRAIN_T, 0),
+    ("sp_q0_chunk16", 0, HEADS, 0, 100, STATIC_CHUNK),
+    ("sp_q100_chunk16", 0, HEADS, 100, TRAIN_T, STATIC_CHUNK))
+TP_SP_LAYOUTS = ((1, 2), (2, 1))  # (sp, tp) of the 2 ranks that share the card
+# z3's fp32 step in a tp or sp layout against one process, of each leaf's
+# max. The layouts reorder sums (tp's row-parallel partial products, sp's
+# time blocks), and this step resolves no better in fp32: moving its input
+# by 1-2 ulps moves its leaves by up to 8.5e-5 of their max in one process,
+# and the layouts read 7.6e-5 (tp) and 1.0e-4 (sp) on the card; in fp64 the
+# layouts equal one process to ~1e-14 (tests/test_torch_tp.py,
+# test_torch_sp.py). The bound is 3x the largest of these readings, and
+# z3 plants layout faults (TP_SP_FAULTS) that it must catch. The loss is
+# held to 1e-5.
+TP_SP_TOL = 3e-4
+TP_SP_LOSS_TOL = 1e-5
+# z1: a shard against the rows and heads of the whole kernel call, which
+# does the same arithmetic on them (K2's fp32 atomics sum dQ and dP in
+# whatever order its blocks finish), absolute
+SHARD_WHOLE_TOL = 1e-5
+
+
+# z3's planted layout faults, each of which the bound must catch
+# (planted_fault); the halo's only under sp
+TP_SP_FAULTS = ("batch_norm_count", "conv_halo_frame")
+
+
+@contextlib.contextmanager
+def planted_fault(kind):
+    """One of z3's negative controls, patched in for the steps inside:
+    ``batch_norm_count`` counts one frame too many in every row of
+    BatchNorm's statistics; ``conv_halo_frame`` zeroes the farthest of the
+    7 frames of the depthwise conv's left halo on every sp rank but the
+    first."""
+    from liteasr_tpu_torch.nets import layers
+    from liteasr_tpu_torch.parallel import sharding
+
+    if kind == "batch_norm_count":
+        mod, attr, orig = layers, "train_batch_norm", layers.train_batch_norm
+
+        def fault(x, gamma, beta, eps=1e-5, frames=None):
+            return orig(x, gamma, beta, eps, (frames or x.shape[1]) + 1)
+    else:
+        mod, attr, orig = sharding, "sp_halo", sharding.sp_halo
+
+        def fault(x, pad, seq):
+            y = orig(x, pad, seq)
+            return y if seq.index == 0 else torch.cat([torch.zeros_like(y[:, :1]), y[:, 1:]], 1)
+    setattr(mod, attr, fault)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, orig)
+
+
+def shard_inputs(x, head0, heads, q0, q1):
+    """A shard's inputs cut from the whole call's ``x`` (train_slice_inputs):
+    heads head0.. of each batch row, queries q0:q1 with the next block's
+    first q_v row; and the whole call's rows it holds."""
+    rows = torch.tensor([b * HEADS + h for b in range(TRAIN_BH // HEADS)
+                         for h in range(head0, head0 + heads)], device=x["q_u"].device)
+    out = {n: x[n][rows] for n in ("q_u", "qv", "k", "v", "kv_lens", "dout")}
+    out["q_u"], out["dout"] = out["q_u"][:, q0:q1].contiguous(), out["dout"][:, q0:q1].contiguous()
+    out["qv"] = out["qv"][:, q0:q1 + (q1 < TRAIN_T)].contiguous()
+    out["p"] = x["p"][head0:head0 + heads].contiguous()
+    return out, rows
+
+
+def kernel_keep(fa, bh, tq, tqv, heads, shard, dev):
+    """The (BH, Tq, T') keep mask that K1' (bf16, dropout TRAIN_RATE, seed
+    TRAIN_SEED) draws at ``shard``, read off the kernel itself: with zero
+    scores every key weighs 1/T', and V = the unit vectors of one block of
+    64 keys at a time makes out[t, d] nonzero iff key 64 g + d is kept."""
+    d, t = TRAIN_D, TRAIN_T
+    z = dict(dtype=torch.bfloat16, device=dev)
+    q, qv, k = (torch.zeros(bh, n, d, **z) for n in (tq, tqv, t))
+    p = torch.zeros(heads, t, d, **z)
+    keep = []
+    for g in range(0, t, d):
+        j = torch.arange(g, min(t, g + d), device=dev)
+        v = torch.zeros(bh, t, d, **z)
+        v[:, j, j - g] = 1.0
+        out = fa.flash_attention(q, k, v, rel_qv=qv, rel_p=p, scale=1.0, return_lse=True,
+                                 dropout_rate=TRAIN_RATE, dropout_seed=TRAIN_SEED,
+                                 shard=shard)[0]
+        keep.append(out[:, :, :len(j)] != 0)
+    return torch.cat(keep, dim=-1)
+
+
+def check_shard_kernels(fa, dev, name):
+    """Phase z1: K1' and K2 in bf16 at the training shape on the shards
+    that tp = 2 (BH = 64 of 128, head0 0 or 2) and sp = 2 (100 / 99 of
+    T' = 199 queries, q0 0 or 100, with the next block's first q_v row; also
+    under chunk 16) give them, dropout 0.1, a kv_len = 0 row: against the
+    plain versions at the same offsets (phase 3's tolerances), against the
+    rows and heads of the whole kernel call (the halo's dQ_v row included),
+    the keep mask read off the kernel bit-equal to the whole call's slice
+    and to dropout_keep_global's; K1 at the sp offsets against the plain
+    version (validation's call); each call timed beside its bound over the
+    live scores and the plain version. Returns the report by case."""
+    gen = torch.Generator().manual_seed(SEED + 9)
+    scale = TRAIN_D ** -0.5
+    x = train_slice_inputs(gen, dev, torch.bfloat16, TRAIN_BH, TRAIN_T)
+    ftol, gtol = KERNEL_TOL[torch.bfloat16], GRAD_TOL[torch.bfloat16]
+    full_keep = kernel_keep(fa, TRAIN_BH, TRAIN_T, TRAIN_T, HEADS, fa.WHOLE, dev)
+    if not torch.equal(full_keep, fa.dropout_keep_global(TRAIN_BH, TRAIN_T, TRAIN_T, TRAIN_SEED,
+                                                         TRAIN_RATE, dev)):
+        raise RuntimeError("the whole call's kernel keep mask is not dropout_keep_global's")
+    rep = {"fwd_err": 0.0, "bwd_err": 0.0}
+    for label, head0, heads, q0, q1, chunk in TP_SP_CASES:
+        sx, rows = shard_inputs(x, head0, heads, q0, q1)
+        shard = fa.Shard(q0=q0, t_q=TRAIN_T, head0=head0, h_local=heads, h_total=HEADS)
+        ins = [sx[n] for n in ("q_u", "qv", "k", "v", "p")]
+        kv, dout = sx["kv_lens"], sx["dout"]
+
+        def fwd(plain=False, ins=ins, kv=kv, shard=shard, chunk=chunk, lse=True):
+            f = fa.flash_attention_plain if plain else fa.flash_attention
+            return f(ins[0], ins[2], ins[3], kv_lens=kv, rel_qv=ins[1], rel_p=ins[4],
+                     scale=scale, return_lse=lse, dropout_rate=TRAIN_RATE if lse else 0.0,
+                     dropout_seed=TRAIN_SEED, chunk=chunk, shard=shard)
+
+        def bwd(out, lse, plain=False, ins=ins, kv=kv, dout=dout, shard=shard, chunk=chunk):
+            f = fa.flash_rel_attention_bwd_plain if plain else fa.flash_rel_attention_bwd
+            return f(*ins, kv, out, lse, dout, scale, TRAIN_RATE, TRAIN_SEED, chunk, shard)
+
+        out, lse = fwd()
+        ref_out, ref_lse = fwd(plain=True)
+        out32 = out.float()
+        grads, ref_grads = bwd(out32, lse), bwd(out32, ref_lse, plain=True)
+        # the whole call with the shard's cotangent: its rows and heads
+        wout, wlse = fa.flash_attention(
+            x["q_u"], x["k"], x["v"], kv_lens=x["kv_lens"], rel_qv=x["qv"], rel_p=x["p"],
+            scale=scale, return_lse=True, dropout_rate=TRAIN_RATE, dropout_seed=TRAIN_SEED,
+            chunk=chunk)
+        wdout = torch.zeros_like(x["dout"])
+        wdout[rows[:, None], torch.arange(q0, q1, device=dev)] = dout
+        wgrads = fa.flash_rel_attention_bwd(
+            x["q_u"], x["qv"], x["k"], x["v"], x["p"], x["kv_lens"], wout.float(), wlse,
+            wdout, scale, TRAIN_RATE, TRAIN_SEED, chunk)
+        k1 = fwd(lse=False)
+        k1_ref = fwd(plain=True, lse=False)
+        wk1 = fa.flash_attention(x["q_u"], x["k"], x["v"], kv_lens=x["kv_lens"], rel_qv=x["qv"],
+                                 rel_p=x["p"], scale=scale, chunk=chunk)
+        torch.cuda.synchronize()
+        live = kv > 0
+        q1v = q1 + (q1 < TRAIN_T)
+        errs = {"out": (out32 - ref_out.float()).abs().max().item(),
+                "lse": (lse[live] - ref_lse[live]).abs().max().item(),
+                "k1": (k1.float() - k1_ref.float()).abs().max().item()}
+        ok = (within(out, ref_out, ftol) and within(lse[live], ref_lse[live], ftol)
+              and within(k1, k1_ref, ftol) and bool((lse[~live] == fa.NEG_INF).all()))
+        # the shard against the rows and heads of the whole call
+        wlse = wlse[rows][:, q0:q1]
+        whole = {"out": (out32, wout[rows][:, q0:q1].float()),
+                 "lse": (lse[live], wlse[live]),
+                 "k1": (k1.float(), wk1[rows][:, q0:q1].float())}
+        ok = ok and bool((wlse[~live] == fa.NEG_INF).all())
+        wg = (wgrads[0][rows][:, q0:q1], wgrads[1][rows][:, q0:q1v], wgrads[2][rows],
+              wgrads[3][rows], wgrads[4][head0:head0 + heads])
+        for gname, g, r, w in zip(("dq_u", "dqv", "dk", "dv", "dp"), grads, ref_grads, wg):
+            errs[gname] = (g.to(torch.bfloat16).float() - r).abs().max().item()
+            ok = ok and within(g.to(torch.bfloat16), r, gtol)
+            whole[gname] = (g, w)
+        if q1 < TRAIN_T:  # the halo: the next block's first q_v row, owned there
+            whole["dqv_halo"] = (grads[1][:, -1], wgrads[1][rows][:, q1])
+        for wname, (a, b) in whole.items():
+            errs[f"{wname}_whole"] = (a - b).abs().max().item()
+        if not ok or max(errs[f"{w}_whole"] for w in whole) > SHARD_WHOLE_TOL:
+            raise RuntimeError(f"K1/K1'/K2 at {label}: {errs} beyond {ftol}/{gtol} against "
+                               f"the plain versions or {SHARD_WHOLE_TOL} against the whole call")
+        keep = kernel_keep(fa, len(rows), q1 - q0, q1v - q0, heads, shard, dev)
+        if not (torch.equal(keep, full_keep[rows][:, q0:q1]) and torch.equal(
+                keep, fa.dropout_keep_global(len(rows), q1 - q0, TRAIN_T, TRAIN_SEED,
+                                             TRAIN_RATE, dev, shard))):
+            raise RuntimeError(f"the keep mask at {label} is not the whole call's slice")
+        r = {"lse_ms": cuda_time_ms(fwd), "bwd_ms": cuda_time_ms(lambda: bwd(out32, lse)),
+             "k1_ms": cuda_time_ms(lambda: fwd(lse=False)),
+             "lse_plain_ms": cuda_time_ms(lambda: fwd(plain=True), reps=5),
+             "bwd_plain_ms": cuda_time_ms(lambda: bwd(out32, ref_lse, plain=True), reps=5),
+             "k1_plain_ms": cuda_time_ms(lambda: fwd(plain=True, lse=False), reps=5)}
+        r["lse_bound_ms"], r["lse_bound_by"] = fwd_bound(
+            ins[0], ins[2], ins[3], kv_lens=kv, rel_qv=ins[1], rel_p=ins[4], lse=True,
+            chunk=chunk, q0=q0)
+        r["k1_bound_ms"], r["k1_bound_by"] = fwd_bound(
+            ins[0], ins[2], ins[3], kv_lens=kv, rel_qv=ins[1], rel_p=ins[4], chunk=chunk, q0=q0)
+        r["bwd_bound_ms"], r["bwd_bound_by"] = bwd_bound(*ins, kv, out32, lse, dout, chunk, q0)
+        rep[label] = r
+        rep["fwd_err"] = max(rep["fwd_err"], errs["out"], errs["lse"], errs["k1"])
+        rep["bwd_err"] = max(rep["bwd_err"], *(errs[g] for g in ("dq_u", "dqv", "dk", "dv", "dp")))
+        log(f"K1/K1'/K2 at {label} (BH={len(rows)} of {TRAIN_BH}, heads {head0}.."
+            f"{head0 + heads} of {HEADS}, queries {q0}..{q1} of {TRAIN_T}, q_v rows "
+            f"{q1v - q0}, chunk {chunk}) bf16: " + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+            + f" (tol {ftol}/{gtol} against plain, {SHARD_WHOLE_TOL} against the whole "
+            f"call); keep mask bit-equal to the whole call's; K1' "
+            f"{r['lse_ms']:.4f} ms (plain {r['lse_plain_ms']:.4f}, bound {r['lse_bound_ms']:.4f} "
+            f"{r['lse_bound_by']}), K2 {r['bwd_ms']:.4f} ms (plain {r['bwd_plain_ms']:.4f}, "
+            f"bound {r['bwd_bound_ms']:.4f} {r['bwd_bound_by']}), K1 {r['k1_ms']:.4f} ms "
+            f"(plain {r['k1_plain_ms']:.4f}, bound {r['k1_bound_ms']:.4f}) [{name}]")
+    return rep
+
+
+def tp_sp_worker(rank, sp, tp, addrs, root, out, dev=torch.device("cuda", 0)):
+    """One of the 2 ranks of phases z2-z4, on cuda:0 in a gloo group that
+    it starts itself (NCCL refuses two ranks on one device): the training
+    run through train.main (the port joins the caller's group), the fp32
+    step, the bf16 micro-step timed. Writes its results to ``out``."""
+    from liteasr_tpu_torch import parallel, train
+    from liteasr_tpu_torch.ops import flash_attention as fa
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist = torch.distributed
+    addr, addr2 = addrs.split(",")
+    dist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=2, rank=rank)
+    group = [f"distributed.coordinator_address={addr}", "distributed.num_processes=2",
+             f"distributed.process_id={rank}", f"distributed.sp={sp}", f"distributed.tp={tp}"]
+    calls = []
+    launch_fwd, launch_bwd = fa._launch_fwd, fa._launch_bwd
+
+    def rec_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse, *a):
+        if return_lse:
+            calls.append(("K1'", tuple(q.shape), tuple(rel_qv.shape), a[-1]))
+        return launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse, *a)
+
+    def rec_bwd(q_u, qv, *a):
+        calls.append(("K2", tuple(q_u.shape), tuple(qv.shape), a[-1]))
+        return launch_bwd(q_u, qv, *a)
+
+    fa._launch_fwd, fa._launch_bwd = rec_fwd, rec_bwd
+    res = {}
+    try:
+        run = os.path.join(root, f"tpsp_sp{sp}_tp{tp}")
+        overrides = u2_overrides(root, run, 1) + group + [
+            "inference.mode=ctc_greedy", f"inference.batch_size={N_VALID}",
+            "common.trigger=[{name: valid, interval: 1, unit: epoch}, "
+            "{name: save_model, interval: 1, unit: epoch}, "
+            "{name: inference, interval: 1, unit: epoch}]"]
+        reset_counts(fa)
+        parallel.counts.clear()
+        t0 = time.perf_counter()
+        trainer = train.main(overrides, device=dev)  # joins this group, ends it
+        torch.cuda.synchronize()
+        res.update(train_s=time.perf_counter() - t0, counts=counts(fa),
+                   collectives=dict(parallel.counts), calls=calls[:],
+                   micro=len(trainer.task.dataset("train")), n_valid=len(trainer.valid_set),
+                   losses=[float(x) for x in trainer._loss_accum],
+                   backend=trainer.backend, layout=trainer.layout, run=run)
+        fa._launch_fwd, fa._launch_bwd = launch_fwd, launch_bwd
+
+        dist.init_process_group("gloo", init_method=f"tcp://{addr2}", world_size=2, rank=rank)
+        parallel.distributed_init(dict(coordinator_address=addr2, num_processes=2,
+                                       process_id=rank, sp=sp, tp=tp), dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        res["step"] = dp_step(dev, shard=True)
+        res["faults"] = {}
+        for fault in TP_SP_FAULTS[:1 + (sp > 1)]:
+            with planted_fault(fault):
+                res["faults"][fault] = dp_step(dev, shard=True)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+
+        step, B = bench_step(dev, shard=True)
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        parallel.counts.clear()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                loss = step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / 5)
+        res.update(step_ms=statistics.median(times) * 1e3, step_loss=loss.item(),
+                   step_collectives={k: v / 15 for k, v in parallel.counts.items()},
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    finally:
+        parallel.destroy()
+    torch.save(res, out)
+
+
+def run_tp_sp(fa, root, dev, name, per_micro):
+    """Phases z2-z4, for tp = 2 and for sp = 2: 2 processes on the one card
+    (tp_sp_worker), started together, each layout in turn. z2: my_U2 at
+    full width through train.main on phase 6's corpus for 1 epoch, with the
+    valid, save_model and inference triggers: ``per_micro`` K1' and K2
+    launches per micro-batch per rank (phase 6's), at the shard's shapes;
+    finite losses; the checkpoint in the one-process layout, decoded in one
+    process to the error count the run's inference trigger logged. z3: the
+    fp32 step in the layout against the one-process step on the card
+    (dp_step), the loss within TP_SP_LOSS_TOL, every gradient leaf and the
+    BatchNorm statistics within TP_SP_TOL of the leaf's max, beside two
+    one-process runs' own difference and the step's fp32 resolution; each
+    of TP_SP_FAULTS planted must fail that bound. z4:
+    the bf16 micro-step at bench.py's point, ms per rank (informational:
+    the two ranks share the card). Returns the report."""
+    from liteasr_tpu_torch import infer
+    from liteasr_tpu_torch.config import compose
+    from liteasr_tpu_torch.config.core import load_yaml
+    from liteasr_tpu_torch.parallel import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref, again, moved = dp_step(dev), dp_step(dev), dp_step(dev, perturb=2.0 ** -23)
+    floor, resolution = leaf_diffs(ref, again), leaf_diffs(ref, moved)
+    ref_shapes = {k: tuple(v.shape) for k, v in build_model(torch.bfloat16, "cpu").state_dict().items()}
+    rep = {"fwd": 0, "lse": 0, "bwd": 0}
+    for sp, tp in TP_SP_LAYOUTS:
+        label = f"sp={sp} tp={tp}"
+        addrs = f"{free_address()},{free_address()}"
+        outs = [os.path.join(root, f"tpsp_{sp}{tp}_r{r}.pt") for r in (0, 1)]
+        env = dict(os.environ, PYTHONPATH=REPO)
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-sp-worker",
+                                   str(r), str(sp), str(tp), addrs, root, outs[r]], env=env)
+                 for r in (0, 1)]
+        try:
+            codes = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if codes != [0, 0]:
+            raise RuntimeError(f"{label}: the ranks exited with {codes}")
+        res = [torch.load(o, weights_only=False) for o in outs]
+        micro = res[0]["micro"]
+        for r, x in enumerate(res):
+            fwd, lse, bwd = x["counts"]
+            # K1: the valid batches' encoder and decoder, and the inference
+            # trigger's one decode batch (ctc_greedy: the encoder)
+            if (lse / micro, bwd / micro) != per_micro or fwd - lse != (
+                    ENC_LAYERS + 2 * DEC_LAYERS) * x["n_valid"] + ENC_LAYERS:
+                raise RuntimeError(f"{label} rank {r}: K1' {lse}, K2 {bwd}, K1 {fwd - lse} "
+                                   f"for {micro} micro-batches, {x['n_valid']} valid batches")
+            if x["backend"] != "gloo" or not all(math.isfinite(v) for v in x["losses"]):
+                raise RuntimeError(f"{label} rank {r}: backend {x['backend']}, losses {x['losses']}")
+            lay = x["layout"]
+            for kind, q_shape, qv_shape, shard in x["calls"]:
+                # the rank's heads of each row, or its block of the T' queries
+                sizes = sharding.split_sizes(shard.t_q or q_shape[1], sp)
+                want = (shard.h_local == HEADS // tp and shard.h_total == HEADS
+                        and shard.head0 == lay.tp_i * HEADS // tp
+                        and q_shape[0] % shard.h_local == 0
+                        and q_shape[1] == sizes[lay.sp_i] and shard.q0 == sum(sizes[:lay.sp_i])
+                        and qv_shape[1] == q_shape[1] + (sp > 1))
+                if not want:
+                    raise RuntimeError(f"{label} rank {r}: {kind} at {q_shape}, q_v {qv_shape}, "
+                                       f"{shard}")
+            rep["fwd"] += fwd
+            rep["lse"] += lse
+            rep["bwd"] += bwd
+        run = res[0]["run"]
+        ckpt = torch.load(os.path.join(run, "ckpts", "model.ep.1.pt"), weights_only=True)
+        if {k: tuple(v.shape) for k, v in ckpt.items()} != ref_shapes:
+            raise RuntimeError(f"{label}: the checkpoint's layout is not the one-process one")
+        with open(os.path.join(run, "train.log")) as f:
+            text = f.read()
+        logged = re.findall(r"test error rate: (\d+) / (\d+)", text)
+        cfg = compose(["inference.ckpt_name=1", "inference.model_avg=false",
+                       "distributed.coordinator_address=null", "distributed.sp=1",
+                       "distributed.tp=1"], base=load_yaml(os.path.join(run, "config.yaml")))
+        one = infer.infer(cfg, device=dev)
+        if [tuple(int(v) for v in m) for m in logged] != [tuple(one[0])]:
+            raise RuntimeError(f"{label}: the run's inference trigger logged {logged}, one "
+                               f"process decodes {one}")
+        valid = [ln.split(" - ")[-1].strip() for ln in text.splitlines() if "valid loss:" in ln]
+        log(f"tp/sp train {label} (2 ranks on one card, gloo on CUDA tensors): {micro} "
+            f"micro-batches in {res[0]['train_s']:.2f} s incl. the group's start, validation, "
+            f"checkpoint and decode; K1' {res[0]['counts'][1]} + K2 {res[0]['counts'][2]} a rank "
+            f"({per_micro[0]} + {per_micro[1]} per micro-batch) at q {sorted(set(c[1] for c in res[0]['calls']))[:2]} "
+            f"q_v {sorted(set(c[2] for c in res[0]['calls']))[:2]}; losses rank 0 "
+            f"{[round(v, 3) for v in res[0]['losses']]}, rank 1 {[round(v, 3) for v in res[1]['losses']]}; "
+            f"collectives {res[0]['collectives']}; {valid}; checkpoint in the one-process "
+            f"layout, decoded in one process: error count {one[0][0]}/{one[0][1]}, as the "
+            f"trigger logged [{name}]")
+
+        def against_one(shares):
+            """(loss over its max error, the leaves' errors, worst first)"""
+            got = (sum(s[0] for s in shares) if sp > 1 else shares[0][0], shares[0][1],
+                   shares[0][2])
+            worst = sorted(((e, n) for n, e in leaf_diffs(ref, got).items()), reverse=True)
+            return got[0], abs(got[0] - ref[0]) / abs(ref[0]), worst
+
+        loss, loss_err, worst = against_one([x["step"] for x in res])
+        log(f"tp/sp step parity fp32 {label} (2+1 layers at full width, 2 ranks on one card): "
+            f"loss {loss:.6f} vs {ref[0]:.6f} (rel {loss_err:.3g}); worst of {len(worst)} "
+            f"leaves over their max: {', '.join(f'{n} {e:.3g}' for e, n in worst[:3])}; "
+            f"two one-process runs differ by up to {max(floor.values()):.3g}, the "
+            f"one-process step with its input moved by 1-2 ulps by up to "
+            f"{max(resolution.values()):.3g} ({max(resolution, key=resolution.get)}); bound "
+            f"{TP_SP_TOL:.3g} (loss {TP_SP_LOSS_TOL:.3g}) [{name}]")
+        if loss_err > TP_SP_LOSS_TOL or worst[0][0] > TP_SP_TOL:
+            raise RuntimeError(f"the {label} step disagrees with the one-process step")
+        for fault in res[0]["faults"]:
+            f_loss, f_err, f_worst = against_one([x["faults"][fault] for x in res])
+            caught = f_err > TP_SP_LOSS_TOL or f_worst[0][0] > TP_SP_TOL
+            log(f"tp/sp step parity fp32 {label} with the planted fault {fault}: loss rel "
+                f"{f_err:.3g}; worst leaves over their max: "
+                f"{', '.join(f'{n} {e:.3g}' for e, n in f_worst[:3])}; "
+                f"{'caught' if caught else 'NOT caught'} by the bound {TP_SP_TOL:.3g} [{name}]")
+            if not caught:
+                raise RuntimeError(f"z3's bound misses the planted fault {fault} at {label}")
+        for r, x in enumerate(res):
+            log(f"tp/sp micro-step {label} rank {r} at bench.py's point (bf16, both ranks on "
+                f"the one card): {x['step_ms']:.2f} ms (informational), loss "
+                f"{x['step_loss']:.4f}, peak {x['peak_gib']:.2f} GiB, collectives per "
+                f"micro-step {x['step_collectives']} [{name}]")
+        rep[f"sp{sp}_tp{tp}_step_ms"] = [x["step_ms"] for x in res]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    return rep
+
+
 def load_baseline(root):
     """The flash_attention module of another checkout (the parent commit,
     unpacked with git archive), loaded on its own: it builds that
@@ -3302,6 +3780,10 @@ def main() -> int:
     from liteasr_tpu_torch.ops import flash_attention as fa
     from liteasr_tpu_torch.tasks.asr import ASRTask
 
+    if sys.argv[1:2] == ["--tp-sp-worker"]:  # one rank of phases z2-z4
+        rank, sp, tp, addrs, root, out = sys.argv[2:8]
+        tp_sp_worker(int(rank), int(sp), int(tp), addrs, root, out)
+        return 0
     dev = torch.device("cuda", 0)
     name = card()
     log(name)
@@ -3334,7 +3816,13 @@ def main() -> int:
     kc = check_chunk_kernels(fa, dev, name)  # k
     kp = check_para_kernels(fa, dev, name)  # o
     kw = check_w2v_kernels(fa, dev, name)  # t
+    kz = check_shard_kernels(fa, dev, name)  # z1
     if "--kernels-only" in sys.argv[1:]:
+        return 0
+    if "--tp-sp-only" in sys.argv[1:]:  # z2-z4
+        with tempfile.TemporaryDirectory() as root:
+            write_corpus(root)
+            run_tp_sp(fa, root, dev, name, (ENC_LAYERS, ENC_LAYERS))
         return 0
     if "--dp-only" in sys.argv[1:]:  # phase 7's step, then x and y
         with tempfile.TemporaryDirectory() as root:
@@ -3407,6 +3895,7 @@ def main() -> int:
             fa, root, dev, name, (ENC_LAYERS, ENC_LAYERS))  # x
         check_dp_parity(dev, name)  # x
         dp_step = time_dp_step(dev, name, plain_step_ms)  # y
+        tpsp = run_tp_sp(fa, root, dev, name, (ENC_LAYERS, ENC_LAYERS))  # z2-z4
     # launches with a chunk width, as the wrappers counted them: K1 in the
     # static run's validation and the static model's offline decode (chunk
     # 16), K1'/K2 in the chunked draws and the static run
@@ -3424,9 +3913,9 @@ def main() -> int:
                      + avg_fwd + attention_fwd + td_fwd + td_lse + td_ckpt_fwd
                      + td_dec_fwd + sum(dyn[:2]) + sum(sta[:2]) + stream_dec_fwd
                      + para_fwd + para_lse + para_ckpt_fwd + para_dec_fwd + w2v_fwd
-                     + dp_fwd),
+                     + dp_fwd + tpsp["fwd"]),
         "max_abs_err": max(k1["max_abs_err"], k2["fwd_err"], kc["fwd_err"], kc["k1_err"],
-                           kp["max_abs_err"], kw["max_abs_err"]),
+                           kp["max_abs_err"], kw["max_abs_err"], kz["fwd_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
@@ -3448,7 +3937,14 @@ def main() -> int:
            for key, v in r.items()},
         "wav2vec2_launches": w2v_fwd,
         "lse_launches": (train_lse + recipe_lse + td_lse + dyn[1] + sta[1] + para_lse
-                         + dp_lse),
+                         + dp_lse + tpsp["lse"]),
+        # z1: K1' and K1 at the tp and sp shards of the training shape (bf16,
+        # one call each); z2: their launches in the 2-rank training runs
+        "tp_sp_launches": tpsp["fwd"],
+        "tp_sp_lse_launches": tpsp["lse"],
+        **{f"shard_{case}_{key}": v for case, r in kz.items() if isinstance(r, dict)
+           for key, v in r.items() if key.startswith(("lse_", "k1_"))},
+        "tp_sp_step_ms": {k: v for k, v in tpsp.items() if k.endswith("step_ms")},
         # phase x: K1 (valid and the decode in the group) and K1' in the
         # one-rank NCCL group; phase y's micro-step in that group
         "dp_launches": dp_fwd,
@@ -3483,9 +3979,13 @@ def main() -> int:
         "route": "cuda",
         "source": "liteasr_tpu_torch/csrc/rel_attention_bwd.cu",
         "replaces": "liteasr_tpu/ops/flash_attention.py:566",
-        "launches": train_bwd + recipe_bwd + td_bwd + dyn[2] + sta[2] + para_bwd + dp_bwd,
+        "launches": (train_bwd + recipe_bwd + td_bwd + dyn[2] + sta[2] + para_bwd + dp_bwd
+                     + tpsp["bwd"]),
         "dp_launches": dp_bwd,
-        "max_abs_err": max(k2["bwd_err"], kc["bwd_err"]),
+        "tp_sp_launches": tpsp["bwd"],
+        **{f"shard_{case}_{key}": v for case, r in kz.items() if isinstance(r, dict)
+           for key, v in r.items() if key.startswith("bwd_")},
+        "max_abs_err": max(k2["bwd_err"], kc["bwd_err"], kz["bwd_err"]),
         "ms": k2["bwd_ms"],
         "plain_ms": k2["bwd_plain_ms"],
         "bound_ms": k2["bwd_bound_ms"],

@@ -137,6 +137,15 @@ def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     return out
 
 
+def flax_to_shard(variables, rank: int, tp: int) -> Dict[str, torch.Tensor]:
+    """flax variables -> tp rank ``rank``'s shard of the torch state_dict
+    (``parallel.sharding``'s rules): a JAX checkpoint loads straight into a
+    tensor-parallel run."""
+    from liteasr_tpu_torch.parallel.sharding import shard_state_dict
+
+    return shard_state_dict(flax_to_state_dict(variables), rank, tp)
+
+
 def state_dict_to_flax(state_dict) -> dict:
     """torch state_dict -> flax variables {"params", "batch_stats"} of numpy
     arrays (the inverse of :func:`flax_to_state_dict`)."""

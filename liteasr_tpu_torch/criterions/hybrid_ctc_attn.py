@@ -7,6 +7,11 @@ entropy term), taken on the logits, summed over non-ignored positions and
 divided by the number of real utterances; the CTC part is a summed NLL over
 feasible real utterances divided by the same count; blended with
 ``ctc_weight``.
+
+Under a process group the count is the global batch's, summed over the dp
+group (tp and sp peers hold the same rows); under sequence parallelism the
+model's forward returns the logits of its ``tail_rows`` only, and the loss
+takes those rows, so that the ranks' losses sum to the global one.
 """
 
 import math
@@ -80,6 +85,8 @@ class HybridCTCLoss(LiteasrLoss):
         nutt = torch.clamp(parallel.global_sum(valid.sum()), min=1.0)  # global batch
 
         h_attn, h_ctc = model(xs, xlens, ys, ylens, train=train)
+        rows = model.tail_rows(xs.shape[0])
+        xlens, ys, ylens, valid = xlens[rows], ys[rows], ylens[rows], valid[rows]
 
         tgt_attn, _ = model.get_target(ys, ylens)
         # padded rows: every position ignored, so they contribute 0

@@ -65,6 +65,15 @@
 // products and six barriers, and with two blocks an SM
 // the latency of that chain, not the tensor cores or HBM, sets the time.
 //
+// Under tensor and sequence parallelism a call computes a shard of the
+// full attention (tc::Shard): its bh rows may be a head slice of each batch
+// row (the dropout hash then folds the full call's batch x head row), and
+// its queries a contiguous block of the full call's, at offset qoff, over
+// all the keys; the rel-pos diagonals, the chunk mask and the hash read the
+// full call's query index, and q_v may carry one row more, the next
+// shard's first, which the block's last query reads at keys past t + 1.
+// Row for row the shard computes what the full call does.
+//
 // C interface (ctypes): rel_attention_bwd returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -111,9 +120,9 @@ rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qv,
                     const float* __restrict__ out, const float* __restrict__ lse,
                     const float* __restrict__ dout, float* __restrict__ dq,
                     float* __restrict__ dqv, float* __restrict__ dk,
-                    float* __restrict__ dv, float* __restrict__ dp, int Tn, int D,
+                    float* __restrict__ dv, float* __restrict__ dp, int Tq, int Tk, int D,
                     int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
-                    float inv_keep, int tqe, int tke, int chunk) {
+                    float inv_keep, int tqe, int tke, int chunk, tc::Shard sh) {
   extern __shared__ float smem[];
   // phase A
   float* sQ = smem;              // [DC][LDQ]  Q_u^T chunk
@@ -137,28 +146,33 @@ rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qv,
   constexpr int NC = DMAX / 16;  // output columns per thread
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BM;
+  const int g0 = sh.qoff + q0;  // the full call's index of the block's row 0
+  const uint32_t hrow = sh.hash_row(bh);
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
-  const int kv_len = kv_lens ? kv_lens[bh] : Tn;
-  const size_t row0 = (size_t)bh * Tn * D;
+  const int kv_len = kv_lens ? kv_lens[bh] : Tk;
+  // query rows (Q_u, O, dO, dQ_u), q_v rows (q_v, dQ_v) and key rows (K, V,
+  // dK, dV) of this bh
+  const size_t row0 = (size_t)bh * Tq * D, vrow0 = (size_t)bh * sh.tqv * D,
+               krow0 = (size_t)bh * Tk * D;
   const float* qb = q + row0;
-  const float* qvb = qv + row0;
-  const float* kb = k + row0;
-  const float* vb = v + row0;
-  const float* pb = p + (size_t)(bh % p_mod) * Tn * D;
+  const float* qvb = qv + vrow0;
+  const float* kb = k + krow0;
+  const float* vb = v + krow0;
+  const float* pb = p + (size_t)(bh % p_mod) * Tk * D;
   const float* ob = out + row0;
   const float* dob = dout + row0;
 
   {  // Dvec = rowsum(dO * O) and lse of the block's rows: 4 threads a row
     const int r = tid / 4, part = tid % 4, t = q0 + r;
     float acc = 0.f;
-    if (t < Tn)
+    if (t < Tq)
       for (int d = part; d < D; d += 4) acc += dob[(size_t)t * D + d] * ob[(size_t)t * D + d];
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     if (part == 0) {
       sDvec[r] = acc;
-      sLse[r] = t < Tn ? lse[(size_t)bh * Tn + t] : NEG_INF;
+      sLse[r] = t < Tq ? lse[(size_t)bh * Tq + t] : NEG_INF;
     }
   }
 
@@ -173,11 +187,12 @@ rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qv,
   // under a chunk width key j is hidden from query t iff j >= (t / chunk
   // + 1) chunk: the key tiles past the block's last row's chunk end give
   // A = dS = 0 to every row of the block, so the walk ends there
-  const int kwalk = chunk > 0 ? min(Tn, ((min(q0 + BM, Tn) - 1) / chunk + 1) * chunk) : Tn;
+  const int kwalk =
+      chunk > 0 ? min(Tk, ((sh.qoff + min(q0 + BM, Tq) - 1) / chunk + 1) * chunk) : Tk;
   int cend[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    cend[i] = chunk > 0 ? ((q0 + ty + 16 * i) / chunk + 1) * chunk : Tn;
+    cend[i] = chunk > 0 ? ((g0 + ty + 16 * i) / chunk + 1) * chunk : Tk;
 
   for (int k0 = 0; k0 < kwalk; k0 += BN) {
     // ---- phase A: scores, dO V^T, then A, A_v, dS ----
@@ -188,34 +203,34 @@ rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qv,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         s_ac[i][j] = s_bd[i][j] = s_dp[i][j] = 0.f;
-        nxt[i][j] = q0 + ty + 16 * i < k0 + tx + 16 * j;
+        nxt[i][j] = g0 + ty + 16 * i < k0 + tx + 16 * j;
       }
     // window slot w holds diagonal delta = dbase + w
-    const int dbase = q0 - k0 - (BN - 1);
+    const int dbase = g0 - k0 - (BN - 1);
 
     for (int c0 = 0; c0 < D; c0 += DC) {
       __syncthreads();  // earlier readers of the shared buffers are done
       for (int idx = tid; idx < BM * DC; idx += NT) {
         const int r = idx / DC, c = idx % DC, t = q0 + r, d = c0 + c;
-        const bool in = t < Tn && d < D;
+        const bool in = t < Tq && d < D;
         sQ[c * LDQ + r] = in ? qb[(size_t)t * D + d] : 0.f;
         sO[c * LDQ + r] = in ? dob[(size_t)t * D + d] : 0.f;
       }
       for (int idx = tid; idx < BN * DC; idx += NT) {
         const int r = idx / DC, c = idx % DC, j = k0 + r, d = c0 + c;
-        const bool in = j < Tn && d < D;
+        const bool in = j < Tk && d < D;
         sK[c * LDK + r] = in ? kb[(size_t)j * D + d] : 0.f;
         sV[c * LDK + r] = in ? vb[(size_t)j * D + d] : 0.f;
       }
       for (int idx = tid; idx < (BM + 1) * DC; idx += NT) {
         const int r = idx / DC, c = idx % DC, t = q0 + r, d = c0 + c;
-        sQv[c * LDQV + r] = (t < Tn && d < D) ? qvb[(size_t)t * D + d] : 0.f;
+        sQv[c * LDQV + r] = (t < sh.tqv && d < D) ? qvb[(size_t)t * D + d] : 0.f;
       }
       for (int idx = tid; idx < PW * DC; idx += NT) {
         const int w = idx / DC, c = idx % DC, d = c0 + c;
         const int delta = dbase + w;
-        const int row = delta >= 0 ? Tn - 1 - delta : -delta - 2;  // -1 at delta == -1
-        sP[c * LDP + w] = (row >= 0 && row < Tn && d < D) ? pb[(size_t)row * D + d] : 0.f;
+        const int row = delta >= 0 ? Tk - 1 - delta : -delta - 2;  // -1 at delta == -1
+        sP[c * LDP + w] = (row >= 0 && row < Tk && d < D) ? pb[(size_t)row * D + d] : 0.f;
       }
       __syncthreads();
 
@@ -252,16 +267,16 @@ rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qv,
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i, t = q0 + r;
       const float lse_t = sLse[r], dvec = sDvec[r];
-      const bool live = t < Tn && lse_t > NEG_INF / 2;
+      const bool live = t < Tq && lse_t > NEG_INF / 2;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + 16 * j;
         float a = 0.f;
-        if (live && key < Tn && key < kv_len && key < cend[i])
+        if (live && key < Tk && key < kv_len && key < cend[i])
           a = expf((s_ac[i][j] + s_bd[i][j]) * scale - lse_t);
         float av = a, dpe = s_dp[i][j];
         if (dropout) {
-          const bool keep = keep_elem((uint32_t)bh, t, key, tqe, tke, seed, thr);
+          const bool keep = keep_elem(hrow, sh.qoff + t, key, tqe, tke, seed, thr);
           av = keep ? a * inv_keep : 0.f;
           dpe = keep ? dpe * inv_keep : 0.f;
         }
@@ -275,9 +290,9 @@ rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qv,
     for (int idx = tid; idx < BN * DMAX; idx += NT) {
       const int r = idx / DMAX, d = idx % DMAX;
       const int j = k0 + r, t = q0 + r;
-      rK[idx] = (j < Tn && d < D) ? kb[(size_t)j * D + d] : 0.f;
-      rQ[idx] = (t < Tn && d < D) ? qb[(size_t)t * D + d] : 0.f;
-      rO[idx] = (t < Tn && d < D) ? dob[(size_t)t * D + d] : 0.f;
+      rK[idx] = (j < Tk && d < D) ? kb[(size_t)j * D + d] : 0.f;
+      rQ[idx] = (t < Tq && d < D) ? qb[(size_t)t * D + d] : 0.f;
+      rO[idx] = (t < Tq && d < D) ? dob[(size_t)t * D + d] : 0.f;
     }
     __syncthreads();
 
@@ -319,13 +334,13 @@ rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qv,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int j = k0 + ty + 16 * i;
-        if (j >= Tn) continue;
+        if (j >= Tk) continue;
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
           const int d = tx + 16 * c;
           if (d < D) {
-            atomicAdd(dk + row0 + (size_t)j * D + d, pk[i][c]);
-            atomicAdd(dv + row0 + (size_t)j * D + d, pv[i][c]);
+            atomicAdd(dk + krow0 + (size_t)j * D + d, pk[i][c]);
+            atomicAdd(dv + krow0 + (size_t)j * D + d, pv[i][c]);
           }
         }
       }
@@ -336,12 +351,12 @@ rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qv,
     for (int idx = tid; idx < PW * DMAX; idx += NT) {
       const int w = idx / DMAX, d = idx % DMAX;
       const int delta = dbase + w;
-      const int row = delta >= 0 ? Tn - 1 - delta : -delta - 2;
-      rP[idx] = (row >= 0 && row < Tn && d < D) ? pb[(size_t)row * D + d] : 0.f;
+      const int row = delta >= 0 ? Tk - 1 - delta : -delta - 2;
+      rP[idx] = (row >= 0 && row < Tk && d < D) ? pb[(size_t)row * D + d] : 0.f;
     }
     for (int idx = tid; idx < (BM + 1) * DMAX; idx += NT) {
       const int r = idx / DMAX, d = idx % DMAX, t = q0 + r;
-      rQv[idx] = (t < Tn && d < D) ? qvb[(size_t)t * D + d] : 0.f;
+      rQv[idx] = (t < sh.tqv && d < D) ? qvb[(size_t)t * D + d] : 0.f;
     }
     __syncthreads();
 
@@ -352,7 +367,7 @@ rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qv,
       const int kg = k0 + j;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i, tg = q0 + r;
+        const int r = ty + 16 * i, tg = g0 + r;
         const float wl = kg <= tg ? sDS[r * LDS + j] : 0.f;
         const float wg = (r >= 1 && kg > tg) ? sDS[(r - 1) * LDS + j] : 0.f;
         const float* pl = rP + (r - j + BN - 1) * DMAX + tx;
@@ -364,7 +379,7 @@ rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qv,
     }
     if (ty == 0) {  // the crossover: row q0 + 64 from this tile's last row
       for (int j = 0; j < BN; ++j) {
-        if (k0 + j <= q0 + BM) continue;
+        if (k0 + j <= g0 + BM) continue;
         const float w = sDS[(BM - 1) * LDS + j];
         const float* pg = rP + (BM - 1 - j + BN - 1) * DMAX + tx;
 #pragma unroll
@@ -376,35 +391,36 @@ rel_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ qv,
     for (int idx = tid; idx < PW * DMAX; idx += NT) {
       const int w = idx / DMAX, d = idx % DMAX;
       const int delta = dbase + w;
-      const int row = delta >= 0 ? Tn - 1 - delta : -delta - 2;
-      if (delta == -1 || row < 0 || row >= Tn || d >= D) continue;
+      const int row = delta >= 0 ? Tk - 1 - delta : -delta - 2;
+      if (delta == -1 || row < 0 || row >= Tk || d >= D) continue;
       const int dl = w - (BN - 1);  // local t - j on this diagonal
       const int shift = delta >= 0 ? 0 : 1;
       const int lo = max(0, dl), hi = min(BM, BN + dl);
       float acc = 0.f;
       for (int t = lo; t < hi; ++t)
         acc = fmaf(sDS[t * LDS + t - dl], rQv[(t + shift) * DMAX + d], acc);
-      atomicAdd(dp + (size_t)(bh % p_mod) * Tn * D + (size_t)row * D + d, acc);
+      atomicAdd(dp + (size_t)(bh % p_mod) * Tk * D + (size_t)row * D + d, acc);
     }
   }
 
+  // dQ_v rows run to tqv: the row after the local last query (the next
+  // shard's first, when tqv = Tq + 1) takes that query's crossover terms
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + ty + 16 * i;
-    if (t >= Tn) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
       if (d >= D) continue;
-      dq[row0 + (size_t)t * D + d] = acc_dq[i][c];
-      atomicAdd(dqv + row0 + (size_t)t * D + d, acc_dqv[i][c]);
+      if (t < Tq) dq[row0 + (size_t)t * D + d] = acc_dq[i][c];
+      if (t < sh.tqv) atomicAdd(dqv + vrow0 + (size_t)t * D + d, acc_dqv[i][c]);
     }
   }
-  if (ty == 0 && q0 + BM < Tn) {
+  if (ty == 0 && q0 + BM < sh.tqv) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) atomicAdd(dqv + row0 + (size_t)(q0 + BM) * D + d, acc_x[c]);
+      if (d < D) atomicAdd(dqv + vrow0 + (size_t)(q0 + BM) * D + d, acc_x[c]);
     }
   }
 }
@@ -414,19 +430,20 @@ template <int DMAX>
 cudaError_t launch(const void* q, const void* qv, const void* k, const void* v,
                    const void* p, const int32_t* kv_lens, const float* out,
                    const float* lse, const float* dout, float* dq, float* dqv, float* dk,
-                   float* dv, float* dp, int BH, int Tn, int D, int p_mod,
+                   float* dv, float* dp, int BH, int Tq, int Tk, int D, int p_mod,
                    float scale, int dropout, uint32_t seed, uint32_t thr, float inv_keep,
-                   int tqe, int tke, int chunk, cudaStream_t stream) {
+                   int tqe, int tke, int chunk, tc::Shard sh, cudaStream_t stream) {
   constexpr size_t smem = Smem<DMAX>::kBytes;
   auto kernel = rel_attn_bwd_kernel<DMAX>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tn + BM - 1) / BM, BH);
+  dim3 grid((Tq + BM - 1) / BM, BH);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(qv), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(p), kv_lens, out, lse, dout, dq,
-      dqv, dk, dv, dp, Tn, D, p_mod, scale, dropout, seed, thr, inv_keep, tqe, tke, chunk);
+      dqv, dk, dv, dp, Tq, Tk, D, p_mod, scale, dropout, seed, thr, inv_keep, tqe, tke, chunk,
+      sh);
   return cudaGetLastError();
 }
 
@@ -507,9 +524,10 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
                        const float* __restrict__ lse, const bf16* __restrict__ dob,
                        const float* __restrict__ dvec, float* __restrict__ dq,
                        float* __restrict__ dqv, float* __restrict__ dk,
-                       float* __restrict__ dv, float* __restrict__ dp, int Tn, int D,
-                       int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
-                       float inv_keep, int tqe, int tke, int chunk, int vec) {
+                       float* __restrict__ dv, float* __restrict__ dp, int Tq, int Tk,
+                       int D, int p_mod, float scale, int dropout, uint32_t seed,
+                       uint32_t thr, float inv_keep, int tqe, int tke, int chunk, tc::Shard sh,
+                       int vec) {
   using S = TcSmem<DMAX>;
   constexpr int NCH = DMAX / 8, KS = DMAX / 16, NO = DMAX / 8;
   extern __shared__ __align__(128) char tsm[];
@@ -521,14 +539,17 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
   const int bh = blockIdx.y, k0 = blockIdx.x * BN;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, qd = lane & 3, m0 = 16 * warp;
-  const int kv_len = kv_lens ? kv_lens[bh] : Tn;
-  const size_t row0 = (size_t)bh * Tn * D;
+  const int kv_len = kv_lens ? kv_lens[bh] : Tk;
+  // query rows (Q_u, dO, dQ_u), q_v rows (q_v, dQ_v) and key rows (K, V, dK,
+  // dV) of this bh
+  const size_t row0 = (size_t)bh * Tq * D, vrow0 = (size_t)bh * sh.tqv * D,
+               krow0 = (size_t)bh * Tk * D;
 
   // the dropout hash's term of each of the thread's two keys, whether a
   // row may weigh them, and (under a chunk width) the first query that may:
-  // key j is seen by query t iff t >= (j / chunk) chunk
+  // key j is seen by query t (the full call's index) iff t >= (j / chunk) chunk
   const uint32_t kcol[2] = {tc::keep_col(k0 + m0 + g, tke), tc::keep_col(k0 + m0 + g + 8, tke)};
-  const bool key_live[2] = {k0 + m0 + g < min(Tn, kv_len), k0 + m0 + g + 8 < min(Tn, kv_len)};
+  const bool key_live[2] = {k0 + m0 + g < min(Tk, kv_len), k0 + m0 + g + 8 < min(Tk, kv_len)};
   const int kfirst[2] = {chunk > 0 ? (k0 + m0 + g) / chunk * chunk : 0,
                          chunk > 0 ? (k0 + m0 + g + 8) / chunk * chunk : 0};
   float dk_acc[NO][4], dv_acc[NO][4];
@@ -540,46 +561,46 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
   // a key tile wholly past kv_len (or a row bh with no key: lse = NEG_INF
   // everywhere) has A = 0: every gradient it touches is 0
   if (k0 < kv_len) {
-    const bf16* pb = p + (size_t)(bh % p_mod) * Tn * D;
-    float* dpt = dp + (size_t)(bh % p_mod) * Tn * D;
-    const int nq = (Tn + BM - 1) / BM;
+    const bf16* pb = p + (size_t)(bh % p_mod) * Tk * D;
+    float* dpt = dp + (size_t)(bh % p_mod) * Tk * D;
+    const int nq = (Tq + BM - 1) / BM;
     // the query tiles before the one that holds the tile's first key's
     // chunk start see none of its keys (A = dS = 0): skipped, exactly
-    const int it0 = chunk > 0 ? (k0 / chunk * chunk) / BM : 0;
+    const int it0 = chunk > 0 ? max(0, k0 / chunk * chunk - sh.qoff) / BM : 0;
 
     auto load_query_tile = [&](int it) {
       const int q0 = it * BM;
-      auto qrow = [&](int r) { return q0 + r < Tn ? q0 + r : -1; };
+      auto qrow = [&](int r) { return q0 + r < Tq ? q0 + r : -1; };
       tc::load_tile<NCH>(tsm + S::oQ, q + row0, 64, D, vec, qrow);
       tc::load_tile<NCH>(tsm + S::oDO, dob + row0, 64, D, vec, qrow);
-      tc::load_tile<NCH>(tsm + S::oQv, qv + row0, 80, D, vec,
-                         [&](int r) { return (r <= BM && q0 + r < Tn) ? q0 + r : -1; });
-      const int dbase = q0 - k0 - (BN - 1);
+      tc::load_tile<NCH>(tsm + S::oQv, qv + vrow0, 80, D, vec,
+                         [&](int r) { return (r <= BM && q0 + r < sh.tqv) ? q0 + r : -1; });
+      const int dbase = sh.qoff + q0 - k0 - (BN - 1);
       tc::load_tile<NCH>(tsm + S::oP, pb, 128, D, vec,
-                         [&](int w) { return tc::window_row(dbase, w, Tn); });
-      // lse and Dvec of the tile's rows, zero past Tn (where step 3 reads
+                         [&](int w) { return tc::window_row(dbase, w, Tk); });
+      // lse and Dvec of the tile's rows, zero past Tq (where step 3 reads
       // neither)
       const int i = threadIdx.x, t = q0 + (i & 63);
       tc::cp_async4(tc::smem_u32(tsm + S::oL + 4 * i),
-                    (i < 64 ? lse : dvec) + (size_t)bh * Tn + min(t, Tn - 1), t < Tn);
+                    (i < 64 ? lse : dvec) + (size_t)bh * Tq + min(t, Tq - 1), t < Tq);
       tc::cp_async_commit();
     };
 
-    auto krow = [&](int r) { return k0 + r < Tn ? k0 + r : -1; };
-    tc::load_tile<NCH>(tsm + S::oK, k + row0, 64, D, vec, krow);
-    tc::load_tile<NCH>(tsm + S::oV, v + row0, 64, D, vec, krow);
+    auto krow = [&](int r) { return k0 + r < Tk ? k0 + r : -1; };
+    tc::load_tile<NCH>(tsm + S::oK, k + krow0, 64, D, vec, krow);
+    tc::load_tile<NCH>(tsm + S::oV, v + krow0, 64, D, vec, krow);
     load_query_tile(it0);
 
     for (int it = it0; it < nq; ++it) {
-      const int q0 = it * BM;
+      const int q0 = it * BM, g0 = sh.qoff + q0;
       const float* sl = reinterpret_cast<const float*>(tsm + S::oL);
-      const int dbase = q0 - k0 - (BN - 1);
+      const int dbase = g0 - k0 - (BN - 1);
       tc::cp_async_wait_all();
       tc::fence_async_smem();
       __syncthreads();  // this query tile landed
       uint32_t* skr = reinterpret_cast<uint32_t*>(tsm + S::oKr);
       if (dropout && threadIdx.x < 64)  // read in step 3, after the next barrier
-        skr[threadIdx.x] = tc::keep_row((uint32_t)bh, q0 + threadIdx.x, tqe, seed);
+        skr[threadIdx.x] = tc::keep_row(sh.hash_row(bh), g0 + threadIdx.x, tqe, seed);
 
       // 1. window scores B = q_v[q0 .. q0+63] . window^T into sB, two wgmma
       //    halves of 64 slots, and the crossover row 64 as dot products while
@@ -660,14 +681,14 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
         for (int e = 0; e < 2; ++e) {
           const int r = 8 * n + 2 * qd + e;
           const float lse_t = sl[r], dvec_t = sl[64 + r];
-          const bool row_live = q0 + r < Tn && lse_t > NEG_INF / 2;
+          const bool row_live = q0 + r < Tq && lse_t > NEG_INF / 2;
           const uint32_t krow = dropout ? skr[r] : 0u;  // the hash's row term
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int c = m0 + g + 8 * h, w = BN - 1 + r - c, delta = dbase + w;
             const float bd = sB[(delta < 0 ? r + 1 : r) * LDB + w];
             const float x = s[n][2 * h + e] + (delta == -1 ? 0.f : bd);
-            const float a = row_live && key_live[h] && q0 + r >= kfirst[h]
+            const float a = row_live && key_live[h] && g0 + r >= kfirst[h]
                                 ? __expf(x * scale - lse_t)
                                 : 0.f;
             float av = a, dpe = dpv[n][2 * h + e];
@@ -759,7 +780,7 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
         tc::wg_hold(acc);
         red_block(dq + row0, D, 0, acc, lane, [&](int i) {
           const int t = q0 + m0 + i;
-          return t < Tn ? t : -1;
+          return t < Tq ? t : -1;
         });
       }
 
@@ -769,8 +790,9 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
       //    N-major), added by fp32 atomics. The crossover row q0 + 64 takes
       //    dB's row 64 (the tile's last dS row) in one more 16-row product
       //    (mma.sync; rows 65 .. 79 of dB are zero), its column pairs spread
-      //    over the warps.
-      if (q0 + BM < Tn) {
+      //    over the warps. dQ_v's rows run to tqv: the row after the local
+      //    last query (the next shard's first) takes that query's crossover.
+      if (q0 + BM < sh.tqv) {
         for (int np = warp; np < NO / 2; np += 4) {
           float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
@@ -781,7 +803,7 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
             tc::mma(c[0], a, b[0], b[1]);
             tc::mma(c[1], a, b[2], b[3]);
           }
-          red_block(dqv + row0, D, 16 * np, c, lane, [&](int i) { return i == 0 ? q0 + BM : -1; });
+          red_block(dqv + vrow0, D, 16 * np, c, lane, [&](int i) { return i == 0 ? q0 + BM : -1; });
         }
       }
       {
@@ -799,9 +821,9 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
         tc::wg_commit();
         tc::wg_wait_all();
         tc::wg_hold(acc);
-        red_block(dqv + row0, D, 0, acc, lane, [&](int i) {
+        red_block(dqv + vrow0, D, 0, acc, lane, [&](int i) {
           const int t = q0 + m0 + i;
-          return t < Tn ? t : -1;
+          return t < sh.tqv ? t : -1;
         });
       }
 
@@ -825,7 +847,7 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
         tc::wg_wait_all();
         tc::wg_hold(acc);
         red_block(dpt, D, 0, acc, lane,
-                  [&](int i) { return tc::window_row(dbase, 64 * half + m0 + i, Tn); });
+                  [&](int i) { return tc::window_row(dbase, 64 * half + m0 + i, Tk); });
       }
       if (it + 1 < nq) {
         __syncthreads();  // the stage's and dB's readers are done
@@ -837,11 +859,11 @@ rel_attn_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qv,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int j = k0 + m0 + g + 8 * h;
-    if (j >= Tn) continue;
+    if (j >= Tk) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       const int d = 8 * n + 2 * qd;
-      const size_t o = row0 + (size_t)j * D + d;
+      const size_t o = krow0 + (size_t)j * D + d;
       if (d < D) {
         dk[o] = dk_acc[n][2 * h];
         dv[o] = dv_acc[n][2 * h];
@@ -858,10 +880,11 @@ template <int DMAX>
 cudaError_t launch_tc(const void* q, const void* qv, const void* k, const void* v,
                       const void* p, const int32_t* kv_lens, const float* out,
                       const float* lse, const float* dout, float* dq, float* dqv, float* dk,
-                      float* dv, float* dp, bf16* dob, float* dvec, int BH, int Tn, int D,
-                      int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
-                      float inv_keep, int tqe, int tke, int chunk, cudaStream_t stream) {
-  const int rows = BH * Tn;
+                      float* dv, float* dp, bf16* dob, float* dvec, int BH, int Tq, int Tk,
+                      int D, int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
+                      float inv_keep, int tqe, int tke, int chunk, tc::Shard sh,
+                      cudaStream_t stream) {
+  const int rows = BH * Tq;
   bwd_prep_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(out, dout, dob, dvec, rows, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -871,12 +894,12 @@ cudaError_t launch_tc(const void* q, const void* qv, const void* k, const void* 
   if (err != cudaSuccess) return err;
   auto a16 = [](const void* x) { return (uintptr_t)x % 16 == 0; };
   const int vec = D % 8 == 0 && a16(q) && a16(qv) && a16(k) && a16(v) && a16(p) && a16(dob);
-  dim3 grid((Tn + BN - 1) / BN, BH);
+  dim3 grid((Tk + BN - 1) / BN, BH);
   kernel<<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(qv), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(p), kv_lens, lse, dob, dvec, dq,
-      dqv, dk, dv, dp, Tn, D, p_mod, scale, dropout, seed, thr, inv_keep, tqe, tke, chunk,
-      vec);
+      dqv, dk, dv, dp, Tq, Tk, D, p_mod, scale, dropout, seed, thr, inv_keep, tqe, tke, chunk,
+      sh, vec);
   return cudaGetLastError();
 }
 
@@ -886,20 +909,26 @@ cudaError_t launch_tc(const void* q, const void* qv, const void* k, const void* 
 // every gradient are fp32; dp is the (p_mod, T, D) table gradient, summed
 // over the rows bh that share a table. kv_lens may be null. fp32: dqv, dk,
 // dv and dp must be zeroed (atomics), dob/dvec are unused (may be null).
-// bf16: dq, dqv and dp must be zeroed, dk and dv are written; dob (BH, T, D)
-// bf16 and dvec (BH, T) fp32 are scratch. chunk > 0 masks key j for query t
-// where j / chunk > t / chunk, as the forward did (0: no chunk mask).
+// bf16: dq, dqv and dp must be zeroed, dk and dv are written; dob (BH, Tq, D)
+// bf16 and dvec (BH, Tq) fp32 are scratch. chunk > 0 masks key j for query t
+// where j / chunk > t / chunk, as the forward did (0: no chunk mask). tqv,
+// qoff, hl, ht, h0 place the call in the full attention as the forward's
+// do (tc::Shard): q_u, out, lse, dout and dq have Tq rows a bh, qv and dqv
+// tqv (dqv's row Tq, when tqv = Tq + 1, is the gradient of the next shard's
+// first q_v row), k, v, dk, dv and the table Tk; Tq = Tk, tqv = Tq, 0, 1, 1,
+// 0 is the whole call.
 extern "C" int rel_attention_bwd(int dtype, const void* q, const void* qv, const void* k,
                                  const void* v, const void* p, const void* kv_lens,
                                  const void* out, const void* lse, const void* dout,
                                  void* dq, void* dqv, void* dk, void* dv, void* dp,
-                                 void* dob, void* dvec, int BH, int Tn, int D, int p_mod,
-                                 float scale, int dropout, uint32_t seed, uint32_t thr,
-                                 float inv_keep, int tqe, int tke, int chunk,
-                                 void* stream) {
+                                 void* dob, void* dvec, int BH, int Tq, int Tk, int D,
+                                 int p_mod, float scale, int dropout, uint32_t seed,
+                                 uint32_t thr, float inv_keep, int tqe, int tke, int chunk,
+                                 int tqv, int qoff, int hl, int ht, int h0, void* stream) {
   if (D < 1 || D > 128 || BH < 1 || BH > 65535 || p_mod < 1 || tqe < 1 || tke < 1 ||
-      chunk < 0)
+      chunk < 0 || tqv < Tq || qoff < 0 || hl < 1 || ht < hl || h0 < 0 || h0 + hl > ht)
     return (int)cudaErrorInvalidValue;
+  const tc::Shard sh{tqv, qoff, hl, ht, h0};
   auto kl = static_cast<const int32_t*>(kv_lens);
   auto o = static_cast<const float*>(out);
   auto ls = static_cast<const float*>(lse);
@@ -910,15 +939,15 @@ extern "C" int rel_attention_bwd(int dtype, const void* q, const void* qv, const
   if (dtype == 0) {
 #define LAUNCH(DM)                                                                      \
   launch<DM>(q, qv, k, v, p, kl, o, ls, go, f(dq), f(dqv), f(dk), f(dv), f(dp), BH, \
-                    Tn, D, p_mod, scale, dropout, seed, thr, inv_keep, tqe, tke, chunk, s)
+                    Tq, Tk, D, p_mod, scale, dropout, seed, thr, inv_keep, tqe, tke, chunk, sh, s)
     err = D <= 64 ? LAUNCH(64) : LAUNCH(128);
 #undef LAUNCH
   } else if (dtype == 1) {
     if (dob == nullptr || dvec == nullptr) return (int)cudaErrorInvalidValue;
 #define LAUNCH(DM)                                                                        \
   launch_tc<DM>(q, qv, k, v, p, kl, o, ls, go, f(dq), f(dqv), f(dk), f(dv), f(dp),          \
-                static_cast<bf16*>(dob), f(dvec), BH, Tn, D, p_mod, scale, dropout, seed, thr, \
-                inv_keep, tqe, tke, chunk, s)
+                static_cast<bf16*>(dob), f(dvec), BH, Tq, Tk, D, p_mod, scale, dropout, seed,   \
+                thr, inv_keep, tqe, tke, chunk, sh, s)
     err = D <= 64 ? LAUNCH(64) : LAUNCH(128);
 #undef LAUNCH
   } else {

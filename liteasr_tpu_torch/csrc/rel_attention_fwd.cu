@@ -58,6 +58,15 @@
 // takes 64 registers a thread) the latency of that chain, not the tensor
 // cores or HBM, sets the time.
 //
+// Under tensor and sequence parallelism a call computes a shard of the
+// full attention (tc::Shard): its bh rows may be a head slice of each batch
+// row (the dropout hash then folds the full call's batch x head row), and
+// its queries a contiguous block of the full call's, at offset qoff, over
+// all the keys; the rel-pos diagonals, the chunk mask and the hash read the
+// full call's query index, and q_v may carry one row more, the next
+// shard's first, which the block's last query reads at keys past t + 1.
+// Row for row the shard computes what the full call does.
+//
 // C interface (ctypes): rel_attention_fwd returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -104,7 +113,7 @@ rel_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const int32_t* __restrict__ kv_lens, float* __restrict__ out,
                     float* __restrict__ lse, int Tq, int Tk, int D, int mask_div,
                     int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
-                    float keep_div, int tqe, int tke, int chunk) {
+                    float keep_div, int tqe, int tke, int chunk, tc::Shard sh) {
   extern __shared__ float smem[];
   float* sQ = smem;              // [DC][LDQ]  Q^T chunk
   float* sQv = sQ + DC * LDQ;    // [DC][LDQV] q_v^T chunk
@@ -116,6 +125,8 @@ rel_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int NC = DMAX / 16;  // output columns per thread
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BM;
+  const int g0 = sh.qoff + q0;  // the full call's index of the block's row 0
+  const uint32_t hrow = sh.hash_row(bh);
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const bool has_rel = qv != nullptr;
@@ -123,7 +134,7 @@ rel_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + (size_t)bh * Tq * D;
   const float* kb = k + (size_t)bh * Tk * D;
   const float* vb = v + (size_t)bh * Tk * D;
-  const float* qvb = has_rel ? qv + (size_t)bh * Tq * D : nullptr;
+  const float* qvb = has_rel ? qv + (size_t)bh * sh.tqv * D : nullptr;
   const float* pb = has_rel ? p + (size_t)(bh % p_mod) * Tk * D : nullptr;
   const uint8_t* mb = mask ? mask + (size_t)(bh / mask_div) * Tq * Tk : nullptr;
 
@@ -141,11 +152,11 @@ rel_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // walk ends at its last row's chunk end, exactly
   int kwalk = Tk;
   if (chunk > 0 && !mb && kv_len > 0)
-    kwalk = min(Tk, ((min(q0 + BM, Tq) - 1) / chunk + 1) * chunk);
+    kwalk = min(Tk, ((sh.qoff + min(q0 + BM, Tq) - 1) / chunk + 1) * chunk);
   int cend[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    cend[i] = chunk > 0 ? ((q0 + ty + 16 * i) / chunk + 1) * chunk : Tk;
+    cend[i] = chunk > 0 ? ((g0 + ty + 16 * i) / chunk + 1) * chunk : Tk;
 
   for (int k0 = 0; k0 < kwalk; k0 += BN) {
     float s_ac[4][4], s_bd[4][4];
@@ -156,10 +167,10 @@ rel_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         s_ac[i][j] = 0.f;
         s_bd[i][j] = 0.f;
-        nxt[i][j] = q0 + ty + 16 * i < k0 + tx + 16 * j;
+        nxt[i][j] = g0 + ty + 16 * i < k0 + tx + 16 * j;
       }
     // window slot w holds diagonal delta = dbase + w
-    const int dbase = q0 - k0 - (BN - 1);
+    const int dbase = g0 - k0 - (BN - 1);
 
     for (int c0 = 0; c0 < D; c0 += DC) {
       __syncthreads();  // earlier readers of the stage / sV / sS are done
@@ -174,7 +185,7 @@ rel_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (has_rel) {
         for (int idx = tid; idx < (BM + 1) * DC; idx += NT) {
           const int r = idx / DC, c = idx % DC, t = q0 + r, d = c0 + c;
-          sQv[c * LDQV + r] = (t < Tq && d < D) ? qvb[(size_t)t * D + d] : 0.f;
+          sQv[c * LDQV + r] = (t < sh.tqv && d < D) ? qvb[(size_t)t * D + d] : 0.f;
         }
         for (int idx = tid; idx < PW * DC; idx += NT) {
           const int w = idx / DC, c = idx % DC, d = c0 + c;
@@ -245,7 +256,7 @@ rel_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float pe = expf(s_ac[i][j] - m_new);
         rs += pe;  // the normalizer sums the undropped mass
         const bool drop =
-            dropout && !keep_elem((uint32_t)bh, t, k0 + tx + 16 * j, tqe, tke, seed, thr);
+            dropout && !keep_elem(hrow, sh.qoff + t, k0 + tx + 16 * j, tqe, tke, seed, thr);
         sS[(ty + 16 * i) * LDS + tx + 16 * j] = drop ? 0.f : pe;
       }
 #pragma unroll
@@ -301,7 +312,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* qv,
                    const void* p, const uint8_t* mask, const int32_t* kv_lens,
                    void* out, float* lse, int BH, int Tq, int Tk, int D, int mask_div,
                    int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
-                   float keep_div, int tqe, int tke, int chunk, cudaStream_t stream) {
+                   float keep_div, int tqe, int tke, int chunk, tc::Shard sh,
+                   cudaStream_t stream) {
   constexpr size_t smem = Smem<DMAX>::kBytes;
   auto kernel = rel_attn_fwd_kernel<DMAX>;
   cudaError_t err =
@@ -312,7 +324,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* qv,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(qv),
       static_cast<const float*>(p), mask, kv_lens, static_cast<float*>(out), lse, Tq, Tk,
-      D, mask_div, p_mod, scale, dropout, seed, thr, keep_div, tqe, tke, chunk);
+      D, mask_div, p_mod, scale, dropout, seed, thr, keep_div, tqe, tke, chunk, sh);
   return cudaGetLastError();
 }
 
@@ -350,7 +362,8 @@ rel_attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const int32_t* __restrict__ kv_lens, bf16* __restrict__ out,
                        float* __restrict__ lse, int Tq, int Tk, int D, int mask_div,
                        int p_mod, float scale, int dropout, uint32_t seed, uint32_t thr,
-                       float keep_div, int tqe, int tke, int chunk, int vec, int mvec) {
+                       float keep_div, int tqe, int tke, int chunk, tc::Shard sh, int vec,
+                       int mvec) {
   using S = TcSmem<DMAX>;
   constexpr int NCH = DMAX / 8, KS = DMAX / 16, NO = DMAX / 8;
   extern __shared__ __align__(128) char tsm[];
@@ -360,6 +373,7 @@ rel_attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t sQ = s0, sQv = s0 + S::oQv, sP = s0 + S::oP;
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BM;
+  const int g0 = sh.qoff + q0;  // the full call's index of the block's row 0
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, qd = lane & 3, m0 = 16 * warp;
   const int kv_len = kv_lens ? kv_lens[bh] : Tk;
@@ -367,7 +381,7 @@ rel_attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + (size_t)bh * Tq * D;
   const bf16* kb = k + (size_t)bh * Tk * D;
   const bf16* vb = v + (size_t)bh * Tk * D;
-  const bf16* qvb = REL ? qv + (size_t)bh * Tq * D : nullptr;
+  const bf16* qvb = REL ? qv + (size_t)bh * sh.tqv * D : nullptr;
   const bf16* pb = REL ? p + (size_t)(bh % p_mod) * Tk * D : nullptr;
   const uint8_t* mb = mask ? mask + (size_t)(bh / mask_div) * Tq * Tk : nullptr;
 
@@ -383,7 +397,7 @@ rel_attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // row's chunk end ((t / chunk + 1) chunk), so the walk ends there too;
   // a row that sees no key still walks every tile in the second pass.
   int kend = max(0, min(Tk, kv_len));
-  if (chunk > 0) kend = min(kend, ((min(q0 + BM, Tq) - 1) / chunk + 1) * chunk);
+  if (chunk > 0) kend = min(kend, ((sh.qoff + min(q0 + BM, Tq) - 1) / chunk + 1) * chunk);
   unsigned long long vis = ~0ull;
   if (mb) {
     if (threadIdx.x == 0) s_vis = 0ull;
@@ -421,7 +435,7 @@ rel_attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::load_tile<NCH>(tsm + S::oK + st * S::kTile, kb, BN, D, vec, key);
     tc::load_tile<NCH>(tsm + S::oV + st * S::kTile, vb, BN, D, vec, key);
     if (REL) {
-      const int dbase = q0 - k0 - (BN - 1);
+      const int dbase = g0 - k0 - (BN - 1);
       tc::load_tile<NCH>(tsm + S::oP, pb, 128, D, vec,
                          [&](int w) { return tc::window_row(dbase, w, Tk); });
     }
@@ -447,7 +461,7 @@ rel_attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   tc::load_tile<NCH>(tsm, qb, BM, D, vec, [&](int r) { return q0 + r < Tq ? q0 + r : -1; });
   if (REL)
     tc::load_tile<NCH>(tsm + S::oQv, qvb, 72, D, vec,
-                       [&](int r) { return (r <= BM && q0 + r < Tq) ? q0 + r : -1; });
+                       [&](int r) { return (r <= BM && q0 + r < sh.tqv) ? q0 + r : -1; });
 
   // the dropout hash's term of each of the thread's two rows, and the end
   // of each row's chunk (the first key it may not see)
@@ -455,8 +469,8 @@ rel_attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int cend[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    krow[h] = tc::keep_row((uint32_t)bh, q0 + m0 + g + 8 * h, tqe, seed);
-    cend[h] = chunk > 0 ? ((q0 + m0 + g + 8 * h) / chunk + 1) * chunk : Tk;
+    krow[h] = tc::keep_row(sh.hash_row(bh), g0 + m0 + g + 8 * h, tqe, seed);
+    cend[h] = chunk > 0 ? ((g0 + m0 + g + 8 * h) / chunk + 1) * chunk : Tk;
   }
 
   float o[NO][4], m_r[2], l_r[2];
@@ -544,7 +558,7 @@ rel_attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 
       // + the rel-pos term by diagonal, scale, masks; online softmax
-      const int dbase = q0 - k0 - (BN - 1);
+      const int dbase = g0 - k0 - (BN - 1);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = m0 + g + 8 * h;
@@ -651,7 +665,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* q
                       const void* p, const uint8_t* mask, const int32_t* kv_lens, void* out,
                       float* lse, int BH, int Tq, int Tk, int D, int mask_div, int p_mod,
                       float scale, int dropout, uint32_t seed, uint32_t thr, float keep_div,
-                      int tqe, int tke, int chunk, cudaStream_t stream) {
+                      int tqe, int tke, int chunk, tc::Shard sh, cudaStream_t stream) {
   const size_t smem = qv ? TcSmem<DMAX>::kRel : TcSmem<DMAX>::kPlain;
   auto kernel = qv ? rel_attn_fwd_tc_kernel<DMAX, true> : rel_attn_fwd_tc_kernel<DMAX, false>;
   cudaError_t err =
@@ -665,7 +679,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* q
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(qv), static_cast<const bf16*>(p), mask, kv_lens,
       static_cast<bf16*>(out), lse, Tq, Tk, D, mask_div, p_mod, scale, dropout, seed, thr,
-      keep_div, tqe, tke, chunk, vec, mvec);
+      keep_div, tqe, tke, chunk, sh, vec, mvec);
   return cudaGetLastError();
 }
 
@@ -674,17 +688,23 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* q
 // dtype: 0 = float32, 1 = bfloat16. qv/p, mask, kv_lens and lse may be null.
 // dropout != 0 applies the keep test u < thr with the TPU kernel's tiles
 // tqe x tke; keep_div = 1 - rate. chunk > 0 also masks key j for query t
-// where j / chunk > t / chunk (0: no chunk mask).
+// where j / chunk > t / chunk (0: no chunk mask). tqv, qoff, hl, ht, h0 place
+// the call in the full attention (tc::Shard): qv holds tqv rows a bh (Tq, or
+// Tq + 1 with the next shard's first row), local query t is the full call's
+// qoff + t (Tk and the table are whole), and the hash folds bh as head
+// h0 + bh % hl of ht; Tq, 0, 1, 1, 0 is the whole call.
 extern "C" int rel_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                  const void* qv, const void* p, const void* mask,
                                  const void* kv_lens, void* out, void* lse, int BH,
                                  int Tq, int Tk, int D, int mask_div, int p_mod,
                                  float scale, int dropout, uint32_t seed, uint32_t thr,
-                                 float keep_div, int tqe, int tke, int chunk,
-                                 void* stream) {
+                                 float keep_div, int tqe, int tke, int chunk, int tqv,
+                                 int qoff, int hl, int ht, int h0, void* stream) {
   if (D < 1 || D > 128 || BH < 1 || BH > 65535 || mask_div < 1 || p_mod < 1 ||
-      tqe < 1 || tke < 1 || chunk < 0)
+      tqe < 1 || tke < 1 || chunk < 0 || tqv < Tq || qoff < 0 || hl < 1 || ht < hl ||
+      h0 < 0 || h0 + hl > ht)
     return (int)cudaErrorInvalidValue;
+  const tc::Shard sh{tqv, qoff, hl, ht, h0};
   auto ls = static_cast<float*>(lse);
   auto m = static_cast<const uint8_t*>(mask);
   auto kl = static_cast<const int32_t*>(kv_lens);
@@ -692,7 +712,7 @@ extern "C" int rel_attention_fwd(int dtype, const void* q, const void* k, const 
   cudaError_t err;
 #define ARGS                                                                             \
   q, k, v, qv, p, m, kl, out, ls, BH, Tq, Tk, D, mask_div, p_mod, scale, dropout, seed, thr, \
-      keep_div, tqe, tke, chunk, s
+      keep_div, tqe, tke, chunk, sh, s
   if (dtype == 0) {
     err = D <= 64 ? launch<64>(ARGS) : launch<128>(ARGS);
   } else if (dtype == 1) {

@@ -315,4 +315,21 @@ __device__ __forceinline__ int window_row(int dbase, int w, int Tk) {
   return (w < 127 && delta != -1 && row >= 0 && row < Tk) ? row : -1;
 }
 
+// A call on one shard of the full attention, as tensor and sequence
+// parallelism split it: the local rows answer for rows of the full call.
+//   tqv:  q_v rows per bh, Tq, or Tq + 1 when the next shard's first q_v
+//         row (the crossover of the local last row) follows them;
+//   qoff: the full call's index of local query 0 (the keys and the table
+//         are whole): the rel-pos diagonals, the chunk mask and the dropout
+//         hash read qoff + t;
+//   hl, ht, h0: the local bh holds head h0 + bh % hl of ht, of batch row
+//         bh / hl: the hash's folded row is (bh / hl) ht + h0 + bh % hl.
+// {Tq, 0, 1, 1, 0} is the whole call.
+struct Shard {
+  int tqv, qoff, hl, ht, h0;
+  __device__ __forceinline__ uint32_t hash_row(int bh) const {
+    return (uint32_t)((bh / hl) * ht + h0 + bh % hl);
+  }
+};
+
 }  // namespace tc

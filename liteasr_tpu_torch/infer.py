@@ -13,7 +13,11 @@ chunk-by-chunk runtime of :mod:`liteasr_tpu_torch.streaming` with
 the mode),
 with the checkpoint, or the average of checkpoints, that
 ``checkpoint.load_ckpt`` picks; raw-wave test sets (``dataset.fbank``) get
-their log-mel features on the device.
+their log-mel features on the device. Checkpoints are in the one-process
+layout whatever the training run's (dp, sp, tp), and under a process group
+of any layout every rank decodes the full model on its block of each
+batch's rows (:func:`infer_dataset`), as the JAX package replicates the
+tree (liteasr_tpu/infer.py:50-56).
 """
 
 import logging

@@ -8,6 +8,12 @@ the encoder layers in the backward pass. ``static_chunk_size`` and
 ``encode_chunk`` is one step of the streaming runtime
 (:mod:`liteasr_tpu_torch.streaming`). Decoding lives in
 :mod:`liteasr_tpu_torch.decode`.
+
+Tensor and sequence parallelism (``parallel.sharding.shard_model``): under
+sp the encoder returns the rank's block of frames, which the training
+forward gathers over the sp group (with autograd) before the CTC head and
+the decoder; the tail then runs on the rank's block of rows
+(:meth:`tail_rows`), so the sp group splits it instead of repeating it.
 """
 
 from dataclasses import dataclass, field
@@ -132,6 +138,7 @@ class U2(LiteasrModel):
                 module.generator = self.dropout_generator
         # draws the dynamic chunk widths (the JAX package's "chunk" rng)
         self.chunk_generator = self.encoder.chunk_generator
+        self.seq_parallel = False
         self.init_params(generator)
         if device is not None:
             self.to(device)
@@ -203,18 +210,37 @@ class U2(LiteasrModel):
         mem_mask = enc_mask[:, None, None, :] if enc_mask is not None else None
         return self.decoder.step(tok, src_kv, self_caches, index, mem_mask)
 
+    def tail_rows(self, batch: int) -> slice:
+        """The batch rows whose CTC head and decoder this rank runs: all of
+        them, or under sequence parallelism the sp rank's block."""
+        if not self.seq_parallel:
+            return slice(None)
+        from liteasr_tpu_torch.parallel import sharding
+
+        seq = sharding.seq_shard(batch)
+        return slice(seq.lo, seq.hi)
+
     def forward(self, xs, xlens, ys, ylens, train: bool = False):
         """Training forward: (h_attn (B, L+1, V), h_ctc (B, T', V))
         (liteasr_tpu/models/u2.py:149-173): ignore -> eos, sos prepended,
-        pad | causal decoder mask, CTC head on the dropped encoder output."""
-        B, T = xs.shape[0], xs.shape[1]
-        L = ys.shape[1]
-        xs_mask = padding_mask(xlens, T)
+        pad | causal decoder mask, CTC head on the dropped encoder output.
+        Under sequence parallelism both are of the :meth:`tail_rows`: the
+        encoder's blocks of frames are gathered, and the rank runs the
+        CTC head and the decoder on its block of rows."""
+        xs_mask = padding_mask(xlens, xs.shape[1])
+        h_enc = self.encoder(xs, mask=xs_mask, train=train)
+        if self.seq_parallel:
+            from liteasr_tpu_torch.parallel import sharding
+
+            rows = self.tail_rows(xs.shape[0])
+            t_sub = subsample_mask(xs_mask).shape[1]
+            h_enc = sharding.gather_from_sp(h_enc, 1, sharding.seq_shard(t_sub).sizes)
+            h_enc, xs_mask, ys, ylens = h_enc[rows], xs_mask[rows], ys[rows], ylens[rows]
+        B, L = ys.shape
         ys_ = torch.where(ys == IGNORE, self.eos, ys)
         sos_col = torch.full((B, 1), self.sos, dtype=ys.dtype, device=ys.device)
         ys_in = torch.cat([sos_col, ys_], dim=1)
         ys_mask = padding_mask(ylens + 1, L + 1)
-        h_enc = self.encoder(xs, mask=xs_mask, train=train)
         causal = triangle_mask(L + 1, device=ys.device)
         h_attn = self.decoder(ys_in, h_enc, mask=ys_mask[:, None, :] | causal[None],
                               memory_mask=xs_mask, train=train)

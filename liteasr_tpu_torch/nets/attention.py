@@ -24,6 +24,17 @@ attention, like the reference, computes its scores, fp32 softmax, dropout
 and context in plain PyTorch (``apply_attention``,
 liteasr_tpu/nets/attention.py:35-44).
 
+Tensor parallelism (``tp``, set by ``parallel.sharding.shard_model``): the
+module holds heads ``head0 ..`` (``n_head`` of ``h_total``), q/k/v and
+``linear_pos`` column-parallel behind ``copy_to_tp``, ``linear_o``
+row-parallel; the kernels' dropout hash folds the full call's row, and the
+plain attention's dropout draws from the "tp" stream. Sequence parallelism
+(``seq``, a ``parallel.sharding.SeqShard``): the module gets the rank's
+block of query frames; K and V are gathered over the sp group, the
+positional table is the whole one, and the rel-pos q_v rows carry the next
+block's first row (the legacy crossover), gathered with them; the kernels
+run at the block's query offset.
+
 Cached decoding: the decoder's ``step_self``/``step_src`` and the
 streaming encoders' ``chunk_step`` (mode ``chunk``, :146-161 and the rel-pos
 ``_chunk`` :295-337) are plain PyTorch, as the reference's are XLA code;
@@ -38,7 +49,9 @@ from torch import nn
 from liteasr_tpu_torch import parallel
 from liteasr_tpu_torch.nets.common import Dense, dropout, xavier_uniform_
 from liteasr_tpu_torch.ops.flash_attention import (
-    chunk_mask, dropout_seed_at_row, flash_attention, flash_rel_attention_train)
+    WHOLE, Shard, chunk_mask, dropout_seed_at_row, flash_attention,
+    flash_rel_attention_train)
+from liteasr_tpu_torch.parallel import sharding
 
 MASK_FILL = -1e38  # the reference's masked score in plain attention
 
@@ -51,6 +64,9 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"d_model {d_model} is not a multiple of {n_head} heads")
         self.n_head = n_head
         self.d_k = d_model // n_head
+        # tensor parallelism: heads head0 .. head0 + n_head of h_total
+        self.tp = False
+        self.head0, self.h_total = 0, n_head
         self.dropout_rate = dropout_rate
         self.compute_dtype = dtype
         self.linear_q = Dense(d_model, d_model, dtype=dtype, device=device)
@@ -62,12 +78,29 @@ class MultiHeadAttention(nn.Module):
         return x.reshape(x.shape[0], x.shape[1], self.n_head, self.d_k)
 
     def project_qkv(self, query, key, value):
+        if self.tp:
+            query, key, value = sharding.copy_inputs_to_tp(query, key, value)
         return (self._heads(self.linear_q(query)),
                 self._heads(self.linear_k(key)),
                 self._heads(self.linear_v(value)))
 
+    def _kernel_shard(self, seq: Optional[sharding.SeqShard]) -> Shard:
+        """Where this module's kernel calls lie in the full attention."""
+        if not self.tp and seq is None:
+            return WHOLE
+        return Shard(q0=seq.lo if seq else 0, t_q=seq.total if seq else 0,
+                     head0=self.head0, h_local=self.n_head, h_total=self.h_total)
+
+    @staticmethod
+    def _gather_kv(k, v, seq: Optional[sharding.SeqShard]):
+        """Every sp rank's keys and values, in one gather."""
+        if seq is None:
+            return k, v
+        kv = sharding.gather_from_sp(torch.cat([k, v], dim=-1), 1, seq.sizes)
+        return kv.split(k.shape[-1], dim=-1)
+
     def _attend(self, q, k, v, mask: Optional[torch.Tensor], rel_qv=None,
-                rel_p=None, chunk: int = 0):
+                rel_p=None, chunk: int = 0, shard: Shard = WHOLE):
         """q/k/v (B, T, H, Dk) -> fused attention -> (B, Tq, D) + out proj
         (the ``_flash`` mask handling of liteasr_tpu/nets/attention.py:57-94)."""
         B, Tq, H, Dk = q.shape
@@ -88,7 +121,7 @@ class MultiHeadAttention(nn.Module):
         out = flash_attention(
             fold(q), fold(k), fold(v), mask=mask, kv_lens=kv_lens,
             rel_qv=None if rel_qv is None else fold(rel_qv),
-            rel_p=rel_p, scale=Dk ** -0.5, chunk=chunk)
+            rel_p=rel_p, scale=Dk ** -0.5, chunk=chunk, shard=shard)
         out = out.reshape(B, H, Tq, Dk).transpose(1, 2).reshape(B, Tq, H * Dk)
         return self.linear_o(out)
 
@@ -99,7 +132,7 @@ class MultiHeadAttention(nn.Module):
         if mask is not None:
             scores = scores.masked_fill(mask, MASK_FILL)
         attn = torch.softmax(scores, dim=-1).to(self.compute_dtype)
-        attn = dropout(attn, self.dropout_rate, train)
+        attn = dropout(attn, self.dropout_rate, train, stream="tp" if self.tp else None)
         x = torch.einsum("bhqk,bkhd->bqhd", attn, v.to(self.compute_dtype))
         return self.linear_o(x.reshape(x.shape[0], x.shape[1], -1))
 
@@ -110,12 +143,17 @@ class MultiHeadAttention(nn.Module):
         return self.apply_attention(scores * self.d_k ** -0.5, v, mask, train)
 
     def forward(self, query, key, value, mask: Optional[torch.Tensor] = None,
-                train: bool = False, chunk: int = 0):
+                train: bool = False, chunk: int = 0,
+                seq: Optional[sharding.SeqShard] = None):
+        """``seq``: the self-attention of the rank's block of frames under
+        sequence parallelism (keys and values gathered)."""
         q, k, v = self.project_qkv(query, key, value)
+        k, v = self._gather_kv(k, v, seq)
         if not train:
-            return self._attend(q, k, v, mask, chunk=chunk)
+            return self._attend(q, k, v, mask, chunk=chunk, shard=self._kernel_shard(seq))
         if chunk > 0:  # the reference's XLA path takes the materialized mask
-            cm = chunk_mask(q.shape[1], k.shape[1], chunk, q.device)[None, None]
+            cm = chunk_mask(q.shape[1], k.shape[1], chunk, q.device,
+                            seq.lo if seq else 0)[None, None]
             mask = cm if mask is None else mask | cm
         return self._plain(q, k, v, mask, train)
 
@@ -189,11 +227,12 @@ class RelativeMultiHeadAttention(MultiHeadAttention):
         return int(torch.randint(-2 ** 31, 2 ** 31, (), generator=self.generator))
 
     def _flash_train(self, q_u, q_v, k, v, p, mask, seed: Optional[int],
-                     chunk: int = 0):
+                     chunk: int = 0, shard: Shard = WHOLE):
         """(B, T, H, Dk) heads -> K3 -> out proj (``_flash_train``,
         liteasr_tpu/nets/attention.py:248-293). ``mask`` is None or
         (B, 1, 1, Tk) suffix padding, compressed to per-row lengths;
-        ``chunk`` the chunk width. ``seed`` None draws one."""
+        ``chunk`` the chunk width. ``seed`` None draws one. ``shard``: the
+        call's place in the full attention (heads, query block)."""
         B, Tq, H, Dk = q_u.shape
 
         def fold(x):
@@ -205,11 +244,12 @@ class RelativeMultiHeadAttention(MultiHeadAttention):
             kv_lens = kv_lens.repeat_interleave(H)
         if seed is None:
             seed = self.draw_seed()
-        if parallel.process_count() > 1:  # rank r holds global rows r B ..
-            seed = dropout_seed_at_row(seed, parallel.process_index() * B * H)
+        dp_i = parallel.layout().dp_i
+        if dp_i:  # dp rank i holds the global batch's rows i B .. (all heads)
+            seed = dropout_seed_at_row(seed, dp_i * B * self.h_total)
         out = flash_rel_attention_train(
             fold(q_u), fold(q_v), fold(k), fold(v), p, kv_lens, seed,
-            Dk ** -0.5, self.dropout_rate, chunk)
+            Dk ** -0.5, self.dropout_rate, chunk, shard)
         out = out.reshape(B, H, Tq, Dk).transpose(1, 2)
         return self.linear_o(out.to(self.compute_dtype).reshape(B, Tq, H * Dk))
 
@@ -218,25 +258,38 @@ class RelativeMultiHeadAttention(MultiHeadAttention):
 
     def forward(self, query, key, value, pos_emb,
                 mask: Optional[torch.Tensor] = None, train: bool = False,
-                dropout_seed: Optional[int] = None, chunk: int = 0):
+                dropout_seed: Optional[int] = None, chunk: int = 0,
+                seq: Optional[sharding.SeqShard] = None):
         """``dropout_seed``: the kernels' dropout seed of a train-mode call
         drawn by the caller (a rematerialized layer draws it once, outside
         the recomputed region, so that the recompute regenerates the same
-        mask); None draws it here. ``chunk``: the chunk width (0 = none)."""
+        mask); None draws it here. ``chunk``: the chunk width (0 = none).
+        ``seq``: the rank's block of query frames under sequence
+        parallelism; ``pos_emb`` is then the whole table."""
         q, k, v = self.project_qkv(query, key, value)
         # pos_emb is (1, T, D), shared across the batch: table (H, T, Dk)
         p = self._heads(self.linear_pos(pos_emb))[0].transpose(0, 1)
         q_u, q_v = self._biased_queries(q)
+        if seq is not None:
+            k, v = self._gather_kv(k, v, seq)
+            # the crossover: q_v gets the next block's first row, the last
+            # block a zero row that no score reads (every rank takes part
+            # in the gather and in its backward)
+            n = len(seq.sizes)
+            firsts = sharding.gather_from_sp(q_v[:, :1], 1, (1,) * n)
+            nxt = firsts[:, (seq.index + 1) % n].unsqueeze(1)
+            q_v = torch.cat([q_v, nxt * 0 if seq.last else nxt], dim=1)
+        shard = self._kernel_shard(seq)
         if not train:
             return self._attend(q_u, k, v, mask, rel_qv=q_v,
-                                rel_p=p.contiguous(), chunk=chunk)
+                                rel_p=p.contiguous(), chunk=chunk, shard=shard)
         if mask is not None and mask.shape[1:3] != (1, 1):
             raise NotImplementedError(
                 "train-mode rel-pos attention takes a (B, 1, 1, T) padding "
                 "mask and a chunk width; the kernels have no other "
                 f"structured mask (got {tuple(mask.shape)})")
         return self._flash_train(q_u, q_v, k, v, p.contiguous(), mask,
-                                 dropout_seed, chunk)
+                                 dropout_seed, chunk, shard=shard)
 
     def chunk_step(self, query, pos_emb, cache, index: int, mask: torch.Tensor,
                    align: Tuple[torch.Tensor, torch.Tensor]):

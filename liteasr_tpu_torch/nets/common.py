@@ -19,18 +19,26 @@ LN_EPS = 1e-12  # reference liteasr/nets/layer_norm.py:10
 
 class Dense(nn.Linear):
     """``flax.linen.Dense(dtype=dtype)``: fp32 parameters, computed in
-    ``dtype``. ``weight`` is (out, in), the transpose of flax's kernel."""
+    ``dtype``. ``weight`` is (out, in), the transpose of flax's kernel.
+    ``tp_reduce`` (set by ``parallel.sharding.shard_model``): a row-parallel
+    layer, whose partial products the tp ranks sum before the bias."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  *, dtype: torch.dtype = torch.float32, device=None):
         super().__init__(in_features, out_features, bias=bias, device=device,
                          dtype=torch.float32)
         self.compute_dtype = dtype
+        self.tp_reduce = False
 
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        if not self.tp_reduce:
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
+        from liteasr_tpu_torch.parallel.sharding import reduce_from_tp
+
+        y = reduce_from_tp(F.linear(x.to(dt), self.weight.to(dt)))
+        return y if bias is None else y + bias
 
 
 class LayerNorm(nn.Module):
@@ -54,12 +62,22 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype).to(self.compute_dtype)
 
 
-def dropout(x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            stream: Optional[str] = None) -> torch.Tensor:
     """flax ``nn.Dropout(rate, deterministic=not train)``: keep with
-    probability 1 - rate, scale kept values by 1 / (1 - rate)."""
+    probability 1 - rate, scale kept values by 1 / (1 - rate). ``stream``
+    names a coordinate-keyed generator of ``parallel`` to draw from (a
+    tp-sharded activation's, "tp"; an activation every tp and sp peer holds
+    whole, "dp"); None draws from the device's default generator."""
     if not train or rate == 0.0:
         return x
-    return F.dropout(x, rate, training=True)
+    if stream is None:
+        return F.dropout(x, rate, training=True)
+    from liteasr_tpu_torch import parallel
+
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+        1.0 - rate, generator=parallel.stream(stream, x.device))
+    return x * (keep / (1.0 - rate)).to(x.dtype)
 
 
 def swish(x):
@@ -88,10 +106,15 @@ class PositionwiseFeedForward(nn.Module):
         self.fc2 = Dense(h_units, d, dtype=dtype, device=device)
         self.act = get_activation(activation)
         self.dropout_rate = dropout_rate
+        self.tp = False  # fc1 column- and fc2 row-parallel over the tp group
 
     def forward(self, x, train: bool = False):
-        x = dropout(self.act(self.fc1(x)), self.dropout_rate, train)
-        return self.fc2(x)
+        if not self.tp:
+            return self.fc2(dropout(self.act(self.fc1(x)), self.dropout_rate, train))
+        from liteasr_tpu_torch.parallel.sharding import copy_to_tp
+
+        x = self.act(self.fc1(copy_to_tp(x)))
+        return self.fc2(dropout(x, self.dropout_rate, train, stream="tp"))
 
 
 def _sinusoid(position: torch.Tensor, dim: int) -> torch.Tensor:

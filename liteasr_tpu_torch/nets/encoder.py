@@ -16,6 +16,14 @@ step over per-layer K/V caches (``_chunk_forward``, :61-110).
 ``remat=True`` recomputes each layer's forward in the backward pass of a
 train-mode call (``torch.utils.checkpoint``, liteasr_tpu/nets/encoder.py:
 53-55, 170-190): the same result and gradients with less activation memory.
+
+Sequence parallelism (``seq_parallel``, set by ``parallel.sharding.
+shard_model``; liteasr_tpu/parallel/mesh.py:71-80 shards the features' time
+over sp): every sp rank subsamples the whole batch, which is cheap, keeps
+its block of the T' frames (:func:`parallel.sharding.seq_shard`) and runs
+the layer stack on it; the positional table, the padding mask and the
+chunk width are the whole batch's, and :meth:`forward` returns the rank's
+block.
 """
 
 import contextlib
@@ -28,10 +36,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from liteasr_tpu_torch.nets.common import (
-    LayerNorm, positional_encoding, relative_positional_encoding, sinusoidal_pe)
+    LayerNorm, dropout, positional_encoding, relative_positional_encoding, sinusoidal_pe)
 from liteasr_tpu_torch.nets.attention import RelativeMultiHeadAttention, rel_chunk_align
 from liteasr_tpu_torch.nets.layers import BatchNorm, ConformerLayer, EncoderLayer
 from liteasr_tpu_torch.nets.subsampling import Conv2DSubsampling
+from liteasr_tpu_torch import parallel
+from liteasr_tpu_torch.parallel import sharding
 
 logger = logging.getLogger(__name__)
 
@@ -46,11 +56,15 @@ def subsample_mask(mask: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _recompute(layer: nn.Module):
+def _recompute(layer: nn.Module, streams):
     """The recompute of a rematerialized layer: its BatchNorms leave the
     running statistics alone (the first forward moved them; flax's remat
-    drops the recompute's batch_stats update likewise)."""
+    drops the recompute's batch_stats update likewise), and its dropouts
+    draw the coordinate-keyed streams from the ``streams`` states the
+    forward started from, which are left where the forward left them."""
     norms = [m for m in layer.modules() if isinstance(m, BatchNorm)]
+    after = parallel.stream_states()
+    parallel.set_stream_states(streams)
     for m in norms:
         m.update_stats = False
     try:
@@ -58,19 +72,24 @@ def _recompute(layer: nn.Module):
     finally:
         for m in norms:
             m.update_stats = True
+        parallel.set_stream_states(after)
 
 
-def remat_layer(layer: nn.Module, x, pos_emb, mask, chunk: int = 0):
+def remat_layer(layer: nn.Module, x, pos_emb, mask, chunk: int = 0, seq=None):
     """A train-mode layer call whose activations are recomputed in the
     backward pass. The global CPU/CUDA generators of the dropouts are
-    replayed by ``checkpoint``; the rel-pos attention's kernel seed comes
-    from the layer's own generator, which nothing replays, so it is drawn
-    here, once, and handed to both the forward and the recompute, as is the
-    chunk width (drawn once per encoder forward)."""
+    replayed by ``checkpoint``, the coordinate-keyed streams of
+    ``parallel`` (the dropouts of a tp-sharded region) by :func:`_recompute`;
+    the rel-pos attention's kernel seed comes from the layer's own
+    generator, which nothing replays, so it is drawn here, once, and handed
+    to both the forward and the recompute, as is the chunk width (drawn
+    once per encoder forward)."""
     seed = (layer.self_attn.draw_seed()
             if isinstance(layer.self_attn, RelativeMultiHeadAttention) else None)
+    streams = parallel.stream_states(x.device)
     return checkpoint(layer, x, pos_emb, mask, True, seed, chunk, use_reentrant=False,
-                      context_fn=lambda: (contextlib.nullcontext(), _recompute(layer)))
+                      context_fn=lambda: (contextlib.nullcontext(), _recompute(layer, streams)),
+                      seq=seq)
 
 
 class TransformerEncoder(nn.Module):
@@ -102,6 +121,7 @@ class TransformerEncoder(nn.Module):
         # draws the dynamic chunk widths (the model shares its own)
         self.chunk_generator = torch.Generator()
         self.pos_dropout_rate = pos_dropout_rate
+        self.seq_parallel = False
         self.embed = Conv2DSubsampling(input_dim, h_dim, **kw)
         for i in range(n_layer):
             if arch == "conformer":
@@ -130,12 +150,16 @@ class TransformerEncoder(nn.Module):
         :param chunk: the chunk width of every layer's self-attention (0 =
             full context); None takes the configured policy: a dynamic draw
             in train mode under ``dynamic_chunk``, else ``static_chunk_size``
-        Returns (B, T', h_dim)."""
+        Returns (B, T', h_dim), under sequence parallelism the rank's block
+        of the T' frames."""
         if chunk is None:
             chunk = (self.draw_chunk() if self.dynamic_chunk and train
                      else self.static_chunk_size)
         x = self.embed(x)
-        if self.use_rel:
+        seq = None
+        if self.seq_parallel:
+            x, pos_emb, seq = self._seq_block(x, train)
+        elif self.use_rel:
             x, pos_emb = relative_positional_encoding(
                 x, self.pos_dropout_rate, train)
         else:
@@ -147,10 +171,25 @@ class TransformerEncoder(nn.Module):
         for i in range(self.n_layer):
             layer = getattr(self, f"layer_{i}")
             if train and self.remat and torch.is_grad_enabled():
-                x = remat_layer(layer, x, pos_emb, attn_mask, chunk)
+                x = remat_layer(layer, x, pos_emb, attn_mask, chunk, seq)
             else:
-                x = layer(x, pos_emb, attn_mask, train, None, chunk)
+                x = layer(x, pos_emb, attn_mask, train, None, chunk, seq=seq)
         return self.after_norm(x)
+
+    def _seq_block(self, x, train: bool):
+        """The positional encoding of the rank's block of the subsampled
+        frames ``x`` (B, T', D): (x's block scaled [+ PE], the whole rel-pos
+        table or None, the block). The block's dropout is the rank's own;
+        the table's, which every sp and tp peer applies to its copy, comes
+        from the dp rank's stream, so that the peers drop it alike."""
+        t, d = x.shape[1], x.shape[2]
+        seq = sharding.seq_shard(t)
+        pe = sinusoidal_pe(t, d, x.dtype, x.device)
+        x = x[:, seq.lo:seq.hi] * math.sqrt(d)
+        rate = self.pos_dropout_rate
+        if self.use_rel:
+            return dropout(x, rate, train), dropout(pe, rate, train, stream="dp"), seq
+        return dropout(x + pe[:, seq.lo:seq.hi], rate, train), None, seq
 
     def forward_chunk(self, x, caches: List[Tuple[torch.Tensor, torch.Tensor]],
                       index: int, kv_lens: torch.Tensor, pe_len: int):

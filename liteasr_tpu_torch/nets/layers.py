@@ -3,8 +3,11 @@
 ``normalize_before=True``: ``x + drop(sublayer(LN(x)))``; False:
 ``LN(x + drop(sublayer(x)))``. ``train`` turns on the dropouts and the
 batch statistics of the conformer's BatchNorm. ``chunk`` is the self-
-attention's chunk width (0 = none). ``EncoderLayer.forward_chunk`` is the
-streaming step (mode ``chunk``), pre-LN only, as in the reference.
+attention's chunk width (0 = none). ``seq`` (a ``parallel.sharding.
+SeqShard``) runs a layer on the rank's block of frames under sequence
+parallelism: the self-attention gathers its keys, the conv module reads
+its halo. ``EncoderLayer.forward_chunk`` is the streaming step (mode
+``chunk``), pre-LN only, as in the reference.
 """
 
 from typing import Optional
@@ -18,6 +21,7 @@ from liteasr_tpu_torch.nets.attention import (
 from liteasr_tpu_torch.nets.common import (
     Dense, LayerNorm, PositionwiseFeedForward, dropout, get_activation)
 from liteasr_tpu_torch.ops.batch_norm import train_batch_norm
+from liteasr_tpu_torch.parallel import sharding
 
 
 class BatchNorm(nn.Module):
@@ -43,9 +47,11 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels, device=device))
         self.register_buffer("running_var", torch.ones(channels, device=device))
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, frames: Optional[int] = None):
+        """``frames``: the full time axis of a rank's block under sequence
+        parallelism (the statistics' frame count)."""
         if train:
-            y, mean, var = train_batch_norm(x, self.weight, self.bias, self.eps)
+            y, mean, var = train_batch_norm(x, self.weight, self.bias, self.eps, frames)
             if not self.update_stats:
                 return y
             m = self.momentum
@@ -60,7 +66,9 @@ class BatchNorm(nn.Module):
 
 class ConformerConvolution(nn.Module):
     """pointwise -> GLU -> depthwise(k, SAME) -> BatchNorm -> act -> pointwise,
-    channel-last like the reference."""
+    channel-last like the reference. Under tensor parallelism (``tp``, see
+    ``parallel.sharding``) the rank holds its GLU pairs' channels from
+    ``pointwise_conv1`` to the row-parallel ``pointwise_conv2``."""
 
     def __init__(self, channels: int, kernel_size: int = 15,
                  activation: str = "swish", *,
@@ -78,15 +86,21 @@ class ConformerConvolution(nn.Module):
         self.act = get_activation(activation)
         self.pointwise_conv2 = Dense(channels, channels, dtype=dtype,
                                      device=device)
+        self.tp = False
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False,
+                seq: Optional[sharding.SeqShard] = None):
         dt = self.compute_dtype
+        if self.tp:
+            x = sharding.copy_to_tp(x)
         x = F.glu(self.pointwise_conv1(x), dim=-1)
+        padding = self.depthwise_conv.padding
+        if seq is not None:  # the neighbours' frames stand for the padding
+            x, padding = sharding.sp_halo(x, padding[0], seq), 0
         x = F.conv1d(x.transpose(1, 2), self.depthwise_conv.weight.to(dt),
-                     self.depthwise_conv.bias.to(dt),
-                     padding=self.depthwise_conv.padding,
+                     self.depthwise_conv.bias.to(dt), padding=padding,
                      groups=self.depthwise_conv.groups).transpose(1, 2)
-        x = self.norm(x, train)
+        x = self.norm(x, train, seq.total if seq is not None else None)
         return self.pointwise_conv2(self.act(x.to(dt)))
 
 
@@ -119,10 +133,10 @@ class EncoderLayer(nn.Module):
         self.feed_forward = PositionwiseFeedForward(d, ff_dim, activation,
                                                     ff_dropout_rate, **kw)
 
-    def _attn(self, y, pos_emb, mask, train, attn_seed, chunk):
+    def _attn(self, y, pos_emb, mask, train, attn_seed, chunk, seq=None):
         if self.use_rel:
-            return self.self_attn(y, y, y, pos_emb, mask, train, attn_seed, chunk)
-        return self.self_attn(y, y, y, mask, train, chunk)
+            return self.self_attn(y, y, y, pos_emb, mask, train, attn_seed, chunk, seq=seq)
+        return self.self_attn(y, y, y, mask, train, chunk, seq=seq)
 
     def _res(self, x, norm, fn, train, scale=1.0):
         return _residual(x, norm, fn, self.pre, self.dropout_rate, train,
@@ -130,11 +144,11 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x, pos_emb=None, mask: Optional[torch.Tensor] = None,
                 train: bool = False, attn_seed: Optional[int] = None,
-                chunk: int = 0):
+                chunk: int = 0, seq: Optional[sharding.SeqShard] = None):
         """``attn_seed``: the rel-pos attention's dropout seed, drawn by the
         caller (see ``RelativeMultiHeadAttention.forward``)."""
         x = self._res(x, self.self_attn_norm,
-                      lambda y: self._attn(y, pos_emb, mask, train, attn_seed, chunk),
+                      lambda y: self._attn(y, pos_emb, mask, train, attn_seed, chunk, seq),
                       train)
         return self._res(x, self.feed_forward_norm,
                          lambda y: self.feed_forward(y, train), train)
@@ -178,14 +192,14 @@ class ConformerLayer(EncoderLayer):
 
     def forward(self, x, pos_emb=None, mask: Optional[torch.Tensor] = None,
                 train: bool = False, attn_seed: Optional[int] = None,
-                chunk: int = 0):
+                chunk: int = 0, seq: Optional[sharding.SeqShard] = None):
         x = self._res(x, self.feed_forward_macaron_norm,
                       lambda y: self.feed_forward_macaron(y, train), train,
                       scale=0.5)
         x = self._res(x, self.self_attn_norm,
-                      lambda y: self._attn(y, pos_emb, mask, train, attn_seed, chunk),
+                      lambda y: self._attn(y, pos_emb, mask, train, attn_seed, chunk, seq),
                       train)
-        x = self._res(x, self.conv_norm, lambda y: self.conv(y, train), train)
+        x = self._res(x, self.conv_norm, lambda y: self.conv(y, train, seq), train)
         x = self._res(x, self.feed_forward_norm,
                       lambda y: self.feed_forward(y, train), train, scale=0.5)
         return self.final_norm(x)

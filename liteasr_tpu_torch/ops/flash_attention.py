@@ -39,6 +39,20 @@ cores (``wgmma``) from tiles that ``cp.async`` copies into shared memory;
 the fp32 bodies, which serve the parity checks, use scalar fp32 FMAs (the
 tensor cores would mean TF32).
 
+Under tensor and sequence parallelism each call is a shard of the full
+call (``shard``, a :class:`Shard`): its folded rows may be a slice of each
+batch row's heads (``head0`` of ``h_total``, ``h_local`` a batch row), so
+the dropout hash folds the full call's row ``b h_total + head0 + h``, and
+its queries a contiguous block at ``q0`` of the full call's ``t_q`` over
+all the keys, so the rel-pos index ``Tk - 1 - t + j``, the chunk mask and
+the hash's tiles (``hash_tiles(t_q, Tk)``) read the full call's query
+index. The legacy crossover reads q_v row t + 1 for keys past t + 1, so a
+query block that is not the last carries one q_v row more, the next block's
+first; K2 returns that row's gradient as the last row of dQ_v, for the
+caller to hand back to its owner. Row for row a shard gives what the full
+call gives, and its keep mask is the full call's slice, bit for bit. The
+default (no shard) is the whole call.
+
 Beside each kernel is its plain PyTorch version (``flash_attention_plain``,
 ``flash_rel_attention_bwd_plain``, ``dropout_keep_plain``). The wrappers
 take them only for CPU tensors; a CUDA tensor launches the kernel or
@@ -52,7 +66,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -72,6 +86,26 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class Shard(NamedTuple):
+    """Where a call lies in the full attention (see the module docstring):
+    local query t is the full call's ``q0 + t`` of ``t_q`` (0: the call's
+    own Tq), local folded row ``bh`` is head ``head0 + bh % h_local`` of
+    ``h_total`` of batch row ``bh // h_local``."""
+
+    q0: int = 0
+    t_q: int = 0
+    head0: int = 0
+    h_local: int = 1
+    h_total: int = 1
+
+    def hash_rows(self, bh: torch.Tensor) -> torch.Tensor:
+        """The full call's folded rows of local rows ``bh`` (int64)."""
+        return (bh // self.h_local) * self.h_total + self.head0 + bh % self.h_local
+
+
+WHOLE = Shard()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _MASK32 = 0xFFFFFFFF
 
@@ -157,14 +191,16 @@ def dropout_keep_plain(tq: int, tk: int, b: int, qi: int, kj: int, seed: int,
 
 
 def dropout_keep_global(bh: int, t_q: int, t_k: int, seed: int, rate: float,
-                        device=None) -> torch.Tensor:
-    """(BH, Tq, Tk) keep mask of the whole call, with the TPU kernel's tile
+                        device=None, shard: Shard = WHOLE) -> torch.Tensor:
+    """(BH, Tq, Tk) keep mask of the call, with the TPU kernel's tile
     coordinates: query t is row t % tq_eff of q-tile t // tq_eff, key j is
-    column j % tk_eff of k-tile j // tk_eff, and ``b`` is the folded row."""
-    tqe, tke = hash_tiles(t_q, t_k)
-    t = torch.arange(t_q, dtype=torch.int64, device=device)[None, :, None]
+    column j % tk_eff of k-tile j // tk_eff, and ``b`` is the folded row;
+    t and b are the full call's (``shard``), the tiles its
+    ``hash_tiles(t_q, Tk)``."""
+    tqe, tke = hash_tiles(shard.t_q or t_q, t_k)
+    t = shard.q0 + torch.arange(t_q, dtype=torch.int64, device=device)[None, :, None]
     j = torch.arange(t_k, dtype=torch.int64, device=device)[None, None, :]
-    b = torch.arange(bh, dtype=torch.int64, device=device)[:, None, None]
+    b = shard.hash_rows(torch.arange(bh, dtype=torch.int64, device=device))[:, None, None]
     tile = _tile_id(b, t // tqe, j // tke, seed)
     return _murmur_keep(t % tqe, j % tke, tile, rate)
 
@@ -180,22 +216,84 @@ def dropout_seed_at_row(seed: int, row0: int) -> int:
     return u - (1 << 32) if u >= 1 << 31 else u
 
 
-def chunk_mask(tq: int, tk: int, chunk: int, device=None) -> torch.Tensor:
-    """(Tq, Tk) bool, True where key j is hidden from query t under the
-    chunk width: j // chunk > t // chunk (``triangle_mask(stage=chunk)``)."""
-    t = torch.arange(tq, device=device)[:, None]
+def chunk_mask(tq: int, tk: int, chunk: int, device=None, q0: int = 0) -> torch.Tensor:
+    """(Tq, Tk) bool, True where key j is hidden from query t (the full
+    call's ``q0 + t``) under the chunk width: j // chunk > t // chunk
+    (``triangle_mask(stage=chunk)``)."""
+    t = q0 + torch.arange(tq, device=device)[:, None]
     j = torch.arange(tk, device=device)[None, :]
     return (j // chunk) > (t // chunk)
 
 
-def _scores_plain(q, k, mask, kv_lens, rel_qv, rel_p, scale, chunk=0):
+def _whole(tq: int, tqv: int, tk: int, shard: Shard) -> bool:
+    return shard.q0 == 0 and tq == tqv == tk
+
+
+def _rel_index(tq: int, tk: int, q0: int, device=None):
+    """The legacy ``rel_shift`` of a query block at ``q0`` as a gather:
+    score (t, j), with the full call's index tg = q0 + t, reads the
+    (Tq + 1, Tk) products q_v . p^T at row t, column Tk - 1 - tg + j for
+    j <= tg, and at row t + 1, column j - tg - 2 for j > tg + 1 (the next
+    query's row); j == tg + 1 reads nothing. Returns the (Tq Tk,) flat index
+    into the products (row stride Tk) and the (Tq, Tk) mask of the scores
+    that read one."""
+    t = torch.arange(tq, device=device)[:, None]
+    tg = q0 + t
+    j = torch.arange(tk, device=device)[None, :]
+    past = j <= tg
+    row = torch.where(past, t, t + 1)
+    col = torch.clamp(torch.where(past, tk - 1 - tg + j, j - tg - 2), 0, tk - 1)
+    return (row * tk + col).reshape(-1), j != tg + 1
+
+
+def _rel_scores(rel_qv, p, tq: int, q0: int):
+    """(BH, Tq, Tk) rel-pos term of a query block at ``q0``; ``rel_qv`` has
+    Tq rows, or Tq + 1 with the next block's first."""
+    bh, tqv = rel_qv.shape[:2]
+    prod = torch.einsum("bqd,bkd->bqk", rel_qv, p)
+    tk = prod.shape[-1]
+    if tqv == tq:  # the last block: no row reads past it
+        prod = torch.cat([prod, prod.new_zeros(bh, 1, tk)], dim=1)
+    idx, live = _rel_index(tq, tk, q0, prod.device)
+    bd = prod.reshape(bh, -1)[:, idx].reshape(bh, tq, tk)
+    return torch.where(live, bd, 0.0)
+
+
+def _rel_scores_adjoint(ds, tqv: int, q0: int):
+    """Adjoint of :func:`_rel_scores`: the (BH, Tqv, Tk) gradient of the
+    products from the scores' ``ds``."""
+    bh, tq, tk = ds.shape
+    idx, live = _rel_index(tq, tk, q0, ds.device)
+    dr = ds.new_zeros(bh, (tq + 1) * tk)
+    dr.index_add_(1, idx, torch.where(live, ds, 0.0).reshape(bh, -1))
+    return dr.reshape(bh, tq + 1, tk)[:, :tqv]
+
+
+def _check_shard(tq: int, tqv: int, tk: int, shard: Shard, what: str):
+    """A rel-pos query block lies inside the keys, and carries the next
+    block's first q_v row unless it is the last block (which may carry a
+    row that nothing reads)."""
+    if shard.q0 < 0 or shard.q0 + tq > tk:
+        raise ValueError(f"{what}: queries {shard.q0}..{shard.q0 + tq} lie outside "
+                         f"the {tk} keys")
+    if tqv not in (tq + (shard.q0 + tq < tk), tq + 1):
+        raise ValueError(f"{what}: a block of {tq} queries at {shard.q0} of {tk} "
+                         f"takes {tq + (shard.q0 + tq < tk)} q_v rows, got {tqv}")
+
+
+def _scores_plain(q, k, mask, kv_lens, rel_qv, rel_p, scale, chunk=0,
+                  shard: Shard = WHOLE):
     """fp32 (BH, Tq, Tk) masked scores."""
-    bh = q.shape[0]
+    bh, tq = q.shape[:2]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
     if rel_qv is not None:
         p = rel_p.float()
         p = p.repeat(_group_rows(bh, p.shape[0], "rel_p"), 1, 1)
-        s = s + rel_shift(torch.einsum("bqd,bkd->bqk", rel_qv.float(), p))
+        if _whole(tq, rel_qv.shape[1], k.shape[1], shard):
+            s = s + rel_shift(torch.einsum("bqd,bkd->bqk", rel_qv.float(), p))
+        else:
+            _check_shard(tq, rel_qv.shape[1], k.shape[1], shard, "flash_attention")
+            s = s + _rel_scores(rel_qv.float(), p, tq, shard.q0)
     s = s * scale
     if mask is not None:
         m = mask.repeat_interleave(_group_rows(bh, mask.shape[0], "mask"), 0)
@@ -204,26 +302,27 @@ def _scores_plain(q, k, mask, kv_lens, rel_qv, rel_p, scale, chunk=0):
         j = torch.arange(s.shape[-1], device=s.device)
         s = s.masked_fill(j[None, None, :] >= kv_lens[:, None, None], NEG_INF)
     if chunk > 0:
-        s = s.masked_fill(chunk_mask(s.shape[1], s.shape[2], chunk, s.device)[None],
-                          NEG_INF)
+        s = s.masked_fill(chunk_mask(s.shape[1], s.shape[2], chunk, s.device,
+                                     shard.q0)[None], NEG_INF)
     return s
 
 
 def flash_attention_plain(q, k, v, mask=None, kv_lens=None, rel_qv=None,
                           rel_p=None, scale: float = 1.0,
                           return_lse: bool = False, dropout_rate: float = 0.0,
-                          dropout_seed: int = 0, chunk: int = 0):
+                          dropout_seed: int = 0, chunk: int = 0,
+                          shard: Shard = WHOLE):
     """Plain PyTorch version of the kernel: fp32 scores and softmax.
 
     Same arguments as :func:`flash_attention`; follows
     ``_ref_rel_attention`` (liteasr_tpu/ops/flash_attention.py:450-466)
     plus the mask input, the per-row lse and the dropout of ``_attn_kernel``.
     """
-    s = _scores_plain(q, k, mask, kv_lens, rel_qv, rel_p, scale, chunk)
+    s = _scores_plain(q, k, mask, kv_lens, rel_qv, rel_p, scale, chunk, shard)
     attn = torch.softmax(s, dim=-1)
     if dropout_rate > 0.0:
         keep = dropout_keep_global(q.shape[0], q.shape[1], k.shape[1],
-                                   dropout_seed, dropout_rate, q.device)
+                                   dropout_seed, dropout_rate, q.device, shard)
         attn = torch.where(keep, attn, 0.0)
     out = torch.einsum("bqk,bkd->bqd", attn, v.float())
     if dropout_rate > 0.0:
@@ -238,7 +337,7 @@ def flash_attention_plain(q, k, v, mask=None, kv_lens=None, rel_qv=None,
 def flash_attention(q, k, v, mask=None, kv_lens=None, rel_qv=None,
                     rel_p=None, scale: float = 1.0, return_lse: bool = False,
                     dropout_rate: float = 0.0, dropout_seed: int = 0,
-                    chunk: int = 0):
+                    chunk: int = 0, shard: Shard = WHOLE):
     """Fused attention forward (K1; K1' with ``return_lse``/dropout).
 
     :param q: (BH, Tq, D); ``k``/``v``: (BH, Tk, D); float32 or bfloat16
@@ -247,16 +346,19 @@ def flash_attention(q, k, v, mask=None, kv_lens=None, rel_qv=None,
         of a batch row)
     :param kv_lens: optional (BH,) int32; keys at position >= kv_len are
         masked (suffix padding)
-    :param rel_qv: optional (BH, Tq, D) position-query rows (q + pos_bias_v)
+    :param rel_qv: optional (BH, Tq, D) position-query rows (q + pos_bias_v);
+        under a ``shard`` whose queries end before the keys, (BH, Tq + 1, D)
+        with the next block's first row
     :param rel_p: (P, Tk, D) compact position table; row ``bh`` reads
         ``rel_p[bh % P]`` (P = H shares it across the batch). Needs
-        Tq == Tk.
+        Tq == Tk, or a ``shard`` whose queries lie inside the keys.
     :param return_lse: also return the (BH, Tq) fp32 per-row logsumexp of
         the masked scores, NEG_INF for a row with no key
     :param dropout_rate: attention-probability dropout with the TPU
         kernel's counter hash, keyed by ``dropout_seed`` (an int32)
     :param chunk: chunk width, 0 = none; key j is masked for query t iff
         j // chunk > t // chunk
+    :param shard: where the call lies in the full attention (:class:`Shard`)
     :return: (BH, Tq, D) in q's dtype [, lse]
 
     A CPU tensor takes :func:`flash_attention_plain`; a CUDA tensor launches
@@ -271,11 +373,11 @@ def flash_attention(q, k, v, mask=None, kv_lens=None, rel_qv=None,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask, kv_lens, rel_qv, rel_p,
                                      scale, return_lse, dropout_rate,
-                                     dropout_seed, chunk)
+                                     dropout_seed, chunk, shard)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     out, lse = _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale,
-                           return_lse, dropout_rate, dropout_seed, chunk)
+                           return_lse, dropout_rate, dropout_seed, chunk, shard)
     flash_attention.launches += 1
     flash_attention.chunk_launches += chunk > 0
     if return_lse:
@@ -293,13 +395,14 @@ flash_attention.lse_chunk_launches = 0
 
 def flash_rel_attention_bwd_plain(q_u, qv, k, v, p, kv_lens, out, lse, dout,
                                   scale: float, dropout_rate: float = 0.0,
-                                  dropout_seed: int = 0, chunk: int = 0):
+                                  dropout_seed: int = 0, chunk: int = 0,
+                                  shard: Shard = WHOLE):
     """Plain PyTorch version of K2: the closed form of ``_bwd_kernel``
     (liteasr_tpu/ops/flash_attention.py:566-680) on the full (Tq, Tk) score
     matrix. Inputs as :func:`flash_rel_attention_bwd`; returns fp32
     (dq_u, dqv, dk, dv, dp)."""
     bh = q_u.shape[0]
-    s = _scores_plain(q_u, k, None, kv_lens, qv, p, scale, chunk)
+    s = _scores_plain(q_u, k, None, kv_lens, qv, p, scale, chunk, shard)
     lse = lse.float()[:, :, None]
     dead = lse <= NEG_INF / 2
     a = torch.where(dead | (s <= NEG_INF / 2), 0.0,
@@ -309,7 +412,7 @@ def flash_rel_attention_bwd_plain(q_u, qv, k, v, p, kv_lens, out, lse, dout,
     dp_ = torch.einsum("bqd,bkd->bqk", dout, vf)
     if dropout_rate > 0.0:
         keep = dropout_keep_global(bh, q_u.shape[1], k.shape[1], dropout_seed,
-                                   dropout_rate, q_u.device)
+                                   dropout_rate, q_u.device, shard)
         inv_keep = 1.0 / (1.0 - dropout_rate)
         a_v = torch.where(keep, a, 0.0) * inv_keep
         dp_ = torch.where(keep, dp_, 0.0) * inv_keep
@@ -320,7 +423,10 @@ def flash_rel_attention_bwd_plain(q_u, qv, k, v, p, kv_lens, out, lse, dout,
     dv = torch.einsum("bqk,bqd->bkd", a_v, dout)
     dk = torch.einsum("bqk,bqd->bkd", ds, q_u.float())
     dq_u = torch.einsum("bqk,bkd->bqd", ds, k.float())
-    dr = rel_shift_adjoint(ds)
+    if _whole(q_u.shape[1], qv.shape[1], k.shape[1], shard):
+        dr = rel_shift_adjoint(ds)
+    else:
+        dr = _rel_scores_adjoint(ds, qv.shape[1], shard.q0)
     p_rows = p.shape[0]
     p_rep = p.float().repeat(_group_rows(bh, p_rows, "p"), 1, 1)
     dqv = torch.einsum("bqk,bkd->bqd", dr, p_rep)
@@ -331,17 +437,23 @@ def flash_rel_attention_bwd_plain(q_u, qv, k, v, p, kv_lens, out, lse, dout,
 
 def flash_rel_attention_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout,
                             scale: float, dropout_rate: float = 0.0,
-                            dropout_seed: int = 0, chunk: int = 0):
+                            dropout_seed: int = 0, chunk: int = 0,
+                            shard: Shard = WHOLE):
     """K2: gradients of the rel-pos attention forward.
 
-    :param q_u, qv: (BH, T, D); ``k``/``v``: (BH, T, D); ``p``: (P, T, D)
-        shared as in :func:`flash_attention`; all float32 or bfloat16
+    :param q_u: (BH, Tq, D); ``qv``: (BH, Tq or Tq + 1, D) as the forward
+        took it; ``k``/``v``: (BH, Tk, D); ``p``: (P, Tk, D) shared as in
+        :func:`flash_attention`; all float32 or bfloat16. Tq == Tk without
+        a ``shard``.
     :param kv_lens: (BH,) int32 or None
-    :param out: the forward's output as returned, in fp32 (BH, T, D)
-    :param lse: the forward's (BH, T) fp32 lse
-    :param dout: (BH, T, D) fp32 cotangent of ``out``
+    :param out: the forward's output as returned, in fp32 (BH, Tq, D)
+    :param lse: the forward's (BH, Tq) fp32 lse
+    :param dout: (BH, Tq, D) fp32 cotangent of ``out``
     :param chunk: the forward's chunk width (0 = none)
-    :return: fp32 (dq_u, dqv, dk, dv, dp), dp summed over the batch rows
+    :param shard: the forward's :class:`Shard`
+    :return: fp32 (dq_u, dqv, dk, dv, dp), dqv shaped as ``qv`` (its row Tq,
+        if any, is the gradient of the next block's first q_v row), dp summed
+        over the batch rows
 
     A CPU tensor takes :func:`flash_rel_attention_bwd_plain`; a CUDA tensor
     launches the kernel (``flash_rel_attention_bwd.launches`` counts them,
@@ -351,11 +463,11 @@ def flash_rel_attention_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout,
     if q_u.device.type == "cpu":
         return flash_rel_attention_bwd_plain(
             q_u, qv, k, v, p, kv_lens, out, lse, dout, scale, dropout_rate,
-            dropout_seed, chunk)
+            dropout_seed, chunk, shard)
     if q_u.device.type != "cuda":
         raise ValueError(f"flash_rel_attention_bwd: unsupported device {q_u.device}")
     grads = _launch_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout, scale,
-                        dropout_rate, dropout_seed, chunk)
+                        dropout_rate, dropout_seed, chunk, shard)
     flash_rel_attention_bwd.launches += 1
     flash_rel_attention_bwd.chunk_launches += chunk > 0
     return grads
@@ -370,18 +482,19 @@ class FlashRelAttentionTrain(torch.autograd.Function):
     ``flash_rel_attention_train``, liteasr_tpu/ops/flash_attention.py
     :469-522). Forward = K1' with lse and dropout, returned in fp32;
     backward = K2 with the regenerated keep mask, grads in the inputs'
-    dtypes. Both under the same chunk width."""
+    dtypes. Both under the same chunk width and shard."""
 
     @staticmethod
     def forward(ctx, q_u, qv, k, v, p, kv_lens, seed: int, scale: float,
-                dropout_rate: float, chunk: int):
+                dropout_rate: float, chunk: int, shard: Shard):
         out, lse = flash_attention(
             q_u, k, v, kv_lens=kv_lens, rel_qv=qv, rel_p=p, scale=scale,
             return_lse=True, dropout_rate=dropout_rate, dropout_seed=seed,
-            chunk=chunk)
+            chunk=chunk, shard=shard)
         out = out.float()
         ctx.save_for_backward(q_u, qv, k, v, p, kv_lens, out, lse)
         ctx.seed, ctx.scale, ctx.rate, ctx.chunk = seed, scale, dropout_rate, chunk
+        ctx.shard = shard
         return out
 
     @staticmethod
@@ -389,21 +502,23 @@ class FlashRelAttentionTrain(torch.autograd.Function):
         q_u, qv, k, v, p, kv_lens, out, lse = ctx.saved_tensors
         grads = flash_rel_attention_bwd(
             q_u, qv, k, v, p, kv_lens, out, lse, dout.float().contiguous(),
-            ctx.scale, ctx.rate, ctx.seed, ctx.chunk)
+            ctx.scale, ctx.rate, ctx.seed, ctx.chunk, ctx.shard)
         cast = [g.to(x.dtype) for g, x in zip(grads, (q_u, qv, k, v, p))]
-        return (*cast, None, None, None, None, None)
+        return (*cast, None, None, None, None, None, None)
 
 
 def flash_rel_attention_train(q_u, qv, k, v, p, kv_lens, seed: int,
                               scale: float, dropout_rate: float = 0.0,
-                              chunk: int = 0):
+                              chunk: int = 0, shard: Shard = WHOLE):
     """Differentiable fused rel-pos attention (conformer self-attention in
     train mode). ``q_u``/``qv``/``k``/``v`` (BH, T, D), ``p`` (P, T, D),
     ``kv_lens`` (BH,) int32 or None, ``seed`` an int32 for the dropout hash,
-    ``chunk`` the chunk width (0 = none). Returns fp32 (BH, T, D)."""
+    ``chunk`` the chunk width (0 = none), ``shard`` where the call lies in
+    the full attention (``q_u`` (BH, Tq, D), ``qv`` (BH, Tq [+ 1], D) then).
+    Returns fp32 (BH, Tq, D)."""
     return FlashRelAttentionTrain.apply(q_u, qv, k, v, p, kv_lens, int(seed),
                                         float(scale), float(dropout_rate),
-                                        _chunk_width(chunk))
+                                        _chunk_width(chunk), Shard(*shard))
 
 
 def _chunk_width(chunk) -> int:
@@ -436,8 +551,17 @@ def _dropout_args(dropout_rate: float, seed: int):
             ctypes.c_uint32(keep_threshold(dropout_rate)))
 
 
+def _shard_args(tqv: int, shard: Shard):
+    """The kernels' trailing (tqv, qoff, hl, ht, h0)."""
+    if not (shard.h_local >= 1 and shard.head0 >= 0
+            and shard.head0 + shard.h_local <= shard.h_total):
+        raise ValueError(f"flash_attention: heads {shard.head0}.."
+                         f"{shard.head0 + shard.h_local} of {shard.h_total}")
+    return (tqv, shard.q0, shard.h_local, shard.h_total, shard.head0)
+
+
 def _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse,
-                dropout_rate, dropout_seed, chunk):
+                dropout_rate, dropout_seed, chunk, shard):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention: unsupported dtype {q.dtype}")
     if q.dim() != 3:
@@ -459,20 +583,24 @@ def _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse,
         _check("kv_lens", kv_lens, torch.int32, (bh,), dev)
     if (rel_qv is None) != (rel_p is None):
         raise ValueError("flash_attention: rel_qv and rel_p go together")
+    tqv = tq
     if rel_qv is not None:
-        if tq != tk:
-            raise ValueError("flash_attention: the rel-pos term needs Tq == Tk")
+        tqv = rel_qv.shape[1]
+        _check_shard(tq, tqv, tk, shard, "flash_attention")
         p_mod = rel_p.shape[0]
         _group_rows(bh, p_mod, "rel_p")
-        _check("rel_qv", rel_qv, q.dtype, (bh, tq, d), dev)
+        _check("rel_qv", rel_qv, q.dtype, (bh, tqv, d), dev)
         _check("rel_p", rel_p, q.dtype, (p_mod, tk, d), dev)
+    elif shard.q0 + tq > (shard.t_q or tq):
+        raise ValueError(f"flash_attention: queries {shard.q0}..{shard.q0 + tq} "
+                         f"past the full call's {shard.t_q}")
     out = torch.empty_like(q)
     lse = (torch.empty((bh, tq), dtype=torch.float32, device=dev)
            if return_lse else None)
     if bh == 0 or tq == 0:
         return out, lse
     on, seed, thr = _dropout_args(dropout_rate, dropout_seed)
-    tqe, tke = hash_tiles(tq, tk)
+    tqe, tke = hash_tiles(shard.t_q or tq, tk)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = load_library("rel_attention_fwd").rel_attention_fwd(
@@ -480,28 +608,32 @@ def _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse,
             _ptr(rel_p), _ptr(mask), _ptr(kv_lens), _ptr(out), _ptr(lse),
             bh, tq, tk, d, mask_div, p_mod, ctypes.c_float(scale), on, seed,
             thr, ctypes.c_float(1.0 - dropout_rate), tqe, tke, chunk,
-            ctypes.c_void_p(stream))
+            *_shard_args(tqv, shard), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"rel_attention_fwd launch failed: CUDA error {err}")
     return out, lse
 
 
 def _launch_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout, scale,
-                dropout_rate, dropout_seed, chunk):
+                dropout_rate, dropout_seed, chunk, shard):
     if q_u.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_rel_attention_bwd: unsupported dtype {q_u.dtype}")
     if q_u.dim() != 3:
         raise ValueError(f"flash_rel_attention_bwd: q_u must be (BH, T, D), "
                          f"got {tuple(q_u.shape)}")
     bh, t, d = q_u.shape
+    tk, tqv = k.shape[1], qv.shape[1]
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_rel_attention_bwd: head dim {d} not in 1..{MAX_HEAD_DIM}")
     dev, dt = q_u.device, q_u.dtype
     p_mod = p.shape[0]
     _group_rows(bh, p_mod, "p")
-    for name, x in (("q_u", q_u), ("qv", qv), ("k", k), ("v", v)):
-        _check(name, x, dt, (bh, t, d), dev)
-    _check("p", p, dt, (p_mod, t, d), dev)
+    _check_shard(t, tqv, tk, shard, "flash_rel_attention_bwd")
+    _check("q_u", q_u, dt, (bh, t, d), dev)
+    _check("qv", qv, dt, (bh, tqv, d), dev)
+    for name, x in (("k", k), ("v", v)):
+        _check(name, x, dt, (bh, tk, d), dev)
+    _check("p", p, dt, (p_mod, tk, d), dev)
     _check("out", out, torch.float32, (bh, t, d), dev)
     _check("dout", dout, torch.float32, (bh, t, d), dev)
     _check("lse", lse, torch.float32, (bh, t), dev)
@@ -514,16 +646,16 @@ def _launch_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout, scale,
     tc = dt == torch.bfloat16
     f32 = dict(dtype=torch.float32, device=dev)
     dq_u = (torch.zeros if tc else torch.empty)((bh, t, d), **f32)
-    dk, dv = ((torch.empty if tc else torch.zeros)((bh, t, d), **f32)
+    dk, dv = ((torch.empty if tc else torch.zeros)((bh, tk, d), **f32)
               for _ in range(2))
-    dqv = torch.zeros((bh, t, d), **f32)
-    dp = torch.zeros((p_mod, t, d), **f32)
+    dqv = torch.zeros((bh, tqv, d), **f32)
+    dp = torch.zeros((p_mod, tk, d), **f32)
     # bf16 scratch: dO in bf16 and Dvec = rowsum(dO * O), from a pre-pass
     dob = torch.empty((bh, t, d), dtype=torch.bfloat16, device=dev) if tc else None
     dvec = torch.empty((bh, t), dtype=torch.float32, device=dev) if tc else None
     if bh and t:
         on, seed, thr = _dropout_args(dropout_rate, dropout_seed)
-        tqe, tke = hash_tiles(t, t)
+        tqe, tke = hash_tiles(shard.t_q or t, tk)
         inv_keep = 1.0 / (1.0 - dropout_rate) if on else 1.0
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -531,8 +663,9 @@ def _launch_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout, scale,
                 _DTYPE_CODE[dt], _ptr(q_u), _ptr(qv), _ptr(k), _ptr(v), _ptr(p),
                 _ptr(kv_lens), _ptr(out), _ptr(lse), _ptr(dout), _ptr(dq_u),
                 _ptr(dqv), _ptr(dk), _ptr(dv), _ptr(dp), _ptr(dob), _ptr(dvec),
-                bh, t, d, p_mod, ctypes.c_float(scale), on, seed, thr,
-                ctypes.c_float(inv_keep), tqe, tke, chunk, ctypes.c_void_p(stream))
+                bh, t, tk, d, p_mod, ctypes.c_float(scale), on, seed, thr,
+                ctypes.c_float(inv_keep), tqe, tke, chunk, *_shard_args(tqv, shard),
+                ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"rel_attention_bwd launch failed: CUDA error {err}")
     return dq_u, dqv, dk, dv, dp
@@ -600,12 +733,14 @@ _ARGTYPES = {
                           + [ctypes.c_int] * 6
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
                              ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+                             ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * 5
+                          + [ctypes.c_void_p]),
     "rel_attention_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 16
-                          + [ctypes.c_int] * 4
+                          + [ctypes.c_int] * 5
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
                              ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+                             ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * 5
+                          + [ctypes.c_void_p]),
 }
 
 

@@ -18,11 +18,15 @@ scale_by_adam, scale_by_schedule(-lr)))`` under ``accumulate_every_k``
   eps)``. That is not ``torch.optim.Adam(amsgrad=True)``, which takes the
   max of the uncorrected moment and corrects afterwards. A skipped step
   leaves ``nu_max`` bit identical too;
-* under a process group, the flat gradient is summed over the ranks at the
-  applying micro-step (after the window's accumulation, before the mean,
-  the finiteness check and the clip), so every rank takes the same
-  decisions on the same vector: the psum of the accumulated gradient.
-  Without a group the sum is the identity and launches nothing.
+* under a process group, the flat gradient is summed over the dp x sp
+  ranks at the applying micro-step (after the window's accumulation, before
+  the mean, the finiteness check and the clip): the psum of the accumulated
+  gradient. Without a group the sum is the identity and launches nothing.
+  Under tensor parallelism the flat vector holds the rank's shards
+  (``sharded`` marks them) and the tp peers' replicated leaves, which the
+  Megatron collectives keep equal; the global norm^2 is the tp sum of the
+  sharded leaves' squares plus the replicated leaves' squares once, so the
+  clip and the NaN-skip read one number on every rank.
 
 The parameters, moments and accumulator are handled as one flat fp32
 vector, so a step is a fixed handful of kernels whatever the number of
@@ -42,7 +46,7 @@ class FusedAdam:
                  schedule: Callable[[torch.Tensor], torch.Tensor],
                  b1: float, b2: float, eps: float, clip: float = 0.0,
                  weight_decay: float = 0.0, accum: int = 1,
-                 amsgrad: bool = False):
+                 amsgrad: bool = False, sharded: Optional[List[bool]] = None):
         self.params = list(params)
         if not self.params:
             raise ValueError("FusedAdam: no parameters")
@@ -64,6 +68,12 @@ class FusedAdam:
         self.nu = torch.zeros(n, device=dev)
         self.acc = torch.zeros(n, device=dev) if self.accum > 1 else None
         self.nu_max = torch.zeros(n, device=dev) if self.amsgrad else None
+        # 1.0 over the tp-sharded leaves' elements (None: no tp shards)
+        self.shard_weight = None
+        if sharded is not None and any(sharded):
+            self.shard_weight = torch.cat([
+                torch.full((p.numel(),), float(s), device=dev)
+                for p, s in zip(self.params, sharded)])
 
     def _flat(self, grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
         return torch.cat([
@@ -88,7 +98,13 @@ class FusedAdam:
     def _step(self, g: torch.Tensor) -> None:
         """``fused_adam_step`` on the flat mean gradient ``g``."""
         b1, b2 = self.b1, self.b2
-        gsq = g.square().sum()
+        if self.shard_weight is None:
+            gsq = g.square().sum()
+        else:
+            sq = g.square()
+            sharded_sq = parallel.global_sum_(torch.dot(sq, self.shard_weight), "grad_norm",
+                                              over="tp")
+            gsq = torch.dot(sq, 1.0 - self.shard_weight) + sharded_sq
         finite = torch.isfinite(gsq)  # any inf/nan leaf makes gsq non-finite
         one = torch.ones((), device=g.device)
         if self.clip > 0:
@@ -134,7 +150,8 @@ def constant_schedule(lr: float):
     return schedule
 
 
-def build_tx(optimizer, optimization_cfg, params) -> FusedAdam:
+def build_tx(optimizer, optimization_cfg, params,
+             sharded: Optional[List[bool]] = None) -> FusedAdam:
     """clip -> Adam or AMSGrad (+schedule), NaN-protected, accumulated over
     ``accum_grad`` (liteasr_tpu/trainer.py:96-134), over ``params``. AMSGrad is the
     optimizer's ``amsgrad`` (only ``adam`` sets it: noam's chain is
@@ -147,4 +164,4 @@ def build_tx(optimizer, optimization_cfg, params) -> FusedAdam:
                      clip=float(optimization_cfg.get("clip_grad_norm") or 0.0),
                      weight_decay=float(ocfg.get("weight_decay", 0.0) or 0.0),
                      accum=int(optimization_cfg.get("accum_grad") or 1),
-                     amsgrad=optimizer.amsgrad)
+                     amsgrad=optimizer.amsgrad, sharded=sharded)

@@ -23,8 +23,15 @@ criterions, BatchNorm and the optimizer reduce over the group
 master alone writes ``train.log``, the results rows, the checkpoints and
 ``config.yaml``; the other ranks log to the console.
 
-Tensor and sequence parallelism (``distributed.tp``/``sp`` > 1) raise
-``NotImplementedError``, naming their ROADMAP item. Streaming models train here too
+Tensor and sequence parallelism: ``distributed.tp=T distributed.sp=S`` (and
+``distributed.dp=-1`` or N / (S T)) lay the N processes out as the JAX
+package's (dp, sp, tp) mesh, tp innermost (``parallel.mesh.Layout``), for
+the U2 family: tp shards the attentions, FFNs and conv modules Megatron's
+way and must divide the heads and the widths; sp splits the encoder's
+frames (``parallel.sharding``). Checkpoints and the train state are written
+in the one-process layout. The transducer, the Paraformer and wav2vec 2.0
+raise ``NotImplementedError`` under tp or sp > 1, naming their ROADMAP
+item. Streaming models train here too
 (``model.enc_arch=transformer model.dynamic_chunk=true`` or
 ``model.static_chunk_size=N``), and so do the transducer
 (``model=my_transducer criterion=my_rnnt``) and the Paraformer
@@ -40,6 +47,7 @@ import numpy as np
 import torch
 
 from liteasr_tpu_torch import parallel, tasks
+from liteasr_tpu_torch.parallel import sharding
 from liteasr_tpu_torch.config import compose
 from liteasr_tpu_torch.config.core import to_yaml
 
@@ -93,12 +101,15 @@ def train(cfg, device: Optional[torch.device] = None):
 def _train(cfg, device: torch.device):
     from liteasr_tpu_torch.trainer import Trainer
 
-    seed, rank = int(cfg.common.seed), parallel.process_index()
-    # the host's draws are per-row streams: the rank's own (rank 0 keeps the
-    # run's); so are the device's, once the model's init has drawn the same
-    # weights on every rank
-    np.random.seed(parallel.rank_seed(seed))
+    seed, lay = int(cfg.common.seed), parallel.layout()
+    # the host's draws are per-row streams: the dp rank's own (dp rank 0
+    # keeps the run's; tp and sp peers hold the same rows); so are the
+    # device's, once the model's init has drawn the same weights on every
+    # rank: keyed by (dp_i, sp_i), so that the activations a tp group holds
+    # whole are dropped alike
+    np.random.seed(parallel.rank_seed(seed, lay.dp_i))
     torch.manual_seed(seed)  # dropout masks draw from the device generator
+    parallel.seed_streams(seed)
     logger.info("set random seed as %d", seed)
 
     task = tasks.setup_task(cfg.task)
@@ -123,9 +134,11 @@ def _train(cfg, device: torch.device):
 
     generator = torch.Generator().manual_seed(seed)
     model = task.build_model(cfg.model, device=device, generator=generator)
-    model.seed_dropout(seed, rank)
-    if rank:
-        torch.manual_seed(parallel.rank_seed(seed))
+    model.seed_dropout(seed, lay.dp_i)
+    sharding.shard_model(model, lay, cfg.model)
+    activations = lay.dp_i * lay.sp + lay.sp_i
+    if activations:
+        torch.manual_seed(parallel.rank_seed(seed, activations))
     logger.info("2. build model    : %s", model.__class__.__name__)
 
     optim = task.build_optimizer(cfg.optimizer)

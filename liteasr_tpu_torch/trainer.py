@@ -36,6 +36,17 @@ The per-row random streams (device dropout, SpecAugment, the Paraformer's
 glance noise, wav2vec 2.0's draws) are seeded per rank (rank 0 keeps the
 one-process streams); the attention kernels' dropout seeds move to the
 rank's rows.
+
+Under tensor and sequence parallelism (U2; ``parallel.sharding``) the
+ranks form a (dp, sp, tp) mesh: the datasets are sharded by the dp
+coordinate, so tp and sp peers collate the same rows; the batch-level draws
+(SpecAugment) follow dp_i; the throughput counts each global row once.
+``save_model`` gathers the tp shards (a collective) and the master writes
+the one-process layout, parameters and optimizer moments alike, so that a
+checkpoint or train state of any layout loads in any other; resume cuts
+the rank's shard from it. ``valid`` runs the sharded eval forward;
+``inference`` decodes the gathered full model, its rows sharded over the
+world as under dp.
 """
 
 import hashlib
@@ -50,6 +61,7 @@ import torch
 
 from liteasr_tpu_torch import parallel
 from liteasr_tpu_torch.checkpoint import CKPT_TEMPLATE
+from liteasr_tpu_torch.parallel import sharding
 from liteasr_tpu_torch.data.loader import EpochDataLoader
 from liteasr_tpu_torch.ops.fbank import log_mel_fbank
 from liteasr_tpu_torch.ops.spec_augment import spec_augment, step_generator
@@ -89,27 +101,36 @@ class Trainer:
         self._report_time = time.time()
         self._report_utts = 0
         self.world, self.rank = parallel.process_count(), parallel.process_index()
+        self.layout = parallel.layout()
         self.backend = (torch.distributed.get_backend()
                         if parallel.is_initialized() else None)
         if self.backend:
-            logger.info("data parallel: rank %d of %d over %s", self.rank,
-                        self.world, self.backend)
+            lay = self.layout
+            logger.info("rank %d of %d over %s: dp %d x sp %d x tp %d, at (%d, %d, %d)",
+                        self.rank, self.world, self.backend, lay.dp, lay.sp, lay.tp,
+                        lay.dp_i, lay.sp_i, lay.tp_i)
 
-        # one device per process: each rank collates its row block of the
-        # global batch, padded to a multiple of the world size
+        # one device per process: each dp rank collates its row block of the
+        # global batch, padded to a multiple of dp; its tp and sp peers
+        # collate the same rows
         for ds in (task.dataset("train"), task.dataset("valid")):
             ds.batch_multiple = 1
-            ds.num_shards = self.world
-            ds.shard_index = self.rank
+            ds.num_shards = self.layout.dp
+            ds.shard_index = self.layout.dp_i
         self.train_iter = EpochDataLoader(
             task.dataset("train"), shuffle=True, seed=cfg.common.seed,
             prefetch=2, num_workers=max(1, cfg.dataset.get("num_workers", 2)))
         self.valid_set = task.dataset("valid")
 
-        self.params = [p for p in model.parameters() if p.requires_grad]
+        named = [(k, p) for k, p in model.named_parameters() if p.requires_grad]
+        sharded = dict(zip((k for k, _ in model.named_parameters()),
+                           sharding.sharded_parameters(model)))
+        self.named_params = named
+        self.params = [p for _, p in named]
         n_params = sum(p.numel() for p in self.params)
         logger.info("model parameters: %.2fM", n_params / 1e6)
-        self.tx = build_tx(optimizer, cfg.optimization, self.params)
+        self.tx = build_tx(optimizer, cfg.optimization, self.params,
+                           [sharded[k] for k, _ in named])
         self.fbank_bins = (int(cfg.dataset.get("num_mel_bins", 80))
                            if cfg.dataset.get("fbank", False) else None)
         pp = cfg.get("postprocess") or {}
@@ -143,7 +164,7 @@ class Trainer:
         """One micro-step on a device batch; returns the detached loss."""
         batch = self.frontend(batch)
         if self.spec_aug is not None and batch["xs"].dim() == 3:  # not raw waves
-            gen = step_generator(parallel.rank_seed(self.cfg.common.seed),
+            gen = step_generator(parallel.rank_seed(self.cfg.common.seed, self.layout.dp_i),
                                  self.step, self.device)
             batch = dict(batch, xs=spec_augment(batch["xs"], batch["xlens"], gen,
                                                 **self.spec_aug))
@@ -175,19 +196,28 @@ class Trainer:
                 rng[key] = getattr(self.model, f"{key}_generator").get_state()
         if self.device.type == "cuda":
             rng["cuda"] = torch.cuda.get_rng_state(self.device)
+        streams = parallel.stream_states()
+        if streams:
+            rng["streams"] = streams
         return rng
 
-    def _save_train_state(self, rng_ranks):
-        """``rng_ranks``: every rank's ``_rng_state()``, rank 0's first."""
+    def _optimizer_state(self) -> dict:
+        """The optimizer's state in the full layout (a collective over the
+        tp group: every rank calls it)."""
         tx = self.tx
+
+        def full(vec):
+            return None if vec is None else sharding.gather_flat(vec, self.named_params)
+
+        return {"mu": full(tx.mu), "nu": full(tx.nu), "count": tx.count.cpu(),
+                "notfinite_count": tx.notfinite_count.cpu(), "acc": full(tx.acc),
+                "nu_max": full(tx.nu_max), "mini_step": tx.mini_step}
+
+    def _save_train_state(self, model_state, opt_state, rng_ranks):
+        """``rng_ranks``: every rank's ``_rng_state()``, rank 0's first."""
         state = {
-            "model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
-            "optimizer": {
-                "mu": tx.mu.cpu(), "nu": tx.nu.cpu(), "count": tx.count.cpu(),
-                "notfinite_count": tx.notfinite_count.cpu(),
-                "acc": None if tx.acc is None else tx.acc.cpu(),
-                "nu_max": None if tx.nu_max is None else tx.nu_max.cpu(),
-                "mini_step": tx.mini_step},
+            "model": model_state,
+            "optimizer": opt_state,
             "step": self.step,
             "rng": rng_ranks[0],
         }
@@ -208,9 +238,17 @@ class Trainer:
             logger.warning("resume requested but %s not found; starting fresh", path)
             return
         state = torch.load(path, map_location="cpu", weights_only=True)
-        tx, opt = self.tx, state["optimizer"]
+        tx, opt = self.tx, dict(state["optimizer"])
+        lay = self.layout
         try:
-            self.model.load_state_dict(state["model"], strict=True)
+            model_state = state["model"]
+            if getattr(self.model, "tp_sharded", False):  # the rank's shard of the full layout
+                shapes = {k: model_state[k].shape for k, _ in self.named_params}
+                model_state = sharding.shard_state_dict(model_state, lay.tp_i, lay.tp)
+                for key in ("mu", "nu", "acc", "nu_max"):
+                    if opt.get(key) is not None:
+                        opt[key] = sharding.shard_flat(opt[key], self.named_params, shapes)
+            self.model.load_state_dict(model_state, strict=True)
             nu_max = opt.get("nu_max")
             if (opt["mu"].shape != tx.mu.shape or (opt["acc"] is None) != (tx.acc is None)
                     or (nu_max is None) != (tx.nu_max is None)):
@@ -251,6 +289,7 @@ class Trainer:
 
     def _set_rng_state(self, rng: dict):
         torch.set_rng_state(rng["cpu"])
+        parallel.set_stream_states(rng.get("streams") or {})
         for key in MODEL_GENERATORS:
             if key in rng and hasattr(self.model, f"{key}_generator"):
                 getattr(self.model, f"{key}_generator").set_state(rng[key])
@@ -363,7 +402,7 @@ class Trainer:
             window = float("nan")
         now = time.time()
         dt = max(now - self._report_time, 1e-6)
-        throughput = self._report_utts * self.world / dt
+        throughput = self._report_utts * self.layout.dp / dt  # each global row once
         self._report_time = now
         self._report_utts = 0
         logger.info(
@@ -409,14 +448,29 @@ class Trainer:
         """``model.ep.<epoch>.pt``: the model's state_dict (parameters and
         BatchNorm running statistics), what checkpoint.load_ckpt reads; and
         the training state that ``common.resume`` restores."""
-        # a collective: every rank reaches it, the master writes
+        # collectives: every rank reaches them, the master writes the
+        # one-process layout
         rng_ranks = parallel.all_gather_object(self._rng_state())
+        state = sharding.gather_state_dict(self.model)
+        opt_state = self._optimizer_state()
         if not parallel.is_master():
             return
-        state = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
         path = self.task.save_model(CKPT_TEMPLATE.format(self.epoch), state)
-        self._save_train_state(rng_ranks)
+        self._save_train_state(state, opt_state, rng_ranks)
         logger.info("saved %s and %s", path, TRAIN_STATE)
+
+    def full_model(self):
+        """The model in the one-process layout: the model itself, or under
+        tensor or sequence parallelism a full copy of the gathered shards (a
+        collective over the tp group)."""
+        if not (getattr(self.model, "tp_sharded", False)
+                or getattr(self.model, "seq_parallel", False)):
+            return self.model
+        state = sharding.gather_state_dict(self.model)
+        model = self.task.build_model(self.cfg.model, device=self.device,
+                                      generator=torch.Generator())  # not the run's streams
+        model.load_state_dict(state, strict=True)
+        return model
 
     def inference(self):
         """Decode the test sets mid-training through ``infer_dataset``. Every
@@ -431,9 +485,10 @@ class Trainer:
                 logger.warning("inference trigger set but task.test is empty")
                 return
             self.task.load_dataset("test", list(test_dirs), self.cfg.dataset)
+        model = self.full_model()
         for test_set in self.task.dataset("test"):
             err, length = infer_dataset(
-                self.task, self.model, test_set, self.cfg.inference,
+                self.task, model, test_set, self.cfg.inference,
                 self.device,
                 pad_time_multiple=self.cfg.dataset.get("pad_time_multiple", 128),
                 verbose=False)

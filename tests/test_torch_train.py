@@ -416,9 +416,9 @@ def test_train_cli_writes_a_checkpoint_that_infer_decodes(tiny_corpus, tmp_path)
     "common.memory_save=true", "distributed.dp=2", "model.remat=true",
     "distributed.tp=2"])
 def test_unported_options_raise(tiny_corpus, tmp_path, override):
-    """Tensor parallelism is still unported and raises, naming its ROADMAP
-    item; distributed.dp must be -1 or the number of processes (one here);
-    the other options run (tests/test_torch_resume.py and
+    """distributed.tp=2 needs a process group of a multiple of 2 processes
+    (tests/test_torch_tp.py runs it); distributed.dp must be -1 or the number
+    of processes (one here); the other options run (tests/test_torch_resume.py and
     tests/test_torch_frontend.py hold them to the JAX package), and
     dataset.fbank on a feats.scp corpus says that it needs wav.scp."""
     import shutil
@@ -436,8 +436,8 @@ def test_unported_options_raise(tiny_corpus, tmp_path, override):
         with pytest.raises(ValueError, match="dp must be -1 or the number of processes"):
             train.main(overrides, device=device)
     elif override == "distributed.tp=2":
-        with pytest.raises(NotImplementedError,
-                           match='ROADMAP item "tensor and sequence parallelism"'):
+        with pytest.raises(ValueError, match="dp must be -1 or the number of processes "
+                                             "over sp x tp"):
             train.main(overrides, device=device)
     elif override == "dataset.fbank=true":
         with pytest.raises(AssertionError, match="wav.scp"):

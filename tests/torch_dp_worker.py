@@ -3,14 +3,21 @@
     python tests/torch_dp_worker.py reductions ADDR WORLD RANK OUT
     python tests/torch_dp_worker.py train INIT_STATE_DICT OVERRIDES...
     python tests/torch_dp_worker.py decode OUT OVERRIDES...
+    python tests/torch_dp_worker.py tpsp ADDR WORLD RANK SP TP OUT [step|fp64|remat [VARIANT]]
 
 ``reductions``: joins a gloo group and runs every case of :data:`CASES` on
 its row block of the case's global batch (:func:`run_case`), saving the
 results to OUT. ``train``: ``liteasr_tpu_torch.train.main`` on the CPU, the
 model starting from INIT_STATE_DICT (``-`` for the seeded init). ``decode``:
 joins the group that the overrides' ``distributed.*`` name and runs
-``infer.infer`` on the CPU, writing the results as JSON to OUT. The test
-process imports this module too, for the one-process references.
+``infer.infer`` on the CPU, writing the results as JSON to OUT. ``tpsp``:
+joins a gloo group of WORLD ranks laid out as (dp, SP, TP) and runs
+:func:`tpsp_step` (a tiny conformer U2's two accumulated micro-steps on the
+rank's rows, then the same forward at dropout 0.1), with ``fp64``
+:func:`tpsp_grad64`, saving the results in the one-process layout to OUT,
+or with ``remat`` :func:`tpsp_remat` (a rematerialized and a plain step at
+dropout 0.1), saving the rank's own results.
+The test process imports this module too, for the one-process references.
 """
 
 import json
@@ -217,6 +224,188 @@ def launch(commands, timeout: float = 180.0):
                 p.kill()
 
 
+def _tiny_u2(rate: float, **kw):
+    """:data:`U2_TINY` at dropout ``rate`` everywhere, sharded as the run's
+    layout says, with every random stream seeded as the train CLI seeds it
+    from seed 0."""
+    from liteasr_tpu_torch import parallel
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.models.u2 import U2
+    from liteasr_tpu_torch.parallel import sharding
+
+    lay = parallel.layout()
+    torch.manual_seed(0)
+    model = U2(**U2_TINY, **kw, dropout_rate=rate, enc_dropout_rate=rate,
+               enc_pos_dropout_rate=rate, enc_attn_dropout_rate=rate,
+               enc_ff_dropout_rate=rate, dec_dropout_rate=rate,
+               dec_ff_dropout_rate=rate, dec_self_attn_dropout_rate=rate,
+               dec_src_attn_dropout_rate=rate,
+               generator=torch.Generator().manual_seed(0))
+    model.seed_dropout(0)
+    parallel.seed_streams(0)
+    torch.manual_seed(parallel.rank_seed(0, lay.dp_i * lay.sp + lay.sp_i))
+    return sharding.shard_model(model, lay, DotDict(U2_TINY))
+
+
+def tpsp_step() -> dict:
+    """A tiny conformer U2 (4 heads, BatchNorm, T' = 13) trained for one
+    update of two accumulated micro-steps (Adam, clip 1, dropout 0) on the
+    dp rank's rows of two global batches, sharded as the run's layout
+    says. Returns, in the one-process layout: each micro-step's loss (the
+    rank's share), the mean gradient the update took, the parameters and
+    BatchNorm statistics after it; then, at dropout 0.1 with the kernels'
+    dropout too, the encoder output and the attention logits of one train
+    forward (the activations a tp group holds whole)."""
+    from liteasr_tpu_torch import parallel
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
+    from liteasr_tpu_torch.optims.fused_step import FusedAdam, constant_schedule
+    from liteasr_tpu_torch.parallel import sharding
+    from liteasr_tpu_torch.trainer import to_device
+
+    lay = parallel.layout()
+    rows = slice(lay.dp_i * B // lay.dp, (lay.dp_i + 1) * B // lay.dp)
+    crit = HybridCTCLoss(DotDict(vocab_size=30, padding_idx=-1, smoothing=0.1,
+                                 ctc_weight=0.3))
+
+    model = _tiny_u2(0.0)
+    named = list(model.named_parameters())
+    tx = FusedAdam([p for _, p in named], constant_schedule(1e-3), 0.9, 0.999, 1e-3,
+                   clip=1.0, accum=2, sharded=sharding.sharded_parameters(model))
+    flat, step = [], tx._step
+
+    def take(g):  # the mean gradient the update takes
+        flat.append(g.clone())
+        step(g)
+
+    tx._step = take
+    losses = []
+    for seed in (1, 2):
+        part = to_device({k: v[rows] for k, v in asr_batch(seed, 30).items()}, CPU)
+        loss, _ = crit(model, dict(part, step=0), train=True)
+        loss.backward()
+        tx.update([p.grad for _, p in named])
+        for _, p in named:
+            p.grad = None
+        losses.append(loss.detach())
+    grads = sharding.gather_flat(flat[0], named)
+    state = sharding.gather_state_dict(model)
+    shapes = [state[k].shape for k, _ in named]
+    out = dict(losses=torch.stack(losses), state=state,
+               grads={k: g.view(s) for (k, _), g, s in
+                      zip(named, grads.split([s.numel() for s in shapes]), shapes)},
+               count=int(tx.count), notfinite=int(tx.notfinite_count))
+
+    model = _tiny_u2(0.1)
+    seen = {}
+    model.encoder.register_forward_hook(lambda m, a, o: seen.setdefault("h_enc", o.detach()))
+    part = to_device({k: v[rows] for k, v in asr_batch(1, 30).items()}, CPU)
+    h_attn, h_ctc = model(part["xs"], part["xlens"], part["ys"], part["ylens"], train=True)
+    out.update(dropout_h_enc=seen["h_enc"], dropout_h_attn=h_attn.detach(),
+               dropout_h_ctc=h_ctc.detach())
+    return out
+
+
+# tpsp_grad64's encoders besides the conformer: the streaming ones, a
+# static chunk width of 3 subsampled frames, with and without rel-pos
+TPSP_VARIANTS = {
+    "conformer": {},
+    "chunk_rel": dict(enc_arch="transformer", static_chunk_size=3),
+    "chunk_abs": dict(enc_arch="transformer", use_rel=False, static_chunk_size=3),
+}
+
+
+def tpsp_grad64(variant: str = "conformer") -> dict:
+    """The gradient of :func:`tpsp_step`'s first micro-step (dropout 0,
+    summed over the dp x sp ranks), the loss share and the BatchNorm
+    statistics, all computed in float64, in the one-process layout, for
+    the encoder of :data:`TPSP_VARIANTS` ``variant``: the
+    model's compute dtype is fp64 and ``Tensor.float()`` keeps fp64 tensors
+    fp64 in this process, so the port's fp32 casts (the plain attention,
+    LayerNorm, BatchNorm, the losses) do not round. A layout that computes
+    the one-process step's function gives it to fp64's rounding."""
+    from liteasr_tpu_torch import parallel
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
+    from liteasr_tpu_torch.models.u2 import U2
+    from liteasr_tpu_torch.parallel import sharding
+    from liteasr_tpu_torch.trainer import to_device
+
+    to_fp32 = torch.Tensor.float
+    torch.Tensor.float = lambda x, *a, **k: x if x.dtype == torch.float64 else to_fp32(x, *a, **k)
+    try:
+        lay = parallel.layout()
+        rows = slice(lay.dp_i * B // lay.dp, (lay.dp_i + 1) * B // lay.dp)
+        model = U2(**U2_TINY, **TPSP_VARIANTS[variant],
+                   generator=torch.Generator().manual_seed(0)).double()
+        for m in model.modules():
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = torch.float64
+        sharding.shard_model(model, lay, DotDict(U2_TINY))
+        crit = HybridCTCLoss(DotDict(vocab_size=30, padding_idx=-1, smoothing=0.1,
+                                     ctc_weight=0.3))
+        part = to_device({k: v[rows] for k, v in asr_batch(1, 30).items()}, CPU)
+        part.update(xs=part["xs"].double(), valid=part["valid"].double())
+        loss, _ = crit(model, dict(part, step=0), train=True)
+        loss.backward()
+        named = list(model.named_parameters())
+        g = parallel.global_sum_(torch.cat([p.grad.reshape(-1) for _, p in named]), "grad")
+        state = sharding.gather_state_dict(model)
+        shapes = [state[k].shape for k, _ in named]
+        grads = sharding.gather_flat(g, named).split([s.numel() for s in shapes])
+        return dict(losses=loss.detach()[None], state=state,
+                    grads={k: v.view(s) for (k, _), v, s in zip(named, grads, shapes)})
+    finally:
+        torch.Tensor.float = to_fp32
+
+
+def tpsp_remat() -> dict:
+    """One train step at dropout 0.1 of :data:`TPSP_VARIANTS`' conformer and
+    its streaming transformer without rel-pos (whose attention dropout, like
+    the FFNs', draws from the "tp" stream under tp), each with its encoder
+    layers rematerialized and without: per variant and mode, the rank's
+    loss share, its local gradients and the coordinate-keyed streams'
+    states after the step."""
+    from liteasr_tpu_torch import parallel
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
+    from liteasr_tpu_torch.trainer import to_device
+
+    lay = parallel.layout()
+    rows = slice(lay.dp_i * B // lay.dp, (lay.dp_i + 1) * B // lay.dp)
+    crit = HybridCTCLoss(DotDict(vocab_size=30, padding_idx=-1, smoothing=0.1,
+                                 ctc_weight=0.3))
+    part = to_device({k: v[rows] for k, v in asr_batch(1, 30).items()}, CPU)
+    out = {}
+    for variant in ("conformer", "chunk_abs"):
+        for remat in (False, True):
+            model = _tiny_u2(0.1, **TPSP_VARIANTS[variant], remat=remat)
+            assert model.encoder.remat == remat
+            loss, _ = crit(model, dict(part, step=0), train=True)
+            loss.backward()
+            out[variant, remat] = dict(
+                loss=loss.detach(), streams=parallel.stream_states(),
+                grads={k: p.grad.clone() for k, p in model.named_parameters()})
+    return out
+
+
+def tpsp(addr: str, world: int, rank: int, sp: int, tp: int, out: str,
+         mode: str = "step", variant: str = "conformer") -> None:
+    from liteasr_tpu_torch import parallel
+    from liteasr_tpu_torch.config.core import DotDict
+
+    parallel.distributed_init(DotDict(coordinator_address=addr, num_processes=world,
+                                      process_id=rank, sp=sp, tp=tp), CPU)
+    try:
+        res = {"step": tpsp_step, "fp64": lambda: tpsp_grad64(variant),
+               "remat": tpsp_remat}[mode]()
+        res["counts"] = dict(parallel.counts)
+        res["layout"] = parallel.layout()
+        torch.save(res, out)
+    finally:
+        parallel.destroy()
+
+
 def reductions(addr: str, world: int, rank: int, out: str) -> None:
     from liteasr_tpu_torch import parallel
     from liteasr_tpu_torch.config.core import DotDict
@@ -246,6 +435,8 @@ def train(init: str, overrides) -> None:
 
         LiteasrTask.build_model = build_model
     trainer = port_train.main(list(overrides) + ["--device", "cpu"])
+    losses = [float(x) for x in trainer._loss_accum]
+    print(f"DP_WORKER_LOSSES {json.dumps(losses)}", flush=True)
     print(f"DP_WORKER_DONE rank={trainer.rank} world={trainer.world} "
           f"step={trainer.step} backend={trainer.backend}", flush=True)
 
@@ -273,5 +464,8 @@ if __name__ == "__main__":
         train(args[0], args[1:])
     elif cmd == "decode":
         decode(args[0], args[1:])
+    elif cmd == "tpsp":
+        tpsp(args[0], int(args[1]), int(args[2]), int(args[3]), int(args[4]), args[5],
+             *args[6:8])
     else:
         raise SystemExit(f"unknown command {cmd}")
