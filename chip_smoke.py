@@ -245,7 +245,11 @@ z1. K1' and K2 in bf16 at the training shape on the shards tp = 2 gives
    the kernel (zero scores, V the unit vectors of 64 keys at a time)
    bit-equal to the whole call's slice and to dropout_keep_global's; K1 at
    the same offsets (validation's call) against the plain version; each
-   call timed beside its bound and the plain version;
+   call timed beside its bound and the plain version; then K1 at the
+   Paraformer's pass-1 calls under tp = 2 (o's bench-point self 48 x 48 and
+   source 48 x 199 attention, heads 0..2 and 2..4 of 4: BH = 64 of 128)
+   against the plain version (o's tolerance) and the whole call's heads
+   (1e-5), timed beside its bound, the plain version and one SDPA call;
 z2. for tp = 2 and for sp = 2 in turn: my_U2 at full width through
    ``train.main`` in the 2 processes on 6's corpus for 1 epoch with the
    valid, save_model and inference (ctc_greedy) triggers: 12 K1' + 12 K2
@@ -262,8 +266,22 @@ z3. 8's fp32 step (TF32 off, dropout 0, 2 + 1 layers at full width) in the
    step with a planted layout fault (BatchNorm counting one frame too many
    a row; under sp also one halo frame of the depthwise conv dropped),
    which the bound must catch;
-z4. the bf16 micro-step at bench.py's point in the layout: ms per rank,
-   informational (the two ranks share the card).
+z4. the bf16 micro-step at bench.py's point in the layout: ms and peak
+   memory per rank, informational (the two ranks share the card);
+z5-z7. the same for the transducer in the same 2 processes (after U2's):
+   my_transducer at full width through ``train.main`` (4 K1' + 4 K2 per
+   micro-batch a rank at the shard's shapes; transducer_greedy decoding),
+   its fp32 step (2 encoder + 1 LSTM layer) with a planted fault (under tp
+   the last encoder layer's attention output all-reduce dropped, under sp
+   the RNN-T utterance count reduced over dp x sp), its bf16 micro-step
+   (the lattice of the rank's rows: B/sp, or all B under tp);
+z8-z10. the same for the Paraformer: build_para_model's widths through
+   ``train.main`` (12 K1' + 12 K2 and pass 1's 12 K1 per micro-batch a
+   rank, pass 1 at the rank's heads of its rows; loss_ce and loss_mae on
+   the valid lines), its fp32 step (2 + 1 layers, glancing) with a planted
+   fault (under tp the parallel decoder's source-attention output
+   all-reduce dropped, under sp the token and utterance counts reduced
+   over dp x sp), its bf16 micro-step.
 
 Every failure raises, so the exit code is not 0. The last line is the JSON
 device record; the line before it lists the kernels (for
@@ -271,8 +289,9 @@ rel_attention_fwd, ``ms``/``plain_ms`` are K1 per decoded batch, the
 ``lse_*`` keys K1' per training call, the ``chunk*`` keys the chunked
 calls of k, the ``paraformer_*`` keys o's calls and the ``wav2vec2_*``
 keys t's, the ``dp_*`` keys x's and y's, the ``shard_*`` keys z1's calls
-and the ``tp_sp_*`` keys z2's launches and z4's step; ``launches`` sum the
-main paths 4, 6, b, c, d, g, i, l, m, p, r, u, x and z2).
+and the ``tp_sp_*`` keys z2, z5 and z8's launches and z4, z7 and z10's
+steps, the ``paraformer_tp_*`` keys z1's pass-1 calls; ``launches`` sum
+the main paths 4, 6, b, c, d, g, i, l, m, p, r, u, x, z2, z5 and z8).
 
     python3 chip_smoke.py --profile-train
 
@@ -285,7 +304,7 @@ of 7 and prints the top kernels by device time.
     python3 chip_smoke.py --baseline DIR
 
 stop after steps 1-3, k, o, t and z1; or after them run only 7, x and y;
-or only z2-z4; or after step 1 time every bf16 kernel call of the main
+or only z2-z10; or after step 1 time every bf16 kernel call of the main
 paths against the checkout in DIR (another commit unpacked with git
 archive), in the order DIR, this tree, this tree, DIR.
 """
@@ -841,12 +860,18 @@ def check_parity(task, dev, name):
         raise RuntimeError("GPU and CPU paths disagree beyond the bound")
 
 
-def u2_overrides(root, run, epochs):
-    """train.main's overrides of phase 6 (and x): my_U2 in bf16, dropout
-    0.1, my_hybrid_ctc, my_noam, clip 5, accum 2, on the corpus under
-    ``root``."""
+# the model and criterion presets of each family that train.main runs
+FAMILY_PRESETS = {"u2": ("my_U2", "my_hybrid_ctc"), "rnnt": ("my_transducer", "my_rnnt"),
+                  "paraformer": ("Paraformer", "paraformer_loss")}
+
+
+def train_overrides(family, root, run, epochs):
+    """train.main's overrides of ``family`` (:data:`FAMILY_PRESETS`) in
+    bf16, dropout 0.1, my_noam, clip 5, accum 2, on the corpus under
+    ``root`` (phases 6, g, p, x, z2, z5, z8)."""
+    model, criterion = FAMILY_PRESETS[family]
     return [
-        "task=asr", "model=my_U2", "criterion=my_hybrid_ctc",
+        "task=asr", f"model={model}", f"criterion={criterion}",
         "optimizer=my_noam", f"task.vocab={root}/vocab.txt",
         f"task.train={root}/train", f"task.valid={root}/valid",
         f"task.test=[{root}/valid]", "task.delimiter=' '",
@@ -867,7 +892,7 @@ def run_training(fa, root, dev, name):
     from liteasr_tpu_torch.config.core import load_yaml
 
     run = os.path.join(root, "run")
-    overrides = u2_overrides(root, run, TRAIN_EPOCHS)
+    overrides = train_overrides("u2", root, run, TRAIN_EPOCHS)
     reset_counts(fa)
     t0 = time.perf_counter()
     trainer = train.main(overrides, device=dev)
@@ -1461,17 +1486,7 @@ def run_td_training(fa, root, dev, name):
     from liteasr_tpu_torch import train
 
     run = os.path.join(root, "td_run")
-    overrides = [
-        "task=asr", "model=my_transducer", "criterion=my_rnnt",
-        "optimizer=my_noam", f"task.vocab={root}/vocab.txt",
-        f"task.train={root}/train", f"task.valid={root}/valid",
-        f"task.test=[{root}/valid]", "task.delimiter=' '",
-        f"task.save_dir={run}/ckpts", f"common.run_dir={run}",
-        f"common.seed={SEED}", "model.dtype=bfloat16",
-        "model.dropout_rate=0.1", f"dataset.batch_size={TRAIN_BATCH}",
-        "dataset.max_len_in=1000", "postprocess.workflow=[]",
-        f"optimization.max_epoch={TRAIN_EPOCHS}",
-        f"optimization.accum_grad={ACCUM}", "optimization.clip_grad_norm=5.0"]
+    overrides = train_overrides("rnnt", root, run, TRAIN_EPOCHS)
     reset_counts(fa)
     t0 = time.perf_counter()
     trainer = train.main(overrides, device=dev)
@@ -1515,21 +1530,25 @@ def run_td_training(fa, root, dev, name):
     return (fwd - lse, lse, bwd), sum(dec)
 
 
-def td_bench_step(dev):
+def td_bench_step(dev, shard=False):
     """The full-width bf16 transducer micro-step (dropout 0.1, RNN-T loss,
     Noam Adam, clip 5, accum 2) on bench_batch; returns (step, model,
-    batch, B)."""
+    batch, B). ``shard``: on this rank's tp/sp shard of the model (z7)."""
+    from liteasr_tpu_torch import parallel
     from liteasr_tpu_torch.config.core import DotDict
     from liteasr_tpu_torch.criterions.rnnt import RNNTLoss
     from liteasr_tpu_torch.optims.fused_step import FusedAdam
     from liteasr_tpu_torch.optims.noam import noam_schedule
+    from liteasr_tpu_torch.parallel import sharding
 
     torch.manual_seed(SEED)
     model = build_td_model(torch.bfloat16, dev, dropout_rate=0.1)
+    if shard:
+        sharding.shard_model(model, parallel.layout())
     crit = RNNTLoss(DotDict(blank_id=0))
     params = list(model.parameters())
     tx = FusedAdam(params, noam_schedule(256, 1.0, 25000), 0.9, 0.98, 1e-9,
-                   clip=5.0, accum=ACCUM)
+                   clip=5.0, accum=ACCUM, sharded=sharding.sharded_parameters(model))
     batch, B = bench_batch(dev)
 
     def step():
@@ -2318,17 +2337,7 @@ def run_para_training(fa, root, dev, name):
     from liteasr_tpu_torch.criterions.paraformer_loss import ParaformerLoss
 
     run = os.path.join(root, "para_run")
-    overrides = [
-        "task=asr", "model=Paraformer", "criterion=paraformer_loss",
-        "optimizer=my_noam", f"task.vocab={root}/vocab.txt",
-        f"task.train={root}/train", f"task.valid={root}/valid",
-        f"task.test=[{root}/valid]", "task.delimiter=' '",
-        f"task.save_dir={run}/ckpts", f"common.run_dir={run}",
-        f"common.seed={SEED}", "model.dtype=bfloat16",
-        "model.dropout_rate=0.1", f"dataset.batch_size={TRAIN_BATCH}",
-        "dataset.max_len_in=1000", "postprocess.workflow=[]",
-        f"optimization.max_epoch={TRAIN_EPOCHS}",
-        f"optimization.accum_grad={ACCUM}", "optimization.clip_grad_norm=5.0"]
+    overrides = train_overrides("paraformer", root, run, TRAIN_EPOCHS)
     parts = []  # (train, loss_ce, loss_mae) of every criterion call
     call = ParaformerLoss.__call__
 
@@ -2405,28 +2414,26 @@ def run_para_training(fa, root, dev, name):
     return (fwd - lse, lse, bwd), dec_fwd
 
 
-def time_para_step(dev, name):
-    """Phase q: the Paraformer micro-step at bench.py's point (bf16, dropout
-    0.1, Noam Adam, clip 5, accum 2): median of 5 repetitions of 4
-    micro-steps, utt/s and peak memory; then cif_dense and cif_scan each
-    alone, forward and backward, at its CIF shape (B=32, T'=199, U=48) and
-    at the decode shape (B=16, U=T'=399). Returns {what: ms}."""
+def para_bench_step(dev, shard=False):
+    """The full-width bf16 Paraformer micro-step (dropout 0.1, glancing,
+    Noam Adam, clip 5, accum 2) on bench_batch; returns (step, B).
+    ``shard``: on this rank's tp/sp shard of the model (z10)."""
+    from liteasr_tpu_torch import parallel
     from liteasr_tpu_torch.config.core import DotDict
     from liteasr_tpu_torch.criterions.paraformer_loss import ParaformerLoss
-    from liteasr_tpu_torch.nets.paraformer import DENSE_CIF_MAX_CELLS, cif_dense, cif_scan
     from liteasr_tpu_torch.optims.fused_step import FusedAdam
     from liteasr_tpu_torch.optims.noam import noam_schedule
+    from liteasr_tpu_torch.parallel import sharding
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     torch.manual_seed(SEED)
     model = build_para_model(torch.bfloat16, dev, dropout_rate=0.1)
     model.seed_dropout(SEED)
+    if shard:
+        sharding.shard_model(model, parallel.layout())
     crit = ParaformerLoss(DotDict(vocab_size=VOCAB, gamma=1.0))
     params = list(model.parameters())
     tx = FusedAdam(params, noam_schedule(256, 1.0, 25000), 0.9, 0.98, 1e-9,
-                   clip=5.0, accum=ACCUM)
+                   clip=5.0, accum=ACCUM, sharded=sharding.sharded_parameters(model))
     batch, B = bench_batch(dev)
 
     def step():
@@ -2437,6 +2444,21 @@ def time_para_step(dev, name):
             p.grad = None
         return loss
 
+    return step, B
+
+
+def time_para_step(dev, name):
+    """Phase q: the Paraformer micro-step at bench.py's point (bf16, dropout
+    0.1, Noam Adam, clip 5, accum 2): median of 5 repetitions of 4
+    micro-steps, utt/s and peak memory; then cif_dense and cif_scan each
+    alone, forward and backward, at its CIF shape (B=32, T'=199, U=48) and
+    at the decode shape (B=16, U=T'=399). Returns {what: ms}."""
+    from liteasr_tpu_torch.nets.paraformer import DENSE_CIF_MAX_CELLS, cif_dense, cif_scan
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, B = para_bench_step(dev)
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -2452,7 +2474,7 @@ def time_para_step(dev, name):
     med = statistics.median(reps)
     peak = torch.cuda.max_memory_allocated() / 2**30
     out = {"step_ms": med * 1e3, "utt_s": B / med, "peak_gib": peak}
-    del model, tx, params
+    del step
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3033,7 +3055,7 @@ def run_dp_training(fa, root, dev, name, per_micro):
     from liteasr_tpu_torch.config.core import load_yaml
 
     run = os.path.join(root, "dp_run")
-    overrides = u2_overrides(root, run, 1) + [
+    overrides = train_overrides("u2", root, run, 1) + [
         f"distributed.coordinator_address={free_address()}",
         "distributed.num_processes=1", "distributed.process_id=0"]
     reset_counts(fa)
@@ -3104,18 +3126,41 @@ def run_dp_training(fa, root, dev, name, per_micro):
     return fwd + dec, lse, bwd
 
 
-def dp_step(dev, shard=False, perturb=0.0):
-    """Phase 8's fp32 step (2 + 1 layers at full width, dropout 0): the
-    loss, the flat gradient the optimizer takes (after its all-reduce, when
-    a group is up) by leaf, and the BatchNorm running statistics. ``shard``:
-    on this rank's tp/sp shard of the model (z3), the loss being the rank's
+def step_model(family, dev):
+    """The fp32 layout steps' model (2 encoder layers and 1 decoder or
+    LSTM layer at ``family``'s full width, dropout 0, random weights from
+    SEED) and its criterion."""
+    from liteasr_tpu_torch.config.core import DotDict
+
+    if family == "u2":
+        from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
+
+        return (build_model(torch.float32, dev, enc_layers=2, dec_layers=1),
+                HybridCTCLoss(DotDict(vocab_size=VOCAB, padding_idx=-1, smoothing=0.1,
+                                      ctc_weight=0.3)))
+    if family == "rnnt":
+        from liteasr_tpu_torch.criterions.rnnt import RNNTLoss
+
+        return (build_td_model(torch.float32, dev, enc_layers=2, lstm_layers=1),
+                RNNTLoss(DotDict(blank_id=0)))
+    from liteasr_tpu_torch.criterions.paraformer_loss import ParaformerLoss
+
+    return (build_para_model(torch.float32, dev, enc_layers=2, dec_layers=1),
+            ParaformerLoss(DotDict(vocab_size=VOCAB, gamma=1.0)))
+
+
+def dp_step(dev, shard=False, perturb=0.0, family="u2"):
+    """Phase 8's fp32 step (2 + 1 layers at full width, dropout 0) of
+    ``family`` (:func:`step_model`; the Paraformer glancing with a fresh
+    model's noise, the same draws in every process): the loss, the flat
+    gradient the optimizer takes (after its all-reduce, when a group is up)
+    by leaf, and the BatchNorm running statistics. ``shard``: on this
+    rank's tp/sp shard of the model (z3, z6, z9), the loss being the rank's
     share, the gradient and statistics gathered to the one-process layout.
     ``perturb``: the input features scaled by 1 + perturb (2**-23: moved by
     one or two ulps), the step's fp32 resolution."""
     from liteasr_tpu_torch import parallel
     from liteasr_tpu_torch.parallel import sharding
-    from liteasr_tpu_torch.config.core import DotDict
-    from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
     from liteasr_tpu_torch.optims.fused_step import FusedAdam, constant_schedule
     from liteasr_tpu_torch.trainer import to_device
 
@@ -3127,9 +3172,7 @@ def dp_step(dev, shard=False, perturb=0.0):
              "ylens": np.array([U, 20, 16, 10], np.int32),
              "valid": np.ones(B, np.float32)}
     batch["xs"] = batch["xs"] * np.float32(1.0 + perturb)
-    crit = HybridCTCLoss(DotDict(vocab_size=VOCAB, padding_idx=-1,
-                                 smoothing=0.1, ctc_weight=0.3))
-    model = build_model(torch.float32, dev, enc_layers=2, dec_layers=1)
+    model, crit = step_model(family, dev)
     if shard:
         sharding.shard_model(model, parallel.layout())
     named = list(model.named_parameters())
@@ -3140,15 +3183,16 @@ def dp_step(dev, shard=False, perturb=0.0):
     loss, _ = crit(model, to_device(batch, dev), train=True)
     loss.backward()
     tx.update([p.grad for _, p in named])
+    state = sharding.gather_state_dict(model)  # persistent buffers only
+    buffers = [n for n, _ in model.named_buffers() if n in state]
     if not shard:
         grads = flat[0].split([p.numel() for _, p in named])
         return (loss.item(), {n: g.cpu() for (n, _), g in zip(named, grads)},
-                {n: b.cpu() for n, b in model.named_buffers()})
-    state = sharding.gather_state_dict(model)
+                {n: state[n] for n in buffers})
     shapes = [state[n].shape for n, _ in named]
     grads = sharding.gather_flat(flat[0], named).split([s.numel() for s in shapes])
     return (loss.item(), {n: g for (n, _), g in zip(named, grads)},
-            {n: state[n] for n, _ in model.named_buffers()})
+            {n: state[n] for n in buffers})
 
 
 def leaf_diffs(ref, got):
@@ -3311,18 +3355,32 @@ TP_SP_LOSS_TOL = 1e-5
 SHARD_WHOLE_TOL = 1e-5
 
 
-# z3's planted layout faults, each of which the bound must catch
-# (planted_fault); the halo's only under sp
-TP_SP_FAULTS = ("batch_norm_count", "conv_halo_frame")
+# the planted layout faults of z3, z6 and z9 (planted_fault) by family and
+# layout, each of which the bound must catch: faults a tp or an sp layout
+# of that family could really make
+TP_SP_FAULTS = {
+    ("u2", "tp"): ("batch_norm_count",),
+    ("u2", "sp"): ("batch_norm_count", "conv_halo_frame"),
+    ("rnnt", "tp"): ("linear_o_unreduced",),
+    ("rnnt", "sp"): ("count_over_dpsp",),
+    ("paraformer", "tp"): ("linear_o_unreduced",),
+    ("paraformer", "sp"): ("count_over_dpsp",),
+}
+# linear_o_unreduced: the row-parallel layer whose all-reduce is dropped
+UNREDUCED = {"rnnt": "encoder.layer_1.self_attn.linear_o",
+             "paraformer": "decoder.layer_0.src_attn.linear_o"}
 
 
 @contextlib.contextmanager
-def planted_fault(kind):
-    """One of z3's negative controls, patched in for the steps inside:
-    ``batch_norm_count`` counts one frame too many in every row of
+def planted_fault(kind, family="u2"):
+    """One of the layout steps' negative controls, patched in for the steps
+    inside: ``batch_norm_count`` counts one frame too many in every row of
     BatchNorm's statistics; ``conv_halo_frame`` zeroes the farthest of the
     7 frames of the depthwise conv's left halo on every sp rank but the
-    first."""
+    first; ``linear_o_unreduced`` drops the tp all-reduce behind
+    ``family``'s :data:`UNREDUCED` layer; ``count_over_dpsp`` reduces the
+    criterion's utterance and token counts over dp x sp instead of dp."""
+    from liteasr_tpu_torch import parallel
     from liteasr_tpu_torch.nets import layers
     from liteasr_tpu_torch.parallel import sharding
 
@@ -3331,12 +3389,24 @@ def planted_fault(kind):
 
         def fault(x, gamma, beta, eps=1e-5, frames=None):
             return orig(x, gamma, beta, eps, (frames or x.shape[1]) + 1)
-    else:
+    elif kind == "conv_halo_frame":
         mod, attr, orig = sharding, "sp_halo", sharding.sp_halo
 
         def fault(x, pad, seq):
             y = orig(x, pad, seq)
             return y if seq.index == 0 else torch.cat([torch.zeros_like(y[:, :1]), y[:, 1:]], 1)
+    elif kind == "linear_o_unreduced":
+        mod, attr, orig = sharding, "shard_model", sharding.shard_model
+
+        def fault(model, lay, model_cfg=None):
+            model = orig(model, lay, model_cfg)
+            model.get_submodule(UNREDUCED[family]).tp_reduce = False
+            return model
+    else:
+        mod, attr, orig = parallel, "global_sum", parallel.global_sum
+
+        def fault(*xs, kind="count", over="dp"):
+            return orig(*xs, kind=kind, over="dpsp" if kind == "count" else over)
     setattr(mod, attr, fault)
     try:
         yield
@@ -3490,68 +3560,161 @@ def check_shard_kernels(fa, dev, name):
     return rep
 
 
-def tp_sp_worker(rank, sp, tp, addrs, root, out, dev=torch.device("cuda", 0)):
-    """One of the 2 ranks of phases z2-z4, on cuda:0 in a gloo group that
-    it starts itself (NCCL refuses two ranks on one device): the training
-    run through train.main (the port joins the caller's group), the fp32
-    step, the bf16 micro-step timed. Writes its results to ``out``."""
-    from liteasr_tpu_torch import parallel, train
-    from liteasr_tpu_torch.ops import flash_attention as fa
+def check_para_shard_kernels(fa, dev, name):
+    """Phase z1, the Paraformer's pass 1 under tp = 2: K1 in bf16 at the
+    rank's heads (head0 0 or 2, 2 of 4: BH = 64 of 128) of the two pass-1
+    calls at bench.py's point (self-attention 48 x 48 without a mask, source
+    attention 48 x 199 with kv_lens; phase o's whole calls): against the
+    plain version at the same offset (phase o's tolerance) and against the
+    heads of the whole kernel call (SHARD_WHOLE_TOL), each timed beside its
+    bound, the plain version and one SDPA call on the shard. Returns the
+    report by case and the largest error against the plain version."""
+    shapes = para_kernel_shapes(torch.Generator().manual_seed(SEED + 7), dev, torch.bfloat16)
+    tol = KERNEL_TOL[torch.bfloat16]
+    rep = {"max_abs_err": 0.0}
+    for shape in ("pass1_self", "pass1_src_kv_lens"):
+        args = shapes[shape]
+        scale = args["q"].shape[-1] ** -0.5
+        whole = fa.flash_attention(scale=scale, **args)
+        for head0 in (0, 2):
+            rows = torch.tensor([b * HEADS + h for b in range(args["q"].shape[0] // HEADS)
+                                 for h in range(head0, head0 + 2)], device=dev)
+            cut = {k: v[rows] for k, v in args.items()}
+            shard = fa.Shard(head0=head0, h_local=2, h_total=HEADS)
+            out = fa.flash_attention(scale=scale, shard=shard, **cut)
+            ref = fa.flash_attention_plain(scale=scale, shard=shard, **cut)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            whole_err = (out.float() - whole[rows].float()).abs().max().item()
+            label = f"{shape}_h{head0}"
+            if not within(out, ref, tol) or whole_err > SHARD_WHOLE_TOL:
+                raise RuntimeError(f"K1 at the Paraformer's {label}: {err:.3g} against the "
+                                   f"plain version (tol {tol}), {whole_err:.3g} against the "
+                                   f"whole call (tol {SHARD_WHOLE_TOL})")
+            r = {"ms": cuda_time_ms(lambda: fa.flash_attention(scale=scale, shard=shard, **cut)),
+                 "plain_ms": cuda_time_ms(
+                     lambda: fa.flash_attention_plain(scale=scale, shard=shard, **cut)),
+                 "library_ms": cuda_time_ms(library_call(cut, scale))}
+            r["bound_ms"], r["bound_by"] = fwd_bound(**cut)
+            rep[label] = r
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+            log(f"K1 at the Paraformer's pass 1 under tp=2, {shape} heads {head0}..{head0 + 2} "
+                f"of {HEADS} (shape={tuple(cut['q'].shape)}x{cut['k'].shape[1]}) bf16: "
+                f"max_abs_err={err:.3g} against plain (tol {tol}), {whole_err:.3g} against "
+                f"the whole call (tol {SHARD_WHOLE_TOL}); kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library (SDPA) {r['library_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{name}]")
+    return rep
 
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+
+# the families that the 2-rank phases run, in turn: U2 (z2-z4), the
+# transducer (z5-z7), the Paraformer (z8-z10)
+TP_SP_FAMILIES = ("u2", "rnnt", "paraformer")
+FAMILY_NAMES = {"u2": "U2", "rnnt": "transducer", "paraformer": "Paraformer"}
+# the inference trigger's decode mode (the Paraformer decodes by CIF in any)
+FAMILY_MODES = {"u2": ["inference.mode=ctc_greedy"],
+                "rnnt": ["inference.mode=transducer_greedy"], "paraformer": []}
+
+
+def family_k1(family, micro, n_valid):
+    """K1 (not K1') launches a rank makes in z2/z5/z8's training run of
+    ``micro`` micro-batches and ``n_valid`` valid batches, with one decode
+    batch from the inference trigger: the Paraformer's pass 1 (self and
+    source per decoder layer) in every micro-batch; the encoder's and the
+    decoders' in a valid batch; the encoder's (and the Paraformer's
+    decoder's) in a decode batch."""
+    if family == "u2":
+        return (ENC_LAYERS + 2 * DEC_LAYERS) * n_valid + ENC_LAYERS
+    if family == "rnnt":
+        return TD_ENC_LAYERS * (n_valid + 1)
+    return (2 * DEC_LAYERS * micro + (ENC_LAYERS + 4 * DEC_LAYERS) * n_valid
+            + ENC_LAYERS + 2 * DEC_LAYERS)
+
+
+def tp_sp_family(family, rank, sp, tp, addrs, root, dev, fa):
+    """One rank's part of one family's 2-rank phases: the training run
+    through train.main in a gloo group started here (the port joins it),
+    every K1' / K2 call's shapes and, for each micro-batch, its rows and K1
+    calls recorded; then, in a second group, the fp32 step and each planted
+    fault's, and the bf16 micro-step at bench.py's point timed with the
+    rank's peak memory."""
+    from liteasr_tpu_torch import parallel, train
+    from liteasr_tpu_torch import trainer as trainer_mod
+
     dist = torch.distributed
-    addr, addr2 = addrs.split(",")
-    dist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=2, rank=rank)
-    group = [f"distributed.coordinator_address={addr}", "distributed.num_processes=2",
-             f"distributed.process_id={rank}", f"distributed.sp={sp}", f"distributed.tp={tp}"]
-    calls = []
+    calls, steps = [], []  # (kind, q, q_v, shard); (rows, [(q, shard) of K1])
     launch_fwd, launch_bwd = fa._launch_fwd, fa._launch_bwd
+    train_step = trainer_mod.Trainer.train_step
 
     def rec_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse, *a):
         if return_lse:
             calls.append(("K1'", tuple(q.shape), tuple(rel_qv.shape), a[-1]))
+        elif steps and steps[-1][2]:
+            steps[-1][1].append((tuple(q.shape), a[-1]))
         return launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse, *a)
 
     def rec_bwd(q_u, qv, *a):
         calls.append(("K2", tuple(q_u.shape), tuple(qv.shape), a[-1]))
         return launch_bwd(q_u, qv, *a)
 
+    def rec_step(self, batch):
+        steps.append([batch["xs"].shape[0], [], True])
+        try:
+            return train_step(self, batch)
+        finally:
+            steps[-1][2] = False
+
+    dist.init_process_group("gloo", init_method=f"tcp://{addrs[0]}", world_size=2, rank=rank)
+    run = os.path.join(root, f"tpsp_{family}_sp{sp}_tp{tp}")
+    overrides = train_overrides(family, root, run, 1) + FAMILY_MODES[family] + [
+        f"distributed.coordinator_address={addrs[0]}", "distributed.num_processes=2",
+        f"distributed.process_id={rank}", f"distributed.sp={sp}", f"distributed.tp={tp}",
+        f"inference.batch_size={N_VALID}",
+        "common.trigger=[{name: valid, interval: 1, unit: epoch}, "
+        "{name: save_model, interval: 1, unit: epoch}, "
+        "{name: inference, interval: 1, unit: epoch}]"]
+    reset_counts(fa)
+    parallel.counts.clear()
     fa._launch_fwd, fa._launch_bwd = rec_fwd, rec_bwd
-    res = {}
+    trainer_mod.Trainer.train_step = rec_step
     try:
-        run = os.path.join(root, f"tpsp_sp{sp}_tp{tp}")
-        overrides = u2_overrides(root, run, 1) + group + [
-            "inference.mode=ctc_greedy", f"inference.batch_size={N_VALID}",
-            "common.trigger=[{name: valid, interval: 1, unit: epoch}, "
-            "{name: save_model, interval: 1, unit: epoch}, "
-            "{name: inference, interval: 1, unit: epoch}]"]
-        reset_counts(fa)
-        parallel.counts.clear()
         t0 = time.perf_counter()
         trainer = train.main(overrides, device=dev)  # joins this group, ends it
         torch.cuda.synchronize()
-        res.update(train_s=time.perf_counter() - t0, counts=counts(fa),
-                   collectives=dict(parallel.counts), calls=calls[:],
-                   micro=len(trainer.task.dataset("train")), n_valid=len(trainer.valid_set),
-                   losses=[float(x) for x in trainer._loss_accum],
-                   backend=trainer.backend, layout=trainer.layout, run=run)
+    finally:
         fa._launch_fwd, fa._launch_bwd = launch_fwd, launch_bwd
+        trainer_mod.Trainer.train_step = train_step
+    res = dict(train_s=time.perf_counter() - t0, counts=counts(fa),
+               collectives=dict(parallel.counts), calls=calls,
+               steps=[(rows, k1) for rows, k1, _ in steps],
+               micro=len(trainer.task.dataset("train")), n_valid=len(trainer.valid_set),
+               losses=[float(x) for x in trainer._loss_accum],
+               backend=trainer.backend, layout=trainer.layout, run=run)
+    del trainer
 
-        dist.init_process_group("gloo", init_method=f"tcp://{addr2}", world_size=2, rank=rank)
-        parallel.distributed_init(dict(coordinator_address=addr2, num_processes=2,
-                                       process_id=rank, sp=sp, tp=tp), dev)
+    dist.init_process_group("gloo", init_method=f"tcp://{addrs[1]}", world_size=2, rank=rank)
+    parallel.distributed_init(dict(coordinator_address=addrs[1], num_processes=2,
+                                   process_id=rank, sp=sp, tp=tp), dev)
+    try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        res["step"] = dp_step(dev, shard=True)
+        res["step"] = dp_step(dev, shard=True, family=family)
         res["faults"] = {}
-        for fault in TP_SP_FAULTS[:1 + (sp > 1)]:
-            with planted_fault(fault):
-                res["faults"][fault] = dp_step(dev, shard=True)
+        for fault in TP_SP_FAULTS[family, "sp" if sp > 1 else "tp"]:
+            with planted_fault(fault, family):
+                res["faults"][fault] = dp_step(dev, shard=True, family=family)
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.backends.cudnn.allow_tf32 = True
 
-        step, B = bench_step(dev, shard=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if family == "u2":
+            step, B = bench_step(dev, shard=True)
+        elif family == "rnnt":
+            step, _, _, B = td_bench_step(dev, shard=True)
+        else:
+            step, B = para_bench_step(dev, shard=True)
         for _ in range(2):
             step()
         torch.cuda.synchronize()
@@ -3563,143 +3726,206 @@ def tp_sp_worker(rank, sp, tp, addrs, root, out, dev=torch.device("cuda", 0)):
                 loss = step()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) / 5)
-        res.update(step_ms=statistics.median(times) * 1e3, step_loss=loss.item(),
+        res.update(step_ms=statistics.median(times) * 1e3, step_loss=loss.item(), step_rows=B,
                    step_collectives={k: v / 15 for k, v in parallel.counts.items()},
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del step, loss
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         parallel.destroy()
+    return res
+
+
+def tp_sp_worker(rank, sp, tp, addrs, root, out, dev=torch.device("cuda", 0)):
+    """One of the 2 ranks of phases z2-z10, on cuda:0, each family of
+    TP_SP_FAMILIES in turn (:func:`tp_sp_family`) in gloo groups that it
+    starts itself (NCCL refuses two ranks on one device); ``addrs`` holds
+    two addresses a family. Writes the results by family to ``out``."""
+    from liteasr_tpu_torch.ops import flash_attention as fa
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    addrs = addrs.split(",")
+    res = {family: tp_sp_family(family, rank, sp, tp, addrs[2 * i:2 * i + 2], root, dev, fa)
+           for i, family in enumerate(TP_SP_FAMILIES)}
     torch.save(res, out)
 
 
-def run_tp_sp(fa, root, dev, name, per_micro):
-    """Phases z2-z4, for tp = 2 and for sp = 2: 2 processes on the one card
-    (tp_sp_worker), started together, each layout in turn. z2: my_U2 at
-    full width through train.main on phase 6's corpus for 1 epoch, with the
-    valid, save_model and inference triggers: ``per_micro`` K1' and K2
-    launches per micro-batch per rank (phase 6's), at the shard's shapes;
-    finite losses; the checkpoint in the one-process layout, decoded in one
-    process to the error count the run's inference trigger logged. z3: the
-    fp32 step in the layout against the one-process step on the card
-    (dp_step), the loss within TP_SP_LOSS_TOL, every gradient leaf and the
-    BatchNorm statistics within TP_SP_TOL of the leaf's max, beside two
-    one-process runs' own difference and the step's fp32 resolution; each
-    of TP_SP_FAULTS planted must fail that bound. z4:
-    the bf16 micro-step at bench.py's point, ms per rank (informational:
-    the two ranks share the card). Returns the report."""
+def check_tp_sp_run(fa, family, label, res, sp, tp, dev, name):
+    """z2/z5/z8 for one family in one layout: every rank's K1' / K2 / K1
+    launches (K1' and K2 per micro-batch: the encoder's layers; K1:
+    :func:`family_k1`), each K1' / K2 call at the rank's heads and block of
+    the T' queries, each micro-batch's K1 calls (the Paraformer's pass 1)
+    at the rank's heads of its block of rows, finite losses; the checkpoint
+    in the one-process layout, decoded in one process to the error count
+    the run's inference trigger logged. Returns the (K1, K1', K2) launches
+    of both ranks."""
     from liteasr_tpu_torch import infer
     from liteasr_tpu_torch.config import compose
     from liteasr_tpu_torch.config.core import load_yaml
     from liteasr_tpu_torch.parallel import sharding
 
+    enc = TD_ENC_LAYERS if family == "rnnt" else ENC_LAYERS
+    pass1 = 2 * DEC_LAYERS if family == "paraformer" else 0
+    micro, heads = res[0]["micro"], HEADS // tp
+    total = [0, 0, 0]
+    for r, x in enumerate(res):
+        fwd, lse, bwd = x["counts"]
+        if ((lse, bwd) != (enc * micro, enc * micro)
+                or fwd - lse != family_k1(family, micro, x["n_valid"])):
+            raise RuntimeError(f"{label} rank {r}: K1' {lse}, K2 {bwd}, K1 {fwd - lse} for "
+                               f"{micro} micro-batches, {x['n_valid']} valid batches")
+        if x["backend"] != "gloo" or not all(math.isfinite(v) for v in x["losses"]):
+            raise RuntimeError(f"{label} rank {r}: backend {x['backend']}, losses {x['losses']}")
+        lay = x["layout"]
+        for kind, q_shape, qv_shape, shard in x["calls"]:
+            # the rank's heads of each row, or its block of the T' queries
+            sizes = sharding.split_sizes(shard.t_q or q_shape[1], sp)
+            want = (shard.h_local == heads and shard.h_total == HEADS
+                    and shard.head0 == lay.tp_i * heads and q_shape[0] % shard.h_local == 0
+                    and q_shape[1] == sizes[lay.sp_i] and shard.q0 == sum(sizes[:lay.sp_i])
+                    and qv_shape[1] == q_shape[1] + (sp > 1))
+            if not want:
+                raise RuntimeError(f"{label} rank {r}: {kind} at {q_shape}, q_v {qv_shape}, "
+                                   f"{shard}")
+        if len(x["steps"]) != micro:
+            raise RuntimeError(f"{label} rank {r}: {len(x['steps'])} train steps recorded")
+        for rows, k1 in x["steps"]:
+            # pass 1 on the rank's block of rows, at its heads
+            mine = sharding.split_sizes(rows, sp)[lay.sp_i]
+            offset = (fa.WHOLE if tp == 1 else
+                      fa.Shard(head0=lay.tp_i * heads, h_local=heads, h_total=HEADS))
+            if len(k1) != pass1 or any(q[0] != mine * heads or s != offset for q, s in k1):
+                raise RuntimeError(f"{label} rank {r}: K1 in a micro-batch of {rows} rows: "
+                                   f"{k1}")
+        total = [a + b for a, b in zip(total, (fwd, lse, bwd))]
+    run = res[0]["run"]
+    build = {"u2": build_model, "rnnt": build_td_model, "paraformer": build_para_model}[family]
+    ref_shapes = {k: tuple(v.shape) for k, v in build(torch.bfloat16, "cpu").state_dict().items()}
+    ckpt = torch.load(os.path.join(run, "ckpts", "model.ep.1.pt"), weights_only=True)
+    if {k: tuple(v.shape) for k, v in ckpt.items()} != ref_shapes:
+        raise RuntimeError(f"{label}: the checkpoint's layout is not the one-process one")
+    with open(os.path.join(run, "train.log")) as f:
+        text = f.read()
+    logged = re.findall(r"test error rate: (\d+) / (\d+)", text)
+    cfg = compose(["inference.ckpt_name=1", "inference.model_avg=false",
+                   "distributed.coordinator_address=null", "distributed.sp=1",
+                   "distributed.tp=1"], base=load_yaml(os.path.join(run, "config.yaml")))
+    one = infer.infer(cfg, device=dev)
+    if [tuple(int(v) for v in m) for m in logged] != [tuple(one[0])]:
+        raise RuntimeError(f"{label}: the run's inference trigger logged {logged}, one "
+                           f"process decodes {one}")
+    valid = [ln.split(" - ")[-1].strip() for ln in text.splitlines() if "valid loss:" in ln]
+    if family == "paraformer" and not all("| loss_ce:" in v and "| loss_mae:" in v
+                                          for v in valid):
+        raise RuntimeError(f"{label}: valid lines {valid}")
+    qs = sorted(set(c[1] for c in res[0]["calls"]))[:2]
+    qvs = sorted(set(c[2] for c in res[0]["calls"]))[:2]
+    k1s = sorted(set(q for _, k1 in res[0]["steps"] for q, _ in k1))[:2]
+    log(f"tp/sp train {label} (2 ranks on one card, gloo on CUDA tensors): {micro} "
+        f"micro-batches in {res[0]['train_s']:.2f} s incl. the group's start, validation, "
+        f"checkpoint and decode; K1' {res[0]['counts'][1]} + K2 {res[0]['counts'][2]} a rank "
+        f"({enc} + {enc} per micro-batch) at q {qs} q_v {qvs}"
+        + (f"; pass 1's K1 {pass1} per micro-batch at q {k1s}" if pass1 else "")
+        + f"; losses rank 0 {[round(v, 3) for v in res[0]['losses']]}, rank 1 "
+        f"{[round(v, 3) for v in res[1]['losses']]}; collectives {res[0]['collectives']}; "
+        f"{valid}; checkpoint in the one-process layout, decoded in one process: error "
+        f"count {one[0][0]}/{one[0][1]}, as the trigger logged [{name}]")
+    return total
+
+
+def check_tp_sp_step(family, label, res, sp, ref, floor, resolution, name):
+    """z3/z6/z9 for one family in one layout: the fp32 step against the
+    one-process step ``ref`` (the loss within TP_SP_LOSS_TOL, every leaf
+    within TP_SP_TOL of its max), beside two one-process runs' difference
+    ``floor`` and the step's fp32 resolution; each planted fault must fail
+    that bound."""
+    def against_one(shares):
+        """(loss, its relative error, the leaves' errors, worst first)"""
+        got = (sum(s[0] for s in shares) if sp > 1 else shares[0][0], shares[0][1],
+               shares[0][2])
+        worst = sorted(((e, n) for n, e in leaf_diffs(ref, got).items()), reverse=True)
+        return got[0], abs(got[0] - ref[0]) / abs(ref[0]), worst
+
+    loss, loss_err, worst = against_one([x["step"] for x in res])
+    log(f"tp/sp step parity fp32 {label} (2+1 layers at full width, 2 ranks on one card): "
+        f"loss {loss:.6f} vs {ref[0]:.6f} (rel {loss_err:.3g}); worst of {len(worst)} "
+        f"leaves over their max: {', '.join(f'{n} {e:.3g}' for e, n in worst[:3])}; "
+        f"two one-process runs differ by up to {max(floor.values()):.3g}, the "
+        f"one-process step with its input moved by 1-2 ulps by up to "
+        f"{max(resolution.values()):.3g} ({max(resolution, key=resolution.get)}); bound "
+        f"{TP_SP_TOL:.3g} (loss {TP_SP_LOSS_TOL:.3g}) [{name}]")
+    if loss_err > TP_SP_LOSS_TOL or worst[0][0] > TP_SP_TOL:
+        raise RuntimeError(f"the {label} step disagrees with the one-process step")
+    for fault in res[0]["faults"]:
+        f_loss, f_err, f_worst = against_one([x["faults"][fault] for x in res])
+        caught = f_err > TP_SP_LOSS_TOL or f_worst[0][0] > TP_SP_TOL
+        log(f"tp/sp step parity fp32 {label} with the planted fault {fault}: loss rel "
+            f"{f_err:.3g}; worst leaves over their max: "
+            f"{', '.join(f'{n} {e:.3g}' for e, n in f_worst[:3])}; "
+            f"{'caught' if caught else 'NOT caught'} by the bound {TP_SP_TOL:.3g} [{name}]")
+        if not caught:
+            raise RuntimeError(f"the bound misses the planted fault {fault} at {label}")
+
+
+def run_tp_sp(fa, root, dev, name):
+    """Phases z2-z10 for each family of TP_SP_FAMILIES (U2: z2-z4, the
+    transducer: z5-z7, the Paraformer: z8-z10), for tp = 2 and for sp = 2:
+    2 processes on the one card (tp_sp_worker), started together, each
+    layout in turn. The training phase (z2, z5, z8): the family at full
+    width (my_U2, my_transducer, build_para_model's) through train.main on
+    phase 6's corpus for 1 epoch, with the valid, save_model and inference
+    triggers (:func:`check_tp_sp_run`). The fp32 step (z3, z6, z9): in the
+    layout against the one-process step on the card
+    (:func:`check_tp_sp_step`). The bf16 micro-step (z4, z7, z10) at
+    bench.py's point: ms and peak memory per rank (informational: the two
+    ranks share the card). Returns the report."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ref, again, moved = dp_step(dev), dp_step(dev), dp_step(dev, perturb=2.0 ** -23)
-    floor, resolution = leaf_diffs(ref, again), leaf_diffs(ref, moved)
-    ref_shapes = {k: tuple(v.shape) for k, v in build_model(torch.bfloat16, "cpu").state_dict().items()}
+    refs = {}
+    for family in TP_SP_FAMILIES:
+        ref, again = dp_step(dev, family=family), dp_step(dev, family=family)
+        moved = dp_step(dev, perturb=2.0 ** -23, family=family)
+        refs[family] = ref, leaf_diffs(ref, again), leaf_diffs(ref, moved)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks' micro-steps share the card
     rep = {"fwd": 0, "lse": 0, "bwd": 0}
     for sp, tp in TP_SP_LAYOUTS:
-        label = f"sp={sp} tp={tp}"
-        addrs = f"{free_address()},{free_address()}"
+        addrs = ",".join(free_address() for _ in range(2 * len(TP_SP_FAMILIES)))
         outs = [os.path.join(root, f"tpsp_{sp}{tp}_r{r}.pt") for r in (0, 1)]
         env = dict(os.environ, PYTHONPATH=REPO)
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-sp-worker",
                                    str(r), str(sp), str(tp), addrs, root, outs[r]], env=env)
                  for r in (0, 1)]
         try:
-            codes = [p.wait(timeout=600) for p in procs]
+            codes = [p.wait(timeout=900) for p in procs]
         finally:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
         if codes != [0, 0]:
-            raise RuntimeError(f"{label}: the ranks exited with {codes}")
-        res = [torch.load(o, weights_only=False) for o in outs]
-        micro = res[0]["micro"]
-        for r, x in enumerate(res):
-            fwd, lse, bwd = x["counts"]
-            # K1: the valid batches' encoder and decoder, and the inference
-            # trigger's one decode batch (ctc_greedy: the encoder)
-            if (lse / micro, bwd / micro) != per_micro or fwd - lse != (
-                    ENC_LAYERS + 2 * DEC_LAYERS) * x["n_valid"] + ENC_LAYERS:
-                raise RuntimeError(f"{label} rank {r}: K1' {lse}, K2 {bwd}, K1 {fwd - lse} "
-                                   f"for {micro} micro-batches, {x['n_valid']} valid batches")
-            if x["backend"] != "gloo" or not all(math.isfinite(v) for v in x["losses"]):
-                raise RuntimeError(f"{label} rank {r}: backend {x['backend']}, losses {x['losses']}")
-            lay = x["layout"]
-            for kind, q_shape, qv_shape, shard in x["calls"]:
-                # the rank's heads of each row, or its block of the T' queries
-                sizes = sharding.split_sizes(shard.t_q or q_shape[1], sp)
-                want = (shard.h_local == HEADS // tp and shard.h_total == HEADS
-                        and shard.head0 == lay.tp_i * HEADS // tp
-                        and q_shape[0] % shard.h_local == 0
-                        and q_shape[1] == sizes[lay.sp_i] and shard.q0 == sum(sizes[:lay.sp_i])
-                        and qv_shape[1] == q_shape[1] + (sp > 1))
-                if not want:
-                    raise RuntimeError(f"{label} rank {r}: {kind} at {q_shape}, q_v {qv_shape}, "
-                                       f"{shard}")
+            raise RuntimeError(f"sp={sp} tp={tp}: the ranks exited with {codes}")
+        by_rank = [torch.load(o, weights_only=False) for o in outs]
+        for family in TP_SP_FAMILIES:
+            res = [x[family] for x in by_rank]
+            label = f"{FAMILY_NAMES[family]} sp={sp} tp={tp}"
+            fwd, lse, bwd = check_tp_sp_run(fa, family, label, res, sp, tp, dev, name)
             rep["fwd"] += fwd
             rep["lse"] += lse
             rep["bwd"] += bwd
-        run = res[0]["run"]
-        ckpt = torch.load(os.path.join(run, "ckpts", "model.ep.1.pt"), weights_only=True)
-        if {k: tuple(v.shape) for k, v in ckpt.items()} != ref_shapes:
-            raise RuntimeError(f"{label}: the checkpoint's layout is not the one-process one")
-        with open(os.path.join(run, "train.log")) as f:
-            text = f.read()
-        logged = re.findall(r"test error rate: (\d+) / (\d+)", text)
-        cfg = compose(["inference.ckpt_name=1", "inference.model_avg=false",
-                       "distributed.coordinator_address=null", "distributed.sp=1",
-                       "distributed.tp=1"], base=load_yaml(os.path.join(run, "config.yaml")))
-        one = infer.infer(cfg, device=dev)
-        if [tuple(int(v) for v in m) for m in logged] != [tuple(one[0])]:
-            raise RuntimeError(f"{label}: the run's inference trigger logged {logged}, one "
-                               f"process decodes {one}")
-        valid = [ln.split(" - ")[-1].strip() for ln in text.splitlines() if "valid loss:" in ln]
-        log(f"tp/sp train {label} (2 ranks on one card, gloo on CUDA tensors): {micro} "
-            f"micro-batches in {res[0]['train_s']:.2f} s incl. the group's start, validation, "
-            f"checkpoint and decode; K1' {res[0]['counts'][1]} + K2 {res[0]['counts'][2]} a rank "
-            f"({per_micro[0]} + {per_micro[1]} per micro-batch) at q {sorted(set(c[1] for c in res[0]['calls']))[:2]} "
-            f"q_v {sorted(set(c[2] for c in res[0]['calls']))[:2]}; losses rank 0 "
-            f"{[round(v, 3) for v in res[0]['losses']]}, rank 1 {[round(v, 3) for v in res[1]['losses']]}; "
-            f"collectives {res[0]['collectives']}; {valid}; checkpoint in the one-process "
-            f"layout, decoded in one process: error count {one[0][0]}/{one[0][1]}, as the "
-            f"trigger logged [{name}]")
-
-        def against_one(shares):
-            """(loss over its max error, the leaves' errors, worst first)"""
-            got = (sum(s[0] for s in shares) if sp > 1 else shares[0][0], shares[0][1],
-                   shares[0][2])
-            worst = sorted(((e, n) for n, e in leaf_diffs(ref, got).items()), reverse=True)
-            return got[0], abs(got[0] - ref[0]) / abs(ref[0]), worst
-
-        loss, loss_err, worst = against_one([x["step"] for x in res])
-        log(f"tp/sp step parity fp32 {label} (2+1 layers at full width, 2 ranks on one card): "
-            f"loss {loss:.6f} vs {ref[0]:.6f} (rel {loss_err:.3g}); worst of {len(worst)} "
-            f"leaves over their max: {', '.join(f'{n} {e:.3g}' for e, n in worst[:3])}; "
-            f"two one-process runs differ by up to {max(floor.values()):.3g}, the "
-            f"one-process step with its input moved by 1-2 ulps by up to "
-            f"{max(resolution.values()):.3g} ({max(resolution, key=resolution.get)}); bound "
-            f"{TP_SP_TOL:.3g} (loss {TP_SP_LOSS_TOL:.3g}) [{name}]")
-        if loss_err > TP_SP_LOSS_TOL or worst[0][0] > TP_SP_TOL:
-            raise RuntimeError(f"the {label} step disagrees with the one-process step")
-        for fault in res[0]["faults"]:
-            f_loss, f_err, f_worst = against_one([x["faults"][fault] for x in res])
-            caught = f_err > TP_SP_LOSS_TOL or f_worst[0][0] > TP_SP_TOL
-            log(f"tp/sp step parity fp32 {label} with the planted fault {fault}: loss rel "
-                f"{f_err:.3g}; worst leaves over their max: "
-                f"{', '.join(f'{n} {e:.3g}' for e, n in f_worst[:3])}; "
-                f"{'caught' if caught else 'NOT caught'} by the bound {TP_SP_TOL:.3g} [{name}]")
-            if not caught:
-                raise RuntimeError(f"z3's bound misses the planted fault {fault} at {label}")
-        for r, x in enumerate(res):
-            log(f"tp/sp micro-step {label} rank {r} at bench.py's point (bf16, both ranks on "
-                f"the one card): {x['step_ms']:.2f} ms (informational), loss "
-                f"{x['step_loss']:.4f}, peak {x['peak_gib']:.2f} GiB, collectives per "
-                f"micro-step {x['step_collectives']} [{name}]")
-        rep[f"sp{sp}_tp{tp}_step_ms"] = [x["step_ms"] for x in res]
-    torch.backends.cuda.matmul.allow_tf32 = True
-    torch.backends.cudnn.allow_tf32 = True
+            rep[f"{family}_launches"] = rep.get(f"{family}_launches", 0) + fwd + bwd
+            check_tp_sp_step(family, label, res, sp, *refs[family], name)
+            for r, x in enumerate(res):
+                log(f"tp/sp micro-step {label} rank {r} at bench.py's point (bf16, B="
+                    f"{x['step_rows']}, both ranks on the one card): {x['step_ms']:.2f} ms "
+                    f"(informational), loss {x['step_loss']:.4f}, peak {x['peak_gib']:.2f} "
+                    f"GiB, collectives per micro-step {x['step_collectives']} [{name}]")
+            rep[f"{family}_sp{sp}_tp{tp}_step_ms"] = [x["step_ms"] for x in res]
+            rep[f"{family}_sp{sp}_tp{tp}_peak_gib"] = [x["peak_gib"] for x in res]
     return rep
 
 
@@ -3780,7 +4006,7 @@ def main() -> int:
     from liteasr_tpu_torch.ops import flash_attention as fa
     from liteasr_tpu_torch.tasks.asr import ASRTask
 
-    if sys.argv[1:2] == ["--tp-sp-worker"]:  # one rank of phases z2-z4
+    if sys.argv[1:2] == ["--tp-sp-worker"]:  # one rank of phases z2-z10
         rank, sp, tp, addrs, root, out = sys.argv[2:8]
         tp_sp_worker(int(rank), int(sp), int(tp), addrs, root, out)
         return 0
@@ -3817,12 +4043,13 @@ def main() -> int:
     kp = check_para_kernels(fa, dev, name)  # o
     kw = check_w2v_kernels(fa, dev, name)  # t
     kz = check_shard_kernels(fa, dev, name)  # z1
+    kzp = check_para_shard_kernels(fa, dev, name)  # z1
     if "--kernels-only" in sys.argv[1:]:
         return 0
-    if "--tp-sp-only" in sys.argv[1:]:  # z2-z4
+    if "--tp-sp-only" in sys.argv[1:]:  # z2-z10
         with tempfile.TemporaryDirectory() as root:
             write_corpus(root)
-            run_tp_sp(fa, root, dev, name, (ENC_LAYERS, ENC_LAYERS))
+            run_tp_sp(fa, root, dev, name)
         return 0
     if "--dp-only" in sys.argv[1:]:  # phase 7's step, then x and y
         with tempfile.TemporaryDirectory() as root:
@@ -3895,7 +4122,7 @@ def main() -> int:
             fa, root, dev, name, (ENC_LAYERS, ENC_LAYERS))  # x
         check_dp_parity(dev, name)  # x
         dp_step = time_dp_step(dev, name, plain_step_ms)  # y
-        tpsp = run_tp_sp(fa, root, dev, name, (ENC_LAYERS, ENC_LAYERS))  # z2-z4
+        tpsp = run_tp_sp(fa, root, dev, name)  # z2-z10
     # launches with a chunk width, as the wrappers counted them: K1 in the
     # static run's validation and the static model's offline decode (chunk
     # 16), K1'/K2 in the chunked draws and the static run
@@ -3915,7 +4142,8 @@ def main() -> int:
                      + para_fwd + para_lse + para_ckpt_fwd + para_dec_fwd + w2v_fwd
                      + dp_fwd + tpsp["fwd"]),
         "max_abs_err": max(k1["max_abs_err"], k2["fwd_err"], kc["fwd_err"], kc["k1_err"],
-                           kp["max_abs_err"], kw["max_abs_err"], kz["fwd_err"]),
+                           kp["max_abs_err"], kw["max_abs_err"], kz["fwd_err"],
+                           kzp["max_abs_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
@@ -3944,7 +4172,13 @@ def main() -> int:
         "tp_sp_lse_launches": tpsp["lse"],
         **{f"shard_{case}_{key}": v for case, r in kz.items() if isinstance(r, dict)
            for key, v in r.items() if key.startswith(("lse_", "k1_"))},
+        # z1: K1 at the Paraformer's pass-1 calls under tp = 2 (bf16, one
+        # call each; heads 0..2 and 2..4 of 4)
+        **{f"paraformer_tp_{case}_{key}": v for case, r in kzp.items()
+           if isinstance(r, dict) for key, v in r.items()},
+        "tp_sp_launches_by_family": {f: tpsp[f"{f}_launches"] for f in TP_SP_FAMILIES},
         "tp_sp_step_ms": {k: v for k, v in tpsp.items() if k.endswith("step_ms")},
+        "tp_sp_peak_gib": {k: v for k, v in tpsp.items() if k.endswith("peak_gib")},
         # phase x: K1 (valid and the decode in the group) and K1' in the
         # one-rank NCCL group; phase y's micro-step in that group
         "dp_launches": dp_fwd,

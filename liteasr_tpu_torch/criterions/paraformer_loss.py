@@ -4,6 +4,12 @@ non-ignored tokens (mean) + the MAE of the predicted token count
 
 The CE is taken from the raw logits as ``lse(h) - h[tgt]`` with the
 logsumexp in fp32, so no log-softmax table is built.
+
+The token and utterance counts are the global batch's: the dp rank's full
+rows, summed over the dp group (tp and sp peers hold the same rows). Under
+sequence parallelism the model returns the logits and token counts of its
+``tail_rows`` only, and the CE and MAE take those rows, so that the ranks'
+losses sum to the global one.
 """
 
 from dataclasses import dataclass, field
@@ -46,17 +52,19 @@ class ParaformerLoss(LiteasrLoss):
         if valid is None:
             valid = torch.ones(xs.shape[0], device=xs.device)
 
+        tgt = model.get_target(ys, ylens)  # (B, U), -1 ignored
+        tgt = torch.where(valid[:, None] > 0, tgt, -1)
+        # the global batch's token and utterance counts, in one all-reduce
+        n_tok, nutt = parallel.global_sum((tgt != -1).sum(), valid.sum())
+
         hs_attn, sum_alpha = model(xs, xlens, ys, ylens, train=train,
                                    step=batch.get("step"))
-
-        tgt = model.get_target(ys, ylens)  # (B, U), -1 ignored
-        tgt = torch.where(valid[:, None] > 0, tgt, -1).reshape(-1)
+        rows = model.tail_rows(xs.shape[0])
+        tgt, ylens, valid = tgt[rows].reshape(-1), ylens[rows], valid[rows]
         ignore = tgt == -1
         h = hs_attn.reshape(-1, self.vocab_size)
         lse = torch.logsumexp(h.float(), dim=-1)
         h_tgt = h.gather(1, torch.where(ignore, 0, tgt).long()[:, None])[:, 0].float()
-        # the global batch's token and utterance counts, in one all-reduce
-        n_tok, nutt = parallel.global_sum((~ignore).sum(), valid.sum())
         loss_ce = torch.where(ignore, 0.0, lse - h_tgt).sum() / torch.clamp(n_tok, min=1)
 
         mae = (sum_alpha - ylens.float()).abs()

@@ -3,6 +3,11 @@
 The lattice DP of :mod:`liteasr_tpu_torch.ops.rnnt`, reduced to the mean
 over the batch's real utterances (``valid``), as the warp libraries'
 default batch mean.
+
+The count is the global batch's, summed over the dp group (tp and sp peers
+hold the same rows); under sequence parallelism the model's lattice is of
+its ``tail_rows`` only, and the per-utterance losses take those rows, so
+that the ranks' losses sum to the global one.
 """
 
 from dataclasses import dataclass, field
@@ -38,6 +43,8 @@ class RNNTLoss(LiteasrLoss):
         nutt = torch.clamp(parallel.global_sum(valid.sum()), min=1.0)  # global batch
 
         logits = model(xs, xlens, ys, ylens, train=train)
+        rows = model.tail_rows(xs.shape[0])
+        xlens, ys, ylens, valid = xlens[rows], ys[rows], ylens[rows], valid[rows]
         per_utt = rnnt_loss(logits, model.get_target(ys, ylens),
                             model.get_pred_len(xlens), model.get_target_len(ylens),
                             blank=self.blank_id)

@@ -12,7 +12,18 @@ parallel decoder + argmax; the batch decode lives in
 The glance noise comes from the model's CPU ``glance_generator`` (seeded by
 :meth:`seed_dropout`) in train mode, and from a fixed stream (seed 0) in
 eval mode, as the reference falls back to ``PRNGKey(0)`` when no rng is
-given.
+given. Both are draws for the dp rank's rows: a stream keyed by the dp
+coordinate, or the dp rank's rows of the global batch's draw, which its tp
+and sp peers share.
+
+Tensor and sequence parallelism (``parallel.sharding.shard_model``): tp
+shards the encoder as U2's and the parallel decoder's attentions and FFNs
+as U2's decoder (pass 1 runs K1 at the rank's head offset); the predictor
+and the embeddings stay replicated. Under sp the training forward gathers
+the encoder's blocks of frames before the predictor, since CIF and its
+k = 3 conv read the whole time axis, and runs the predictor, both decoder
+passes and the glancing sampler on the rank's block of rows
+(:meth:`tail_rows`), with the noise of those rows.
 """
 
 from dataclasses import dataclass, field
@@ -29,7 +40,7 @@ from liteasr_tpu_torch import parallel
 from liteasr_tpu_torch.parallel import rank_seed
 from liteasr_tpu_torch.nets.attention import RelativeMultiHeadAttention
 from liteasr_tpu_torch.nets.common import Dense, lecun_normal_, positional_encoding
-from liteasr_tpu_torch.nets.encoder import TransformerEncoder
+from liteasr_tpu_torch.nets.encoder import TransformerEncoder, subsample_mask
 from liteasr_tpu_torch.nets.paraformer import ParallelDecoder, Predictor, glancing_sample
 from liteasr_tpu_torch.ops.masks import padding_mask
 
@@ -177,16 +188,17 @@ class Paraformer(LiteasrModel):
         self.glance_generator.manual_seed(rank_seed(seed ^ GLANCE_SEED_SALT, rank))
 
     def draw_glance_noise(self, batch: int, length: int, train: bool, device):
-        """(B, U) uniform [0, 1) noise of the glancing sampler: from
-        ``glance_generator`` in train mode, from a fresh generator seeded
-        with EVAL_GLANCE_SEED in eval mode (the same draws every call; under
-        a process group, the rank's rows of the global batch's draw)."""
+        """(B, U) uniform [0, 1) noise of the glancing sampler for the dp
+        rank's ``batch`` rows: from ``glance_generator`` in train mode, from
+        a fresh generator seeded with EVAL_GLANCE_SEED in eval mode (the same
+        draws every call; under a process group, the dp rank's rows of the
+        global batch's draw)."""
         if train:
             return torch.rand((batch, length), generator=self.glance_generator).to(device)
-        world, rank = parallel.process_count(), parallel.process_index()
-        noise = torch.rand((batch * world, length),
+        lay = parallel.layout()
+        noise = torch.rand((batch * lay.dp, length),
                            generator=torch.Generator().manual_seed(EVAL_GLANCE_SEED))
-        return noise[rank * batch:(rank + 1) * batch].to(device)
+        return noise[lay.dp_i * batch:(lay.dp_i + 1) * batch].to(device)
 
     def _glance_ratio(self, train: bool, step=None):
         """The glancing ratio (liteasr_tpu/models/paraformer.py:156-169): 0 at
@@ -206,16 +218,21 @@ class Paraformer(LiteasrModel):
 
     def forward(self, xs, xlens, ys, ylens, train: bool = False, step=None):
         """The two-pass glancing forward (liteasr_tpu/models/paraformer.py:
-        171-195). Returns (hs_attn (B, U, V), sum_alpha (B,)). ``step``
-        drives the glancing-ratio schedule (the trainer's micro-step count
-        before this step)."""
+        171-195). Returns (hs_attn (B, U, V), sum_alpha (B,)), under
+        sequence parallelism of the :meth:`tail_rows` only. ``step`` drives
+        the glancing-ratio schedule (the trainer's micro-step count before
+        this step)."""
         B, T = xs.shape[0], xs.shape[1]
         U = ys.shape[1]
         xs_mask = padding_mask(xlens, T)
-        ys_in = torch.where(ys == IGNORE, self.eos, ys)
-        ys_mask = padding_mask(ylens, U)
 
         hs_enc = self.encoder(xs, mask=xs_mask, train=train)
+        if self.seq_parallel:
+            rows = self.tail_rows(B)
+            hs_enc = self.gather_frames(hs_enc, subsample_mask(xs_mask).shape[1])[rows]
+            xs_mask, xlens, ys, ylens = xs_mask[rows], xlens[rows], ys[rows], ylens[rows]
+        ys_in = torch.where(ys == IGNORE, self.eos, ys)
+        ys_mask = padding_mask(ylens, U)
         hs_cif, sum_alpha = self.predictor(hs_enc, self.get_pred_len(xlens), ylens,
                                            u_max=U)
         embed_ys = positional_encoding(  # the reference's pe(embed(ys_in))
@@ -226,7 +243,8 @@ class Paraformer(LiteasrModel):
             hs_hat = self.decoder(hs_cif.detach(), hs_enc.detach(), memory_mask=xs_mask)
             ys_hat = torch.argmax(hs_hat, dim=-1).masked_fill(ys_mask, self.eos)
 
-        noise = self.draw_glance_noise(B, U, train, xs.device)
+        # every sp peer draws the dp rank's rows and keeps its own
+        noise = self.draw_glance_noise(B, U, train, xs.device)[self.tail_rows(B)]
         hs_mix = glancing_sample(noise, hs_cif, embed_ys, ys_in, ys_hat, ylens,
                                  self._glance_ratio(train, step))
         # pass 2, with gradients

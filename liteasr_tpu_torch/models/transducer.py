@@ -4,6 +4,13 @@ Rel-pos transformer encoder, LSTM prediction network and the additive tanh
 joint; ``forward`` broadcasts enc (B, T', 1, J) + dec (B, 1, U+1, J) into
 the (B, T', U+1, V) lattice. Special ids: blank=0, ignore=-1. Greedy and
 beam decoding live in :mod:`liteasr_tpu_torch.decode`.
+
+Tensor and sequence parallelism (``parallel.sharding.shard_model``): tp
+shards the encoder as U2's; the prediction network and the joint match no
+rule and stay replicated. Under sp the training forward gathers the
+encoder's blocks of frames and runs the prediction network and the joint
+on the rank's block of rows (:meth:`tail_rows`), so that a rank's lattice
+is (B/sp, T', U+1, V).
 """
 
 from dataclasses import dataclass, field
@@ -129,12 +136,17 @@ class Transducer(LiteasrModel):
 
     def forward(self, xs, xlens, ys, ylens, train: bool = False):
         """The joint lattice (B, T', U+1, V): ignore -> blank, a blank column
-        prepended to the labels."""
+        prepended to the labels. Under sequence parallelism, of the
+        :meth:`tail_rows` only."""
         B = xs.shape[0]
         xs_mask = padding_mask(xlens, xs.shape[1])
         blank_col = torch.full((B, 1), BLANK, dtype=ys.dtype, device=ys.device)
         ys_in = torch.cat([blank_col, torch.where(ys == IGNORE, BLANK, ys)], dim=1)
         h_enc = self.encoder(xs, mask=xs_mask, train=train)  # (B, T', D)
+        if self.seq_parallel:
+            rows = self.tail_rows(B)
+            h_enc = self.gather_frames(h_enc, subsample_mask(xs_mask).shape[1])[rows]
+            ys_in = ys_in[rows]
         h_dec = self.decoder(ys_in, train=train)  # (B, U+1, H)
         return self.joint(h_enc[:, :, None, :], h_dec[:, None, :, :])
 

@@ -138,7 +138,6 @@ class U2(LiteasrModel):
                 module.generator = self.dropout_generator
         # draws the dynamic chunk widths (the JAX package's "chunk" rng)
         self.chunk_generator = self.encoder.chunk_generator
-        self.seq_parallel = False
         self.init_params(generator)
         if device is not None:
             self.to(device)
@@ -210,16 +209,6 @@ class U2(LiteasrModel):
         mem_mask = enc_mask[:, None, None, :] if enc_mask is not None else None
         return self.decoder.step(tok, src_kv, self_caches, index, mem_mask)
 
-    def tail_rows(self, batch: int) -> slice:
-        """The batch rows whose CTC head and decoder this rank runs: all of
-        them, or under sequence parallelism the sp rank's block."""
-        if not self.seq_parallel:
-            return slice(None)
-        from liteasr_tpu_torch.parallel import sharding
-
-        seq = sharding.seq_shard(batch)
-        return slice(seq.lo, seq.hi)
-
     def forward(self, xs, xlens, ys, ylens, train: bool = False):
         """Training forward: (h_attn (B, L+1, V), h_ctc (B, T', V))
         (liteasr_tpu/models/u2.py:149-173): ignore -> eos, sos prepended,
@@ -230,11 +219,8 @@ class U2(LiteasrModel):
         xs_mask = padding_mask(xlens, xs.shape[1])
         h_enc = self.encoder(xs, mask=xs_mask, train=train)
         if self.seq_parallel:
-            from liteasr_tpu_torch.parallel import sharding
-
             rows = self.tail_rows(xs.shape[0])
-            t_sub = subsample_mask(xs_mask).shape[1]
-            h_enc = sharding.gather_from_sp(h_enc, 1, sharding.seq_shard(t_sub).sizes)
+            h_enc = self.gather_frames(h_enc, subsample_mask(xs_mask).shape[1])
             h_enc, xs_mask, ys, ylens = h_enc[rows], xs_mask[rows], ys[rows], ylens[rows]
         B, L = ys.shape
         ys_ = torch.where(ys == IGNORE, self.eos, ys)

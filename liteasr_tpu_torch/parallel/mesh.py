@@ -53,8 +53,10 @@ logger = logging.getLogger(__name__)
 # the collectives issued, by kind: "grad" (the flat gradient), "batch_norm"
 # (forward statistics and backward sums), "count" (loss denominators),
 # "code_usage" (wav2vec 2.0's weighted code probabilities), "metrics" (the
-# logged losses and validation scalars), "gather" (decoded hypotheses); a
-# global_sum_grad counts once, though its backward all-reduces again
+# logged losses and validation scalars), "gather" (decoded hypotheses),
+# "state" (a train state's partial gradient accumulation; over the tp group,
+# the shards a checkpoint gathers); a global_sum_grad counts once, though
+# its backward all-reduces again
 counts: collections.Counter = collections.Counter()
 
 # a rank's seeds are the run's seed plus its rank times this (mod 2**32), so

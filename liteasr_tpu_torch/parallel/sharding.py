@@ -10,7 +10,10 @@ the attentions' ``linear_q/k/v`` and ``linear_pos`` and the conformer conv's
 bias sharded), ``fc2``, ``linear_o`` and ``pointwise_conv2`` row-parallel
 (the weight's input columns sharded, the bias replicated), the rel-pos
 biases ``pos_bias_u/v`` sharded by heads; everything else (LayerNorms,
-embeddings, the output layer, the CTC head, the subsampling) is replicated.
+embeddings, the output layer, the CTC head, the subsampling, the
+transducer's LSTM prediction network and joint, the Paraformer's CIF
+predictor) is replicated. The Paraformer's parallel decoder layers are
+U2's decoder layers and follow the same rules.
 The port's weight is (out, in), the transpose of flax's kernel, so a
 column rule shards dim 0 where JAX's ``P(None, 'tp')`` shards the kernel's
 dim 1.
@@ -70,8 +73,15 @@ TP_RULES: Tuple[Tuple[str, int, Optional[int]], ...] = (
 GLU = r"pointwise_conv1$"
 CHANNEL_RULES = (r"conv\.depthwise_conv$", r"conv\.norm$")
 HEAD_LEAVES = ("pos_bias_u", "pos_bias_v")
-ROADMAP_ITEM = ('the ROADMAP item "tensor and sequence parallelism for the '
-                'transducer, the Paraformer and wav2vec 2.0"')
+ROADMAP_ITEM = 'the ROADMAP item "tensor and sequence parallelism for wav2vec 2.0"'
+# the model config's widths that tp divides, by family: the heads, the FFN
+# widths and the conformer conv module's channels (enc_dim)
+TP_WIDTHS = {
+    "U2": ("enc_attn_heads", "dec_attn_heads", "enc_ff_dim", "dec_ff_dim", "enc_dim"),
+    "Transducer": ("enc_attn_heads", "enc_ff_dim", "enc_dim"),
+    "Paraformer": ("enc_attn_heads", "dec_attn_heads", "enc_ff_dim", "dec_ff_dim",
+                   "enc_dim"),
+}
 
 
 def shard_dim(key: str, ndim: int) -> Optional[int]:
@@ -305,11 +315,12 @@ def sp_halo(x: torch.Tensor, pad: int, seq: SeqShard) -> torch.Tensor:
 
 # ------------------------------------------------------------- the model
 
-def check_widths(model_cfg, tp: int) -> None:
-    """tp must divide the heads and the widths it shards."""
+def check_widths(model_cfg, tp: int, family: str = "U2") -> None:
+    """tp must divide the heads and the widths it shards of ``family``'s
+    config (:data:`TP_WIDTHS`)."""
     if tp == 1:
         return
-    for key in ("enc_attn_heads", "dec_attn_heads", "enc_ff_dim", "dec_ff_dim", "enc_dim"):
+    for key in TP_WIDTHS[family]:
         val = model_cfg.get(key)
         if val is not None and int(val) % tp:
             raise ValueError(f"distributed.tp={tp} does not divide model.{key}={val}")
@@ -320,20 +331,21 @@ def shard_model(model: torch.nn.Module, lay: "mesh.Layout", model_cfg=None) -> t
     under tp its sharded parameters and buffers become the rank's slices
     and the attentions, FFNs and conv modules run Megatron's collectives;
     under sp the encoder runs on the rank's block of frames and the model's
-    tail on its block of rows. U2 only: the other families raise, and so
-    does a tp that does not divide ``model_cfg``'s heads and widths."""
-    from liteasr_tpu_torch.models.u2 import U2
+    tail on its block of rows. U2, the transducer and the Paraformer
+    (:data:`TP_WIDTHS`); wav2vec 2.0 raises, and so does a tp that does not
+    divide ``model_cfg``'s heads and widths."""
     from liteasr_tpu_torch.nets.attention import MultiHeadAttention
     from liteasr_tpu_torch.nets.common import PositionwiseFeedForward
     from liteasr_tpu_torch.nets.layers import ConformerConvolution
 
     if lay.tp == lay.sp == 1:
         return model
-    if not isinstance(model, U2):
+    family = type(model).__name__
+    if family not in TP_WIDTHS:
         raise NotImplementedError(
-            f"distributed.tp/sp > 1 for {type(model).__name__}: tensor and sequence "
-            f"parallelism of the U2 family only; the others are {ROADMAP_ITEM}")
-    check_widths(model_cfg or {}, lay.tp)
+            f"distributed.tp/sp > 1 for {family}: tensor and sequence parallelism of "
+            f"{', '.join(TP_WIDTHS)} only; {family} is {ROADMAP_ITEM}")
+    check_widths(model_cfg or {}, lay.tp, family)
     if lay.sp > 1:
         model.seq_parallel = True
         model.encoder.seq_parallel = True

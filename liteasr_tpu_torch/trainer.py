@@ -37,14 +37,16 @@ glance noise, wav2vec 2.0's draws) are seeded per rank (rank 0 keeps the
 one-process streams); the attention kernels' dropout seeds move to the
 rank's rows.
 
-Under tensor and sequence parallelism (U2; ``parallel.sharding``) the
-ranks form a (dp, sp, tp) mesh: the datasets are sharded by the dp
-coordinate, so tp and sp peers collate the same rows; the batch-level draws
+Under tensor and sequence parallelism (U2, the transducer and the
+Paraformer; ``parallel.sharding``) the ranks form a (dp, sp, tp) mesh: the
+datasets are sharded by the dp coordinate, so tp and sp peers collate the same rows; the batch-level draws
 (SpecAugment) follow dp_i; the throughput counts each global row once.
-``save_model`` gathers the tp shards (a collective) and the master writes
-the one-process layout, parameters and optimizer moments alike, so that a
-checkpoint or train state of any layout loads in any other; resume cuts
-the rank's shard from it. ``valid`` runs the sharded eval forward;
+``save_model`` gathers the tp shards (a collective) and sums a partial
+gradient accumulation over the dp x sp ranks (each holds its share until
+the applying micro-step), and the master writes the one-process layout,
+parameters and optimizer state alike, so that a checkpoint or train state
+of any layout loads in any other; resume cuts the rank's shard from it,
+and the first rank of the dp x sp group takes the whole accumulation. ``valid`` runs the sharded eval forward;
 ``inference`` decodes the gathered full model, its rows sharded over the
 world as under dp.
 """
@@ -202,15 +204,21 @@ class Trainer:
         return rng
 
     def _optimizer_state(self) -> dict:
-        """The optimizer's state in the full layout (a collective over the
-        tp group: every rank calls it)."""
+        """The optimizer's state in the full layout (collectives over the tp
+        group and, for a partial accumulation, the dp x sp group: every rank
+        calls it). The accumulated gradient is each rank's share until the
+        applying micro-step all-reduces it, so the one-process layout's is
+        the sum of the dp x sp ranks'."""
         tx = self.tx
 
         def full(vec):
             return None if vec is None else sharding.gather_flat(vec, self.named_params)
 
+        acc = tx.acc
+        if acc is not None and self.layout.dp * self.layout.sp > 1:
+            acc = parallel.global_sum_(acc.clone(), "state")
         return {"mu": full(tx.mu), "nu": full(tx.nu), "count": tx.count.cpu(),
-                "notfinite_count": tx.notfinite_count.cpu(), "acc": full(tx.acc),
+                "notfinite_count": tx.notfinite_count.cpu(), "acc": full(acc),
                 "nu_max": full(tx.nu_max), "mini_step": tx.mini_step}
 
     def _save_train_state(self, model_state, opt_state, rng_ranks):
@@ -266,8 +274,10 @@ class Trainer:
                 f"started with ({e})") from e
         for name in ("mu", "nu", "count", "notfinite_count"):
             getattr(tx, name).copy_(opt[name])
-        if tx.acc is not None:
+        if tx.acc is not None:  # the whole sum on one rank of the dp x sp group
             tx.acc.copy_(opt["acc"])
+            if lay.dp_i or lay.sp_i:
+                tx.acc.zero_()
         if tx.nu_max is not None:
             tx.nu_max.copy_(opt["nu_max"])
         tx.mini_step = int(opt["mini_step"])

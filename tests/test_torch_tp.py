@@ -33,7 +33,7 @@ gloo, against one process and against the JAX package.
   triggers: the checkpoint has the one-process layout and loads at tp = 1,
   the valid and error-rate lines are the one-process run's, and a resumed
   tp = 2 run ends where the uninterrupted one does.
-* A layout that does not fit raises, and so do the other families.
+* A layout that does not fit raises, and so does wav2vec 2.0.
 
 Every subprocess runs under a hard 180 s limit (torch_dp_worker.launch).
 """
@@ -195,10 +195,14 @@ def _ranks(tmp_path, world, sp, tp, *extra):
     return [torch.load(tmp_path / f"r{r}.pt", weights_only=False) for r in range(world)]
 
 
-def check_step(ranks, ref):
+def check_step(ranks, ref, grad_atol_of_top=False):
     """The global loss (the dp x sp ranks' shares, one tp rank each), the
     gathered gradient, the parameters and statistics after the update,
-    against one process; the same on every rank."""
+    against one process; the same on every rank. The zero-gradient leaves'
+    atol is of the largest gradient, and with ``grad_atol_of_top`` every
+    leaf's is (a loss of ~30 nats a row, as the transducer's, makes the
+    gradient ~10x U2's and its reordered fp32 sums reach 2.5e-6 on a leaf
+    whose max is 1.2)."""
     shares = [r["losses"] for r in ranks if r["layout"].tp_i == 0]
     torch.testing.assert_close(sum(shares), ref["losses"], rtol=RTOL, atol=ATOL)
     top = max(g.abs().max().item() for g in ref["grads"].values())
@@ -207,9 +211,9 @@ def check_step(ranks, ref):
     for r in ranks:
         assert (r["count"], r["notfinite"]) == (1, 0)
         for key, g in ref["grads"].items():
+            scaled = grad_atol_of_top or key.endswith(ZERO_LEAVES)
             np.testing.assert_allclose(r["grads"][key].numpy(), g.numpy(), rtol=RTOL,
-                                       atol=ATOL * (top if key.endswith(ZERO_LEAVES) else 1),
-                                       err_msg=key)
+                                       atol=ATOL * (top if scaled else 1), err_msg=key)
         assert r["state"].keys() == ref["state"].keys()
         for key, val in ref["state"].items():  # parameters and running statistics
             np.testing.assert_allclose(r["state"][key].numpy(), val.numpy(), rtol=RTOL,
@@ -453,11 +457,14 @@ def test_layouts_that_do_not_fit_raise():
             sharding.shard_model(w.build_case("hybrid_ctc")[0], lay, cfg)
 
 
-@pytest.mark.parametrize("case", ["rnnt", "paraformer", "wav2vec"])
+@pytest.mark.parametrize("case", ["wav2vec"])
 @pytest.mark.parametrize("tp,sp", [(2, 1), (1, 2)])
 def test_other_families_raise(case, tp, sp):
+    """wav2vec 2.0 names its own ROADMAP item (the transducer and the
+    Paraformer shard: tests/test_torch_tp_families.py)."""
     from liteasr_tpu_torch.parallel import mesh
 
     model = w.build_case(case)[0]
     with pytest.raises(NotImplementedError, match=re.escape(sharding.ROADMAP_ITEM)):
         sharding.shard_model(model, mesh.Layout(1, sp, tp))
+    assert "wav2vec 2.0" in sharding.ROADMAP_ITEM

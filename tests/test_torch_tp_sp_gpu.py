@@ -4,7 +4,9 @@ pytest --noconftest -m gpu tests/test_torch_tp_sp_gpu.py``.
 
 Tensor parallelism hands a kernel a slice of each batch row's heads
 (``Shard.head0`` of ``h_total``), sequence parallelism a block of the
-queries at ``q0`` with the next block's first q_v row. Each case holds the
+queries at ``q0`` with the next block's first q_v row. The Paraformer's
+pass 1 under tp calls K1 (no rel-pos term, no dropout) on the rank's heads
+of its decoder attentions. Each case holds the
 CUDA kernels at the offsets against the plain versions at the same offsets
 (fp32 1e-4 forward and 1e-3 gradients, bf16 2e-2 and 5e-2, relative to each
 value, as chip_smoke.py's phases 3 and k), and the fp32 shard against the
@@ -119,3 +121,38 @@ def test_shard_gives_the_whole_calls_rows(cuda, case):
         assert _close(g, r, 1e-4), name
     assert _close(s_grads[4], g_full[4][head0:head0 + heads], 1e-4)  # the shard's table rows
     assert grads[0].shape == full["q_u"].shape
+
+
+# the Paraformer's pass-1 calls at bench.py's point (32 rows x 4 heads, U = 48
+# queries): self-attention without a mask, source attention over T' = 199
+PASS1 = {"self": (48, False), "src_kv_lens": (T, True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head0", [0, 2])
+@pytest.mark.parametrize("call", list(PASS1))
+def test_k1_at_the_paraformers_pass1_head_offset(cuda, call, head0):
+    """K1 in bf16 on heads head0..head0+2 of 4 against the plain version at
+    the same offset (2e-2) and against those heads of the whole call (1e-5:
+    the same arithmetic)."""
+    rows_b, u, d = 32, 48, D
+    tk, masked = PASS1[call]
+    gen = torch.Generator().manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(cuda, torch.bfloat16)
+
+    args = dict(q=rnd(rows_b * H, u, d), k=rnd(rows_b * H, tk, d), v=rnd(rows_b * H, tk, d))
+    if masked:
+        kv = torch.randint(tk // 2, tk + 1, (rows_b,), generator=gen)
+        args["kv_lens"] = kv.repeat_interleave(H).to(cuda, torch.int32)
+    whole = fa.flash_attention(scale=d ** -0.5, **args)
+    rows = torch.tensor([b * H + h for b in range(rows_b) for h in range(head0, head0 + 2)],
+                        device=cuda)
+    cut = {n: x[rows] for n, x in args.items()}
+    shard = fa.Shard(head0=head0, h_local=2, h_total=H)
+    out = fa.flash_attention(scale=d ** -0.5, shard=shard, **cut)
+    ref = fa.flash_attention_plain(scale=d ** -0.5, shard=shard, **cut)
+    assert out.shape == (rows_b * 2, u, d)
+    assert _close(out, ref, TOL[torch.bfloat16][0])
+    assert (out.float() - whole[rows].float()).abs().max().item() <= 1e-5

@@ -4,6 +4,7 @@
     python tests/torch_dp_worker.py train INIT_STATE_DICT OVERRIDES...
     python tests/torch_dp_worker.py decode OUT OVERRIDES...
     python tests/torch_dp_worker.py tpsp ADDR WORLD RANK SP TP OUT [step|fp64|remat [VARIANT]]
+    python tests/torch_dp_worker.py tpsp ADDR WORLD RANK SP TP OUT family FAMILY
 
 ``reductions``: joins a gloo group and runs every case of :data:`CASES` on
 its row block of the case's global batch (:func:`run_case`), saving the
@@ -16,7 +17,9 @@ joins a gloo group of WORLD ranks laid out as (dp, SP, TP) and runs
 rank's rows, then the same forward at dropout 0.1), with ``fp64``
 :func:`tpsp_grad64`, saving the results in the one-process layout to OUT,
 or with ``remat`` :func:`tpsp_remat` (a rematerialized and a plain step at
-dropout 0.1), saving the rank's own results.
+dropout 0.1), saving the rank's own results; ``family`` runs
+:func:`tpsp_family` for the transducer (``rnnt``) or the Paraformer
+(``paraformer``): the fp32 update, the fp64 gradient and the eval forward.
 The test process imports this module too, for the one-process references.
 """
 
@@ -247,31 +250,36 @@ def _tiny_u2(rate: float, **kw):
     return sharding.shard_model(model, lay, DotDict(U2_TINY))
 
 
-def tpsp_step() -> dict:
-    """A tiny conformer U2 (4 heads, BatchNorm, T' = 13) trained for one
-    update of two accumulated micro-steps (Adam, clip 1, dropout 0) on the
-    dp rank's rows of two global batches, sharded as the run's layout
-    says. Returns, in the one-process layout: each micro-step's loss (the
-    rank's share), the mean gradient the update took, the parameters and
-    BatchNorm statistics after it; then, at dropout 0.1 with the kernels'
-    dropout too, the encoder output and the attention logits of one train
-    forward (the activations a tp group holds whole)."""
+def _rows() -> slice:
+    """The dp rank's rows of a global batch of B."""
     from liteasr_tpu_torch import parallel
-    from liteasr_tpu_torch.config.core import DotDict
-    from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
-    from liteasr_tpu_torch.optims.fused_step import FusedAdam, constant_schedule
-    from liteasr_tpu_torch.parallel import sharding
-    from liteasr_tpu_torch.trainer import to_device
 
     lay = parallel.layout()
-    rows = slice(lay.dp_i * B // lay.dp, (lay.dp_i + 1) * B // lay.dp)
-    crit = HybridCTCLoss(DotDict(vocab_size=30, padding_idx=-1, smoothing=0.1,
-                                 ctc_weight=0.3))
+    return slice(lay.dp_i * B // lay.dp, (lay.dp_i + 1) * B // lay.dp)
 
-    model = _tiny_u2(0.0)
+
+def _full_grads(flat, named, state) -> dict:
+    """A flat vector over the local parameters ``named`` as the leaves of
+    the one-process layout (``state``: its state dict)."""
+    from liteasr_tpu_torch.parallel import sharding
+
+    shapes = [state[k].shape for k, _ in named]
+    full = sharding.gather_flat(flat, named).split([s.numel() for s in shapes])
+    return {k: g.view(s) for (k, _), g, s in zip(named, full, shapes)}
+
+
+def _one_update(model, crit, parts) -> dict:
+    """One update of ``len(parts)`` accumulated micro-steps (Adam, clip 1)
+    of the sharded ``model`` on the device batches ``parts``. Returns, in
+    the one-process layout: each micro-step's loss (the rank's share), the
+    mean gradient the update took, the parameters and BatchNorm statistics
+    after it, and the optimizer's counts."""
+    from liteasr_tpu_torch.optims.fused_step import FusedAdam, constant_schedule
+    from liteasr_tpu_torch.parallel import sharding
+
     named = list(model.named_parameters())
     tx = FusedAdam([p for _, p in named], constant_schedule(1e-3), 0.9, 0.999, 1e-3,
-                   clip=1.0, accum=2, sharded=sharding.sharded_parameters(model))
+                   clip=1.0, accum=len(parts), sharded=sharding.sharded_parameters(model))
     flat, step = [], tx._step
 
     def take(g):  # the mean gradient the update takes
@@ -280,26 +288,77 @@ def tpsp_step() -> dict:
 
     tx._step = take
     losses = []
-    for seed in (1, 2):
-        part = to_device({k: v[rows] for k, v in asr_batch(seed, 30).items()}, CPU)
+    for part in parts:
         loss, _ = crit(model, dict(part, step=0), train=True)
         loss.backward()
         tx.update([p.grad for _, p in named])
         for _, p in named:
             p.grad = None
         losses.append(loss.detach())
-    grads = sharding.gather_flat(flat[0], named)
     state = sharding.gather_state_dict(model)
-    shapes = [state[k].shape for k, _ in named]
-    out = dict(losses=torch.stack(losses), state=state,
-               grads={k: g.view(s) for (k, _), g, s in
-                      zip(named, grads.split([s.numel() for s in shapes]), shapes)},
-               count=int(tx.count), notfinite=int(tx.notfinite_count))
+    return dict(losses=torch.stack(losses), state=state, grads=_full_grads(flat[0], named, state),
+                count=int(tx.count), notfinite=int(tx.notfinite_count))
+
+
+def _fp64(model):
+    """``model`` computing in float64."""
+    model.double()
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float64
+    return model
+
+
+def _grad64(build, crit, part) -> dict:
+    """The gradient of one micro-step of the sharded fp64 model that
+    ``build()`` makes (summed over the dp x sp ranks), the loss share and the
+    BatchNorm statistics, in the one-process layout, with
+    ``Tensor.float()`` keeping fp64 tensors fp64 in this process, so that
+    the port's fp32 casts (the plain attention, LayerNorm, BatchNorm, the
+    losses) do not round. A layout that computes the one-process step's
+    function gives it to fp64's rounding."""
+    from liteasr_tpu_torch import parallel
+    from liteasr_tpu_torch.parallel import sharding
+
+    to_fp32 = torch.Tensor.float
+    torch.Tensor.float = lambda x, *a, **k: x if x.dtype == torch.float64 else to_fp32(x, *a, **k)
+    try:
+        model = build()
+        part = dict(part, xs=part["xs"].double(), valid=part["valid"].double())
+        loss, _ = crit(model, dict(part, step=0), train=True)
+        loss.backward()
+        named = list(model.named_parameters())
+        g = parallel.global_sum_(torch.cat([p.grad.reshape(-1) for _, p in named]), "grad")
+        state = sharding.gather_state_dict(model)
+        return dict(losses=loss.detach()[None], state=state, grads=_full_grads(g, named, state))
+    finally:
+        torch.Tensor.float = to_fp32
+
+
+def _u2_crit():
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
+
+    return HybridCTCLoss(DotDict(vocab_size=30, padding_idx=-1, smoothing=0.1, ctc_weight=0.3))
+
+
+def tpsp_step() -> dict:
+    """A tiny conformer U2 (4 heads, BatchNorm, T' = 13) trained for one
+    update of two accumulated micro-steps (Adam, clip 1, dropout 0) on the
+    dp rank's rows of two global batches, sharded as the run's layout
+    says (:func:`_one_update`); then, at dropout 0.1 with the kernels'
+    dropout too, the encoder output and the attention logits of one train
+    forward (the activations a tp group holds whole)."""
+    from liteasr_tpu_torch.trainer import to_device
+
+    parts = [to_device({k: v[_rows()] for k, v in asr_batch(seed, 30).items()}, CPU)
+             for seed in (1, 2)]
+    out = _one_update(_tiny_u2(0.0), _u2_crit(), parts)
 
     model = _tiny_u2(0.1)
     seen = {}
     model.encoder.register_forward_hook(lambda m, a, o: seen.setdefault("h_enc", o.detach()))
-    part = to_device({k: v[rows] for k, v in asr_batch(1, 30).items()}, CPU)
+    part = parts[0]
     h_attn, h_ctc = model(part["xs"], part["xlens"], part["ys"], part["ylens"], train=True)
     out.update(dropout_h_enc=seen["h_enc"], dropout_h_attn=h_attn.detach(),
                dropout_h_ctc=h_ctc.detach())
@@ -316,47 +375,22 @@ TPSP_VARIANTS = {
 
 
 def tpsp_grad64(variant: str = "conformer") -> dict:
-    """The gradient of :func:`tpsp_step`'s first micro-step (dropout 0,
-    summed over the dp x sp ranks), the loss share and the BatchNorm
-    statistics, all computed in float64, in the one-process layout, for
-    the encoder of :data:`TPSP_VARIANTS` ``variant``: the
-    model's compute dtype is fp64 and ``Tensor.float()`` keeps fp64 tensors
-    fp64 in this process, so the port's fp32 casts (the plain attention,
-    LayerNorm, BatchNorm, the losses) do not round. A layout that computes
-    the one-process step's function gives it to fp64's rounding."""
+    """The gradient of :func:`tpsp_step`'s first micro-step in float64
+    (:func:`_grad64`) for the encoder of :data:`TPSP_VARIANTS`
+    ``variant``."""
     from liteasr_tpu_torch import parallel
     from liteasr_tpu_torch.config.core import DotDict
-    from liteasr_tpu_torch.criterions.hybrid_ctc_attn import HybridCTCLoss
     from liteasr_tpu_torch.models.u2 import U2
     from liteasr_tpu_torch.parallel import sharding
     from liteasr_tpu_torch.trainer import to_device
 
-    to_fp32 = torch.Tensor.float
-    torch.Tensor.float = lambda x, *a, **k: x if x.dtype == torch.float64 else to_fp32(x, *a, **k)
-    try:
-        lay = parallel.layout()
-        rows = slice(lay.dp_i * B // lay.dp, (lay.dp_i + 1) * B // lay.dp)
-        model = U2(**U2_TINY, **TPSP_VARIANTS[variant],
-                   generator=torch.Generator().manual_seed(0)).double()
-        for m in model.modules():
-            if hasattr(m, "compute_dtype"):
-                m.compute_dtype = torch.float64
-        sharding.shard_model(model, lay, DotDict(U2_TINY))
-        crit = HybridCTCLoss(DotDict(vocab_size=30, padding_idx=-1, smoothing=0.1,
-                                     ctc_weight=0.3))
-        part = to_device({k: v[rows] for k, v in asr_batch(1, 30).items()}, CPU)
-        part.update(xs=part["xs"].double(), valid=part["valid"].double())
-        loss, _ = crit(model, dict(part, step=0), train=True)
-        loss.backward()
-        named = list(model.named_parameters())
-        g = parallel.global_sum_(torch.cat([p.grad.reshape(-1) for _, p in named]), "grad")
-        state = sharding.gather_state_dict(model)
-        shapes = [state[k].shape for k, _ in named]
-        grads = sharding.gather_flat(g, named).split([s.numel() for s in shapes])
-        return dict(losses=loss.detach()[None], state=state,
-                    grads={k: v.view(s) for (k, _), v, s in zip(named, grads, shapes)})
-    finally:
-        torch.Tensor.float = to_fp32
+    def build():
+        model = _fp64(U2(**U2_TINY, **TPSP_VARIANTS[variant],
+                         generator=torch.Generator().manual_seed(0)))
+        return sharding.shard_model(model, parallel.layout(), DotDict(U2_TINY))
+
+    part = to_device({k: v[_rows()] for k, v in asr_batch(1, 30).items()}, CPU)
+    return _grad64(build, _u2_crit(), part)
 
 
 def tpsp_remat() -> dict:
@@ -389,6 +423,69 @@ def tpsp_remat() -> dict:
     return out
 
 
+# the families besides U2 that tpsp's ``family`` mode runs
+TPSP_FAMILIES = ("rnnt", "paraformer")
+GLANCE_SEED = 9  # the Paraformer's handed train-mode glance noise
+
+
+def _tiny_family(family: str, fp64: bool = False):
+    """(model, criterion, global numpy batch) of ``family`` at
+    :data:`TD_TINY` or :data:`PARA_TINY` (dropout 0), every stream seeded
+    as the train CLI seeds it from seed 0, sharded as the run's layout
+    says; ``fp64`` computes in float64. The Paraformer's train-mode glance
+    noise is the dp rank's rows of one global (B, L) draw, handed over as
+    the dp reduction tests hand it; its eval-mode noise is the model's own."""
+    from liteasr_tpu_torch import parallel
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.parallel import sharding
+
+    lay = parallel.layout()
+    model, crit, batch, _ = build_case(family)
+    if fp64:
+        _fp64(model)
+    model.seed_dropout(0, lay.dp_i)
+    parallel.seed_streams(0)
+    torch.manual_seed(parallel.rank_seed(0, lay.dp_i * lay.sp + lay.sp_i))
+    if family == "paraformer":
+        noise = torch.rand(batch["ys"].shape, generator=torch.Generator().manual_seed(
+            GLANCE_SEED))[_rows()].to(torch.float64 if fp64 else torch.float32)
+        own = model.draw_glance_noise
+
+        def draw(b, u, train, device):
+            return noise[:b, :u].to(device) if train else own(b, u, train, device)
+
+        model.draw_glance_noise = draw
+    widths = TD_TINY if family == "rnnt" else PARA_TINY
+    return sharding.shard_model(model, lay, DotDict(widths)), crit, batch
+
+
+def tpsp_family(family: str) -> dict:
+    """For ``family`` (:data:`TPSP_FAMILIES`) on the dp rank's rows of its
+    dp reduction case's global batch, in the one-process layout:
+
+    * ``eval``: the eval-mode loss share and aux before the update, and the
+      Paraformer's eval glance noise;
+    * ``step``: one update of two accumulated micro-steps on the batch and
+      its reverse (:func:`_one_update`);
+    * ``fp64``: the first micro-step's gradient in float64
+      (:func:`_grad64`)."""
+    from liteasr_tpu_torch import parallel
+    from liteasr_tpu_torch.trainer import to_device
+
+    lay = parallel.layout()
+    model, crit, batch = _tiny_family(family)
+    parts = [to_device({k: v[_rows()] for k, v in batch.items()}, CPU),
+             to_device({k: v[::-1][_rows()].copy() for k, v in batch.items()}, CPU)]
+    with torch.no_grad():
+        eloss, eaux = crit(model, parts[0], train=False)
+    out = {"eval": dict(loss=eloss, aux=dict(eaux))}
+    if family == "paraformer":
+        out["eval"]["noise"] = model.draw_glance_noise(B // lay.dp, 6, False, CPU)
+    out["step"] = _one_update(model, crit, parts)
+    out["fp64"] = _grad64(lambda: _tiny_family(family, fp64=True)[0], crit, parts[0])
+    return out
+
+
 def tpsp(addr: str, world: int, rank: int, sp: int, tp: int, out: str,
          mode: str = "step", variant: str = "conformer") -> None:
     from liteasr_tpu_torch import parallel
@@ -398,7 +495,7 @@ def tpsp(addr: str, world: int, rank: int, sp: int, tp: int, out: str,
                                       process_id=rank, sp=sp, tp=tp), CPU)
     try:
         res = {"step": tpsp_step, "fp64": lambda: tpsp_grad64(variant),
-               "remat": tpsp_remat}[mode]()
+               "remat": tpsp_remat, "family": lambda: tpsp_family(variant)}[mode]()
         res["counts"] = dict(parallel.counts)
         res["layout"] = parallel.layout()
         torch.save(res, out)
