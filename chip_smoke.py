@@ -250,6 +250,9 @@ z1. K1' and K2 in bf16 at the training shape on the shards tp = 2 gives
    source 48 x 199 attention, heads 0..2 and 2..4 of 4: BH = 64 of 128)
    against the plain version (o's tolerance) and the whole call's heads
    (1e-5), timed beside its bound, the plain version and one SDPA call;
+   then K1 at wav2vec 2.0's two validation shapes (t's) under tp = 2
+   (heads 0..6 and 6..12 of 12) and sp = 2 (the two query blocks over all
+   the keys), the same way;
 z2. for tp = 2 and for sp = 2 in turn: my_U2 at full width through
    ``train.main`` in the 2 processes on 6's corpus for 1 epoch with the
    valid, save_model and inference (ctc_greedy) triggers: 12 K1' + 12 K2
@@ -281,17 +284,43 @@ z8-z10. the same for the Paraformer: build_para_model's widths through
    the valid lines), its fp32 step (2 + 1 layers, glancing) with a planted
    fault (under tp the parallel decoder's source-attention output
    all-reduce dropped, under sp the token and utterance counts reduced
-   over dp x sp), its bf16 micro-step.
+   over dp x sp), its bf16 micro-step;
+z11-z13. the same for wav2vec 2.0 (Wav2Vec2Config's defaults): pretraining
+   through ``train.main`` on a's waves for 1 epoch with validation (12 K1
+   a valid batch a rank at the shard's shapes: the rank's 6 heads, or its
+   block of the frames over all of them; no K1' or K2), finite losses, the
+   skipped updates printed, the checkpoint in the one-process layout; the
+   fp32 step (2 encoder layers at full width, dropout 0, 4 utterances of
+   32,000-48,000 samples with no dummy row, so that its update is applied)
+   against one process within 3e-4 of each leaf's max, or twice the step's
+   fp32 resolution where that exceeds 3e-4, beside that resolution, with a
+   planted fault it must catch (under tp the diversity term divided by the
+   process count, under sp the positional conv's halo zeroed); the bf16
+   micro-step at v's point: ms and peak memory per rank.
 
-Every failure raises, so the exit code is not 0. The last line is the JSON
-device record; the line before it lists the kernels (for
+Export, in a process of its own started after the kernel build, so that
+its host-bound export and load overlap the phases above:
+
+e1. my_U2 at full width (bf16, random weights) exported through
+   ``export.export_decode`` in attention_rescore mode at the JAX export
+   CLI's bucket (16 x 1600 x 80), traced on the card, saved to bytes and
+   loaded: 24 ``liteasr::rel_attention_fwd`` nodes; once the other phases
+   are done, its run on the card launches K1 24 times and gives the live
+   pipeline's tokens and lengths exactly; the export's and the load's
+   seconds, the bytes, and the program's time a batch beside the live
+   pipeline's.
+
+Every phase prints its seconds, and the run a ``phase seconds`` line before
+the kernels line. Every failure raises, so the exit code is not 0. The last
+line is the JSON device record; the line before it lists the kernels (for
 rel_attention_fwd, ``ms``/``plain_ms`` are K1 per decoded batch, the
-``lse_*`` keys K1' per training call, the ``chunk*`` keys the chunked
-calls of k, the ``paraformer_*`` keys o's calls and the ``wav2vec2_*``
-keys t's, the ``dp_*`` keys x's and y's, the ``shard_*`` keys z1's calls
-and the ``tp_sp_*`` keys z2, z5 and z8's launches and z4, z7 and z10's
-steps, the ``paraformer_tp_*`` keys z1's pass-1 calls; ``launches`` sum
-the main paths 4, 6, b, c, d, g, i, l, m, p, r, u, x, z2, z5 and z8).
+``lse_*`` keys K1' per training call, the ``chunk*`` keys the chunked calls
+of k, the ``paraformer_*`` keys o's calls and the ``wav2vec2_*`` keys t's,
+the ``dp_*`` keys x's and y's, the ``shard_*`` keys z1's calls and the
+``tp_sp_*`` keys z2, z5 and z8's launches and z4, z7 and z10's steps, the
+``paraformer_tp_*`` keys z1's pass-1 calls, the ``wav2vec2_shard_*`` keys
+z1's wav2vec 2.0 calls, the ``export_*`` keys e1; ``launches`` sum the main
+paths 4, 6, b, c, d, g, i, l, m, p, r, u, x, z2, z5, z8, z11 and e1).
 
     python3 chip_smoke.py --profile-train
 
@@ -301,12 +330,13 @@ of 7 and prints the top kernels by device time.
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --dp-only
     python3 chip_smoke.py --tp-sp-only
+    python3 chip_smoke.py --export-only
     python3 chip_smoke.py --baseline DIR
 
 stop after steps 1-3, k, o, t and z1; or after them run only 7, x and y;
-or only z2-z10; or after step 1 time every bf16 kernel call of the main
-paths against the checkout in DIR (another commit unpacked with git
-archive), in the order DIR, this tree, this tree, DIR.
+or only z2-z13; or only e1; or after step 1 time every bf16 kernel call
+of the main paths against the checkout in DIR (another commit unpacked
+with git archive), in the order DIR, this tree, this tree, DIR.
 """
 
 import contextlib
@@ -376,6 +406,20 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 def log(*args):
     print(*args, flush=True)
+
+
+PHASE_SECONDS = {}
+
+
+@contextlib.contextmanager
+def phase(label):
+    """Log the seconds the phase ``label`` takes (also when it fails)."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[label] = time.perf_counter() - t0
+        log(f"phase {label}: {PHASE_SECONDS[label]:.1f} s")
 
 
 def card() -> str:
@@ -3607,6 +3651,177 @@ def check_para_shard_kernels(fa, dev, name):
     return rep
 
 
+def check_w2v_shard_kernels(fa, dev, name):
+    """Phase z1, wav2vec 2.0's validation under tp = 2 and sp = 2: K1 in bf16
+    at t's two shapes (W2V_SHAPES, no mask) on a tp rank's heads (head0 0
+    or 6, 6 of 12: half the rows) and on an sp rank's block of the queries
+    over all the keys (q0 0 or the first block's length): against the plain
+    version at the same offset (t's tolerance) and against the rows and
+    heads of the whole kernel call (SHARD_WHOLE_TOL), each timed beside its
+    bound, the plain version and one SDPA call on the shard. Returns the
+    report by case and the largest error against the plain version."""
+    from liteasr_tpu_torch.parallel.sharding import split_sizes
+
+    shapes = w2v_kernel_shapes(torch.Generator().manual_seed(SEED + 11), dev, torch.bfloat16)
+    tol = KERNEL_TOL[torch.bfloat16]
+    heads = W2V_HEADS // 2
+    rep = {"max_abs_err": 0.0}
+    for shape, args in shapes.items():
+        scale = args["q"].shape[-1] ** -0.5
+        whole = fa.flash_attention(scale=scale, **args)
+        bh, t = args["q"].shape[:2]
+        cases = []
+        for head0 in (0, heads):
+            rows = torch.tensor([b * W2V_HEADS + h for b in range(bh // W2V_HEADS)
+                                 for h in range(head0, head0 + heads)], device=dev)
+            cases.append((f"tp_h{head0}", {k: v[rows] for k, v in args.items()},
+                          fa.Shard(head0=head0, h_local=heads, h_total=W2V_HEADS),
+                          whole[rows], 0))
+        lo = 0
+        for n in split_sizes(t, 2):
+            cases.append((f"sp_q{lo}", dict(args, q=args["q"][:, lo:lo + n].contiguous()),
+                          fa.Shard(q0=lo, t_q=t), whole[:, lo:lo + n], lo))
+            lo += n
+        for case, cut, shard, in_whole, q0 in cases:
+            out = fa.flash_attention(scale=scale, shard=shard, **cut)
+            ref = fa.flash_attention_plain(scale=scale, shard=shard, **cut)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            whole_err = (out.float() - in_whole.float()).abs().max().item()
+            label = f"{shape}_{case}"
+            if not within(out, ref, tol) or whole_err > SHARD_WHOLE_TOL:
+                raise RuntimeError(f"K1 at wav2vec 2.0's {label}: {err:.3g} against the "
+                                   f"plain version (tol {tol}), {whole_err:.3g} against the "
+                                   f"whole call (tol {SHARD_WHOLE_TOL})")
+            r = {"ms": cuda_time_ms(lambda: fa.flash_attention(scale=scale, shard=shard, **cut)),
+                 "plain_ms": cuda_time_ms(
+                     lambda: fa.flash_attention_plain(scale=scale, shard=shard, **cut)),
+                 "library_ms": cuda_time_ms(library_call(cut, scale))}
+            r["bound_ms"], r["bound_by"] = fwd_bound(**cut, q0=q0)
+            rep[label] = r
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+            log(f"K1 at wav2vec 2.0's validation under {case[:2]}=2, {shape} {case} "
+                f"(shape={tuple(cut['q'].shape)}x{cut['k'].shape[1]}, {shard}) bf16: "
+                f"max_abs_err={err:.3g} against plain (tol {tol}), {whole_err:.3g} against "
+                f"the whole call (tol {SHARD_WHOLE_TOL}); kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library (SDPA) {r['library_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{name}]")
+    return rep
+
+
+# ---- the exported decode program (e1) ----
+
+# the JAX export CLI's default bucket (liteasr_tpu/export.py:137-138)
+EXPORT_BATCH, EXPORT_FRAMES = 16, 1600
+
+
+def export_worker(out):
+    """Phase e1's process (``--export-worker OUT``), started after the
+    kernel build so that its host-bound export and load overlap the other
+    phases: my_U2 at full width (bf16, random weights from SEED) exported
+    through ``export.export_decode`` in attention_rescore mode (beam 10,
+    CTC weight 0.5) at 16 x 1600 x 80, traced on the card, saved to bytes
+    and loaded; then, once ``OUT.go`` exists (the other phases are done,
+    so the card is free), run on the card: its graph holds one K1 node per
+    K1 call (24), its run launches the CUDA K1 24 times and gives the live
+    pipeline's tokens and lengths exactly on a random batch (lengths
+    1000-1600), and its time stands beside the live pipeline's (host clock,
+    informational: the loaded program runs through the fx interpreter, one
+    Python call per node). Writes the report to OUT as JSON."""
+    from liteasr_tpu_torch import decode, export
+    from liteasr_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda", 0)
+    name = card()
+    model = build_model(torch.bfloat16, dev)
+    state = model.state_dict()
+    rng = np.random.default_rng(SEED + 21)
+    xs = torch.from_numpy(rng.normal(size=(EXPORT_BATCH, EXPORT_FRAMES, FEAT))
+                          .astype(np.float32)).to(dev)
+    lens = rng.integers(MIN_T, MAX_T + 1, EXPORT_BATCH)
+    lens[0] = EXPORT_FRAMES
+    xlens = torch.from_numpy(lens).to(dev)
+    t0 = time.perf_counter()
+    blob = export.export_decode(model, state, mode="attention_rescore", beam_size=BEAM,
+                                ctc_weight=CTC_WEIGHT, batch=EXPORT_BATCH,
+                                frames=EXPORT_FRAMES, feat_dim=FEAT, platforms="cuda")
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = export.load_exported(blob)
+    load_s = time.perf_counter() - t0
+    nodes = export.count_nodes(run.program)
+    per_batch = ENC_LAYERS + 2 * DEC_LAYERS
+    if nodes != per_batch:
+        raise RuntimeError(f"the exported program holds {nodes} K1 nodes, expected {per_batch}")
+    while not os.path.exists(out + ".go"):  # the card's other phases first
+        time.sleep(0.5)
+    live = decode.decode_pipeline(model, "attention_rescore", BEAM, CTC_WEIGHT)
+    with torch.inference_mode():
+        want = live(xs, xlens)
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    got = run(state, xs, xlens)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    if launches != per_batch:
+        raise RuntimeError(f"the loaded program launched K1 {launches} times, expected "
+                           f"{per_batch}")
+    if len(got) != 2 or not all(torch.equal(w, g) for w, g in zip(want, got)):
+        raise RuntimeError("the exported program's hypotheses differ from the live pipeline's")
+
+    def host_s(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    def live_run():
+        with torch.inference_mode():
+            live(xs, xlens)
+
+    prog_s, live_s = host_s(lambda: run(state, xs, xlens)), host_s(live_run)
+    n_nodes = len(run.program.graph.nodes)
+    log(f"export e1: my_U2 attention_rescore at {EXPORT_BATCH} x {EXPORT_FRAMES} x {FEAT} "
+        f"(bf16, random weights): export + save {export_s:.2f} s, {len(blob)} bytes, "
+        f"{n_nodes} graph nodes of which {nodes} liteasr::rel_attention_fwd; load "
+        f"{load_s:.2f} s (both in a process of their own, beside the other phases); the "
+        f"loaded program on the card: {launches} K1 launches a batch, tokens and lengths "
+        f"equal to the live pipeline's; {prog_s:.3f} s a batch against the live "
+        f"pipeline's {live_s:.3f} s (host clock, informational) [{name}]")
+    with open(out, "w") as f:
+        json.dump(dict(export_s=export_s, load_s=load_s, bytes=len(blob), nodes=nodes,
+                       graph_nodes=n_nodes, launches=launches, program_s=prog_s,
+                       live_s=live_s), f)
+
+
+def start_export(root):
+    """Start phase e1's process (:func:`export_worker`); returns (process,
+    report path)."""
+    out = os.path.join(root, "export_e1.json")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--export-worker", out],
+                            env=dict(os.environ, PYTHONPATH=REPO))
+    return proc, out
+
+
+def finish_export(proc, out, timeout=900):
+    """Let phase e1's process use the card and wait for its report."""
+    with open(out + ".go", "w"):
+        pass
+    try:
+        code = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if code != 0:
+        raise RuntimeError(f"phase e1's process exited with {code}")
+    with open(out) as f:
+        return json.load(f)
+
+
 # the families that the 2-rank phases run, in turn: U2 (z2-z4), the
 # transducer (z5-z7), the Paraformer (z8-z10)
 TP_SP_FAMILIES = ("u2", "rnnt", "paraformer")
@@ -3737,11 +3952,239 @@ def tp_sp_family(family, rank, sp, tp, addrs, root, dev, fa):
     return res
 
 
-def tp_sp_worker(rank, sp, tp, addrs, root, out, dev=torch.device("cuda", 0)):
-    """One of the 2 ranks of phases z2-z10, on cuda:0, each family of
-    TP_SP_FAMILIES in turn (:func:`tp_sp_family`) in gloo groups that it
-    starts itself (NCCL refuses two ranks on one device); ``addrs`` holds
-    two addresses a family. Writes the results by family to ``out``."""
+# wav2vec 2.0's planted layout faults (z12): under tp the diversity term and
+# code_ppl divided by the process count (tp peers counted as shares), under
+# sp the positional conv's halo zeroed (each rank padding its block)
+W2V_TP_SP_FAULTS = {"tp": "diversity_world", "sp": "pos_conv_halo"}
+
+
+@contextlib.contextmanager
+def planted_w2v_fault(kind):
+    """:data:`W2V_TP_SP_FAULTS`' ``kind`` patched in for the steps inside
+    (tests/torch_dp_worker.py plants them too)."""
+    from liteasr_tpu_torch import parallel
+    from liteasr_tpu_torch.criterions import wav2vec_loss
+    from liteasr_tpu_torch.parallel import sharding
+
+    if kind == "diversity_world":
+        mod, attr, fault = wav2vec_loss, "term_shares", parallel.process_count
+    else:
+        halo = sharding.sp_halo
+
+        def fault(x, pad, seq):
+            y = halo(x, pad, seq).clone()
+            y[:, :pad] = 0.0
+            y[:, y.shape[1] - pad:] = 0.0
+            return y
+
+        mod, attr = sharding, "sp_halo"
+    saved = getattr(mod, attr)
+    setattr(mod, attr, fault)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, saved)
+
+
+def w2v_layout_step(dev, shard=False, perturb=0.0):
+    """z12's fp32 step of wav2vec 2.0 (2 encoder layers at full width,
+    dropout 0, diversity 1.0) on 4 utterances of 32,000-48,000 samples with
+    no dummy row, so that its update is applied: the loss, the flat
+    gradient the optimizer takes (after its all-reduce) by leaf, and no
+    statistics. The draws are the model's own streams, the one-process
+    streams on every rank of a dp = 1 layout. ``shard``: on this rank's tp/sp
+    shard, the loss its share, the gradient gathered to the one-process
+    layout. ``perturb``: the waves scaled by 1 + perturb. Raises if the
+    step is not applied (a non-finite gradient)."""
+    from liteasr_tpu_torch import parallel
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.wav2vec_loss import Wav2Vec2Loss
+    from liteasr_tpu_torch.optims.fused_step import FusedAdam, constant_schedule
+    from liteasr_tpu_torch.parallel import sharding
+
+    rng = np.random.default_rng(SEED + 13)
+    B, S = 4, 48000
+    xs = (rng.normal(size=(B, S)) * 10.0 ** rng.uniform(-2.5, -0.7, (B, 1))).astype(np.float32)
+    batch = {"xs": torch.from_numpy(xs * np.float32(1.0 + perturb)).to(dev),
+             "xlens": torch.tensor([S, 44000, 40000, 32000], device=dev),
+             "valid": torch.ones(B, device=dev), "step": 0}
+    model = build_w2v_model(torch.float32, dev, encoder_layers=2, dropout=0.0)
+    crit = Wav2Vec2Loss(DotDict(diversity_weight=1.0))
+    if shard:
+        sharding.shard_model(model, parallel.layout())
+    named = list(model.named_parameters())
+    tx = FusedAdam([p for _, p in named], constant_schedule(0.0), 0.9, 0.999, 1e-8,
+                   sharded=sharding.sharded_parameters(model))
+    flat = []
+    tx._step = flat.append  # the gradient the update takes
+    loss, _ = crit(model, batch, train=True)
+    loss.backward()
+    tx.update([p.grad for _, p in named])
+    if not (flat and bool(torch.isfinite(flat[0]).all())):
+        raise RuntimeError("the wav2vec 2.0 layout step's update would be skipped")
+    if not shard:
+        grads = flat[0].split([p.numel() for _, p in named])
+        return loss.item(), {n: g.cpu() for (n, _), g in zip(named, grads)}, {}
+    state = sharding.gather_state_dict(model)
+    shapes = [state[n].shape for n, _ in named]
+    grads = sharding.gather_flat(flat[0], named).split([s.numel() for s in shapes])
+    return loss.item(), {n: g for (n, _), g in zip(named, grads)}, {}
+
+
+def tp_sp_w2v(rank, sp, tp, addrs, root, wave_root, dev, fa):
+    """One rank's part of wav2vec 2.0's 2-rank phases (z11-z13): the
+    pretraining run through train.main on phase a's waves for 1 epoch with
+    validation, in a gloo group started here (the port joins it), every K1
+    call's shapes and shard recorded; then, in a second group, the fp32
+    layout step and the planted fault's, and the bf16 micro-step at phase
+    v's point timed with the rank's peak memory."""
+    from liteasr_tpu_torch import parallel, train
+    from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.criterions.wav2vec_loss import Wav2Vec2Loss
+    from liteasr_tpu_torch.optims.fused_step import FusedAdam, constant_schedule
+    from liteasr_tpu_torch.parallel import sharding
+
+    dist = torch.distributed
+    calls = []  # (q shape, shard) of every K1 call
+    launch_fwd = fa._launch_fwd
+
+    def rec_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse, *a):
+        calls.append((tuple(q.shape), tuple(k.shape), return_lse, a[-1]))
+        return launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse, *a)
+
+    dist.init_process_group("gloo", init_method=f"tcp://{addrs[0]}", world_size=2, rank=rank)
+    run = os.path.join(root, f"tpsp_w2v_sp{sp}_tp{tp}")
+    overrides = w2v_overrides(wave_root, run, 1) + [
+        f"distributed.coordinator_address={addrs[0]}", "distributed.num_processes=2",
+        f"distributed.process_id={rank}", f"distributed.sp={sp}", f"distributed.tp={tp}",
+        "common.trigger=[{name: valid, interval: 1, unit: epoch}, "
+        "{name: save_model, interval: 1, unit: epoch}]"]
+    reset_counts(fa)
+    parallel.counts.clear()
+    fa._launch_fwd = rec_fwd
+    try:
+        t0 = time.perf_counter()
+        trainer = train.main(overrides, device=dev)  # joins this group, ends it
+        torch.cuda.synchronize()
+    finally:
+        fa._launch_fwd = launch_fwd
+    res = dict(train_s=time.perf_counter() - t0, counts=counts(fa),
+               collectives=dict(parallel.counts), calls=calls,
+               micro=trainer.step, n_valid=len(trainer.valid_set),
+               skipped=int(trainer.tx.notfinite_count), updates=int(trainer.tx.count),
+               losses=[float(x) for x in trainer._loss_accum],
+               backend=trainer.backend, layout=trainer.layout, run=run)
+    del trainer
+
+    dist.init_process_group("gloo", init_method=f"tcp://{addrs[1]}", world_size=2, rank=rank)
+    parallel.distributed_init(dict(coordinator_address=addrs[1], num_processes=2,
+                                   process_id=rank, sp=sp, tp=tp), dev)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        res["step"] = w2v_layout_step(dev, shard=True)
+        fault = W2V_TP_SP_FAULTS["sp" if sp > 1 else "tp"]
+        with planted_w2v_fault(fault):
+            res["faults"] = {fault: w2v_layout_step(dev, shard=True)}
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.manual_seed(SEED)
+        model = sharding.shard_model(build_w2v_model(torch.bfloat16, dev), parallel.layout())
+        crit = Wav2Vec2Loss(DotDict(diversity_weight=1.0))
+        named = list(model.named_parameters())
+        tx = FusedAdam([p for _, p in named], constant_schedule(2e-4), 0.9, 0.999, 1e-8,
+                       clip=5.0, sharded=sharding.sharded_parameters(model))
+        batch, real = w2v_step_batch(dev)
+
+        def step():
+            loss, _ = crit(model, dict(batch, step=0), train=True)
+            loss.backward()
+            tx.update([p.grad for _, p in named])
+            for _, p in named:
+                p.grad = None
+            return loss
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        parallel.counts.clear()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(3):
+                loss = step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / 3)
+        res.update(step_ms=statistics.median(times) * 1e3, step_loss=loss.item(),
+                   step_rows=W2V_STEP_ROWS,
+                   step_collectives={k: v / 9 for k, v in parallel.counts.items()},
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del step, loss, model, tx
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        parallel.destroy()
+    return res
+
+
+def check_w2v_tp_sp_run(res, sp, tp, label, name):
+    """z11 for one layout: every rank's K1 launches (W2V_LAYERS per valid
+    batch, no K1' or K2: the training attention is plain), each at the
+    rank's heads (tp) or its block of the frames over all of them (sp),
+    finite losses, the skipped updates printed; the checkpoint in the
+    one-process layout (the same keys and shapes). Returns the K1
+    launches of both ranks."""
+    from liteasr_tpu_torch.parallel import sharding
+
+    heads, total = W2V_HEADS // tp, 0
+    for r, x in enumerate(res):
+        fwd, lse, bwd = x["counts"]
+        if (lse, bwd) != (0, 0) or fwd != W2V_LAYERS * x["n_valid"] or len(x["calls"]) != fwd:
+            raise RuntimeError(f"{label} rank {r}: K1 {fwd} (recorded {len(x['calls'])}), "
+                               f"K1' {lse}, K2 {bwd} for {x['n_valid']} valid batches")
+        if x["backend"] != "gloo" or not all(math.isfinite(v) for v in x["losses"]):
+            raise RuntimeError(f"{label} rank {r}: backend {x['backend']}, losses {x['losses']}")
+        lay = x["layout"]
+        for q_shape, k_shape, lse_call, shard in x["calls"]:
+            sizes = sharding.split_sizes(shard.t_q or q_shape[1], sp)
+            want = (not lse_call and shard.h_local == heads and shard.h_total == W2V_HEADS
+                    and shard.head0 == lay.tp_i * heads and q_shape[0] == k_shape[0]
+                    and q_shape[0] % heads == 0 and q_shape[1] == sizes[lay.sp_i]
+                    and shard.q0 == sum(sizes[:lay.sp_i]) and k_shape[1] == sum(sizes))
+            if not want:
+                raise RuntimeError(f"{label} rank {r}: K1 at q {q_shape}, k {k_shape}, {shard}")
+        total += fwd
+    run = res[0]["run"]
+    ref_shapes = {k: tuple(v.shape) for k, v in
+                  build_w2v_model(torch.bfloat16, "cpu").state_dict().items()}
+    ckpt = torch.load(os.path.join(run, "ckpts", "model.ep.1.pt"), weights_only=True)
+    if {k: tuple(v.shape) for k, v in ckpt.items()} != ref_shapes:
+        raise RuntimeError(f"{label}: the checkpoint's layout is not the one-process one")
+    valid = w2v_valid_lines(run)
+    if not valid or "| code_ppl:" not in valid[-1]:
+        raise RuntimeError(f"{label}: valid lines {valid}")
+    qs = sorted(set(c[0] for c in res[0]["calls"]))
+    log(f"tp/sp train {label} (2 ranks on one card, gloo on CUDA tensors): {res[0]['micro']} "
+        f"micro-batches in {res[0]['train_s']:.2f} s incl. the group's start, validation and "
+        f"checkpoint; K1 {res[0]['counts'][0]} a rank ({W2V_LAYERS} per valid batch, "
+        f"{res[0]['n_valid']} batches) at q {qs}; {res[0]['updates']} updates, "
+        f"{res[0]['skipped']} skipped (non-finite); losses rank 0 "
+        f"{[round(v, 3) for v in res[0]['losses']]}, rank 1 "
+        f"{[round(v, 3) for v in res[1]['losses']]}; collectives {res[0]['collectives']}; "
+        f"{valid}; checkpoint in the one-process layout [{name}]")
+    return total
+
+
+def tp_sp_worker(rank, sp, tp, addrs, root, wave_root, out, dev=torch.device("cuda", 0)):
+    """One of the 2 ranks of phases z2-z13, on cuda:0, each family of
+    TP_SP_FAMILIES in turn (:func:`tp_sp_family`), then wav2vec 2.0
+    (:func:`tp_sp_w2v`), in gloo groups that it starts itself (NCCL refuses
+    two ranks on one device); ``addrs`` holds two addresses a family.
+    Writes the results by family ("w2v" for wav2vec 2.0) to ``out``."""
     from liteasr_tpu_torch.ops import flash_attention as fa
 
     if dev.type == "cuda":
@@ -3749,6 +4192,7 @@ def tp_sp_worker(rank, sp, tp, addrs, root, out, dev=torch.device("cuda", 0)):
     addrs = addrs.split(",")
     res = {family: tp_sp_family(family, rank, sp, tp, addrs[2 * i:2 * i + 2], root, dev, fa)
            for i, family in enumerate(TP_SP_FAMILIES)}
+    res["w2v"] = tp_sp_w2v(rank, sp, tp, addrs[-2:], root, wave_root, dev, fa)
     torch.save(res, out)
 
 
@@ -3835,10 +4279,10 @@ def check_tp_sp_run(fa, family, label, res, sp, tp, dev, name):
     return total
 
 
-def check_tp_sp_step(family, label, res, sp, ref, floor, resolution, name):
-    """z3/z6/z9 for one family in one layout: the fp32 step against the
+def check_tp_sp_step(family, label, res, sp, ref, floor, resolution, name, tol=TP_SP_TOL):
+    """z3/z6/z9/z12 for one family in one layout: the fp32 step against the
     one-process step ``ref`` (the loss within TP_SP_LOSS_TOL, every leaf
-    within TP_SP_TOL of its max), beside two one-process runs' difference
+    within ``tol`` of its max), beside two one-process runs' difference
     ``floor`` and the step's fp32 resolution; each planted fault must fail
     that bound."""
     def against_one(shares):
@@ -3849,29 +4293,33 @@ def check_tp_sp_step(family, label, res, sp, ref, floor, resolution, name):
         return got[0], abs(got[0] - ref[0]) / abs(ref[0]), worst
 
     loss, loss_err, worst = against_one([x["step"] for x in res])
-    log(f"tp/sp step parity fp32 {label} (2+1 layers at full width, 2 ranks on one card): "
+    log(f"tp/sp step parity fp32 {label} (2 encoder layers at full width, 2 ranks on one "
+        f"card): "
         f"loss {loss:.6f} vs {ref[0]:.6f} (rel {loss_err:.3g}); worst of {len(worst)} "
         f"leaves over their max: {', '.join(f'{n} {e:.3g}' for e, n in worst[:3])}; "
         f"two one-process runs differ by up to {max(floor.values()):.3g}, the "
         f"one-process step with its input moved by 1-2 ulps by up to "
         f"{max(resolution.values()):.3g} ({max(resolution, key=resolution.get)}); bound "
-        f"{TP_SP_TOL:.3g} (loss {TP_SP_LOSS_TOL:.3g}) [{name}]")
-    if loss_err > TP_SP_LOSS_TOL or worst[0][0] > TP_SP_TOL:
+        f"{tol:.3g} (loss {TP_SP_LOSS_TOL:.3g}) [{name}]")
+    if loss_err > TP_SP_LOSS_TOL or worst[0][0] > tol:
         raise RuntimeError(f"the {label} step disagrees with the one-process step")
     for fault in res[0]["faults"]:
         f_loss, f_err, f_worst = against_one([x["faults"][fault] for x in res])
-        caught = f_err > TP_SP_LOSS_TOL or f_worst[0][0] > TP_SP_TOL
+        caught = f_err > TP_SP_LOSS_TOL or f_worst[0][0] > tol
         log(f"tp/sp step parity fp32 {label} with the planted fault {fault}: loss rel "
             f"{f_err:.3g}; worst leaves over their max: "
             f"{', '.join(f'{n} {e:.3g}' for e, n in f_worst[:3])}; "
-            f"{'caught' if caught else 'NOT caught'} by the bound {TP_SP_TOL:.3g} [{name}]")
+            f"{'caught' if caught else 'NOT caught'} by the bound {tol:.3g} [{name}]")
         if not caught:
             raise RuntimeError(f"the bound misses the planted fault {fault} at {label}")
 
 
-def run_tp_sp(fa, root, dev, name):
-    """Phases z2-z10 for each family of TP_SP_FAMILIES (U2: z2-z4, the
-    transducer: z5-z7, the Paraformer: z8-z10), for tp = 2 and for sp = 2:
+def run_tp_sp(fa, root, wave_root, dev, name):
+    """Phases z2-z13 for each family of TP_SP_FAMILIES (U2: z2-z4, the
+    transducer: z5-z7, the Paraformer: z8-z10) and wav2vec 2.0 (z11-z13:
+    the pretraining run on phase a's waves, :func:`check_w2v_tp_sp_run`;
+    :func:`w2v_layout_step` against one process; the bf16 micro-step at
+    phase v's point), for tp = 2 and for sp = 2:
     2 processes on the one card (tp_sp_worker), started together, each
     layout in turn. The training phase (z2, z5, z8): the family at full
     width (my_U2, my_transducer, build_para_model's) through train.main on
@@ -3888,17 +4336,26 @@ def run_tp_sp(fa, root, dev, name):
         ref, again = dp_step(dev, family=family), dp_step(dev, family=family)
         moved = dp_step(dev, perturb=2.0 ** -23, family=family)
         refs[family] = ref, leaf_diffs(ref, again), leaf_diffs(ref, moved)
+    ref, again = w2v_layout_step(dev), w2v_layout_step(dev)
+    moved = w2v_layout_step(dev, perturb=2.0 ** -23)
+    refs["w2v"] = ref, leaf_diffs(ref, again), leaf_diffs(ref, moved)
+    # the step's fp32 resolution sets the bound where it exceeds TP_SP_TOL
+    w2v_res = max(refs["w2v"][2].values())
+    w2v_tol = TP_SP_TOL if w2v_res <= TP_SP_TOL else 2 * w2v_res
+    log(f"wav2vec 2.0's fp32 layout step: resolution {w2v_res:.3g} of a leaf's max, bound "
+        f"{w2v_tol:.3g} [{name}]")
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     gc.collect()
     torch.cuda.empty_cache()  # the ranks' micro-steps share the card
     rep = {"fwd": 0, "lse": 0, "bwd": 0}
     for sp, tp in TP_SP_LAYOUTS:
-        addrs = ",".join(free_address() for _ in range(2 * len(TP_SP_FAMILIES)))
+        addrs = ",".join(free_address() for _ in range(2 * len(TP_SP_FAMILIES) + 2))
         outs = [os.path.join(root, f"tpsp_{sp}{tp}_r{r}.pt") for r in (0, 1)]
         env = dict(os.environ, PYTHONPATH=REPO)
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-sp-worker",
-                                   str(r), str(sp), str(tp), addrs, root, outs[r]], env=env)
+                                   str(r), str(sp), str(tp), addrs, root, wave_root, outs[r]],
+                                  env=env)
                  for r in (0, 1)]
         try:
             codes = [p.wait(timeout=900) for p in procs]
@@ -3926,6 +4383,22 @@ def run_tp_sp(fa, root, dev, name):
                     f"GiB, collectives per micro-step {x['step_collectives']} [{name}]")
             rep[f"{family}_sp{sp}_tp{tp}_step_ms"] = [x["step_ms"] for x in res]
             rep[f"{family}_sp{sp}_tp{tp}_peak_gib"] = [x["peak_gib"] for x in res]
+        res = [x["w2v"] for x in by_rank]
+        label = f"wav2vec 2.0 sp={sp} tp={tp}"
+        fwd = check_w2v_tp_sp_run(res, sp, tp, label, name)  # z11
+        rep["fwd"] += fwd
+        rep["w2v_launches"] = rep.get("w2v_launches", 0) + fwd
+        rep[f"w2v_sp{sp}_tp{tp}_skipped"] = [x["skipped"] for x in res]
+        check_tp_sp_step("w2v", label, res, sp, *refs["w2v"], name, tol=w2v_tol)  # z12
+        rep["w2v_tol"], rep["w2v_resolution"] = w2v_tol, w2v_res
+        for r, x in enumerate(res):  # z13
+            log(f"tp/sp micro-step {label} rank {r} at phase v's point (bf16, B="
+                f"{x['step_rows']} with 1 dummy row, both ranks on the one card): "
+                f"{x['step_ms']:.2f} ms (informational), loss {x['step_loss']:.4f}, peak "
+                f"{x['peak_gib']:.2f} GiB, collectives per micro-step "
+                f"{x['step_collectives']} [{name}]")
+        rep[f"w2v_sp{sp}_tp{tp}_step_ms"] = [x["step_ms"] for x in res]
+        rep[f"w2v_sp{sp}_tp{tp}_peak_gib"] = [x["peak_gib"] for x in res]
     return rep
 
 
@@ -4006,9 +4479,12 @@ def main() -> int:
     from liteasr_tpu_torch.ops import flash_attention as fa
     from liteasr_tpu_torch.tasks.asr import ASRTask
 
-    if sys.argv[1:2] == ["--tp-sp-worker"]:  # one rank of phases z2-z10
-        rank, sp, tp, addrs, root, out = sys.argv[2:8]
-        tp_sp_worker(int(rank), int(sp), int(tp), addrs, root, out)
+    if sys.argv[1:2] == ["--tp-sp-worker"]:  # one rank of phases z2-z13
+        rank, sp, tp, addrs, root, wave_root, out = sys.argv[2:9]
+        tp_sp_worker(int(rank), int(sp), int(tp), addrs, root, wave_root, out)
+        return 0
+    if sys.argv[1:2] == ["--export-worker"]:  # phase e1's process
+        export_worker(sys.argv[2])
         return 0
     dev = torch.device("cuda", 0)
     name = card()
@@ -4036,20 +4512,32 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    k1 = check_kernel(fa, dev, name)
-    k2 = check_train_kernels(fa, dev, name)
-    time_long_kernels(fa, dev, name)
-    kc = check_chunk_kernels(fa, dev, name)  # k
-    kp = check_para_kernels(fa, dev, name)  # o
-    kw = check_w2v_kernels(fa, dev, name)  # t
-    kz = check_shard_kernels(fa, dev, name)  # z1
-    kzp = check_para_shard_kernels(fa, dev, name)  # z1
+    with phase("2"):
+        k1 = check_kernel(fa, dev, name)
+    with phase("3"):
+        k2 = check_train_kernels(fa, dev, name)
+        time_long_kernels(fa, dev, name)
+    with phase("k"):
+        kc = check_chunk_kernels(fa, dev, name)
+    with phase("o"):
+        kp = check_para_kernels(fa, dev, name)
+    with phase("t"):
+        kw = check_w2v_kernels(fa, dev, name)
+    with phase("z1"):
+        kz = check_shard_kernels(fa, dev, name)
+        kzp = check_para_shard_kernels(fa, dev, name)
+        kzw = check_w2v_shard_kernels(fa, dev, name)
     if "--kernels-only" in sys.argv[1:]:
         return 0
-    if "--tp-sp-only" in sys.argv[1:]:  # z2-z10
+    if "--export-only" in sys.argv[1:]:  # e1
+        with tempfile.TemporaryDirectory() as root, phase("e1"):
+            finish_export(*start_export(root))
+        return 0
+    if "--tp-sp-only" in sys.argv[1:]:  # z2-z13
         with tempfile.TemporaryDirectory() as root:
             write_corpus(root)
-            run_tp_sp(fa, root, dev, name)
+            wave_root = write_wave_corpus(root)
+            run_tp_sp(fa, root, wave_root, dev, name)
         return 0
     if "--dp-only" in sys.argv[1:]:  # phase 7's step, then x and y
         with tempfile.TemporaryDirectory() as root:
@@ -4061,73 +4549,110 @@ def main() -> int:
         return 0
 
     with tempfile.TemporaryDirectory() as root:
-        write_corpus(root)
-        task = ASRTask(DotDict(vocab=os.path.join(root, "vocab.txt"),
-                               delimiter=" ", save_dir=os.path.join(root, "ckpt")))
-        task.load_dataset("test", os.path.join(root, "test"))
-        if task.vocab_size != VOCAB:
-            raise RuntimeError(f"vocab size {task.vocab_size} != {VOCAB}")
-        decode_fwd, rescore_s = run_slice(fa, task, dev, name)
-        check_parity(task, dev, name)
-        train_fwd, train_lse, train_bwd, ckpt_fwd = run_training(
-            fa, root, dev, name)
-        plain_step_ms = time_train_step(dev, name)
-        check_train_parity(dev, name)
+        exporting = start_export(root)  # e1's export and load, beside the phases below
+        try:
+            write_corpus(root)
+            task = ASRTask(DotDict(vocab=os.path.join(root, "vocab.txt"),
+                                   delimiter=" ", save_dir=os.path.join(root, "ckpt")))
+            task.load_dataset("test", os.path.join(root, "test"))
+            if task.vocab_size != VOCAB:
+                raise RuntimeError(f"vocab size {task.vocab_size} != {VOCAB}")
+            with phase("4"):
+                decode_fwd, rescore_s = run_slice(fa, task, dev, name)
+            with phase("5"):
+                check_parity(task, dev, name)
+            with phase("6"):
+                train_fwd, train_lse, train_bwd, ckpt_fwd = run_training(
+                    fa, root, dev, name)
+            with phase("7"):
+                plain_step_ms = time_train_step(dev, name)
+            with phase("8"):
+                check_train_parity(dev, name)
 
-        wave_root = write_wave_corpus(root)
-        check_frontend(wave_root, dev, name)  # a
-        run, (recipe_fwd, recipe_lse, recipe_bwd) = run_recipe(
-            fa, root, wave_root, dev, name)  # b
-        avg_fwd = run_averaged_attention(fa, run, dev, name)  # c
-        attention_fwd, attention_s = run_slice(fa, task, dev, name, "attention")  # d
-        log(f"decode s/batch: attention {attention_s:.4f}, attention_rescore "
-            f"{rescore_s:.4f} (phase 4) [{name}]")
-        check_beam_parity(task, dev, name)  # e
-        check_remat(dev, name)  # f
+            wave_root = write_wave_corpus(root)
+            with phase("a"):
+                check_frontend(wave_root, dev, name)
+            with phase("b"):
+                run, (recipe_fwd, recipe_lse, recipe_bwd) = run_recipe(
+                    fa, root, wave_root, dev, name)
+            with phase("c"):
+                avg_fwd = run_averaged_attention(fa, run, dev, name)
+            with phase("d"):
+                attention_fwd, attention_s = run_slice(fa, task, dev, name, "attention")
+            log(f"decode s/batch: attention {attention_s:.4f}, attention_rescore "
+                f"{rescore_s:.4f} (phase 4) [{name}]")
+            with phase("e"):
+                check_beam_parity(task, dev, name)
+            with phase("f"):
+                check_remat(dev, name)
 
-        (td_fwd, td_lse, td_bwd), td_ckpt_fwd = run_td_training(fa, root, dev, name)  # g
-        time_td_step(dev, name)  # h
-        td_dec_fwd, td_s = run_td_decode(fa, task, dev, name)  # i
-        log(f"transducer decode s/batch: greedy {td_s['transducer_greedy']:.4f}, beam "
-            f"{td_s['transducer_beam_search']:.4f} (U2 attention_rescore {rescore_s:.4f}) "
-            f"[{name}]")
-        check_td_parity(task, dev, name)  # j
+            with phase("g"):
+                (td_fwd, td_lse, td_bwd), td_ckpt_fwd = run_td_training(fa, root, dev, name)
+            with phase("h"):
+                time_td_step(dev, name)
+            with phase("i"):
+                td_dec_fwd, td_s = run_td_decode(fa, task, dev, name)
+            log(f"transducer decode s/batch: greedy {td_s['transducer_greedy']:.4f}, beam "
+                f"{td_s['transducer_beam_search']:.4f} (U2 attention_rescore {rescore_s:.4f}) "
+                f"[{name}]")
+            with phase("j"):
+                check_td_parity(task, dev, name)
 
-        dyn, sta, dyn_c, sta_c = run_stream_training(fa, root, dev, name)  # l
-        time_stream_step(dev, name)  # l
-        stream_dec_fwd, stream_dec_c, stream_pairs, stream_s = run_stream_decode(
-            fa, task, dev, name)  # m
-        log("streaming decode s/batch: " + ", ".join(f"{k} {v:.4f}" for k, v in stream_s.items())
-            + f" (U2 attention_rescore {rescore_s:.4f}) [{name}]")
-        check_stream_parity(task, dev, name, stream_pairs)  # n
+            with phase("l"):
+                dyn, sta, dyn_c, sta_c = run_stream_training(fa, root, dev, name)
+                time_stream_step(dev, name)
+            with phase("m"):
+                stream_dec_fwd, stream_dec_c, stream_pairs, stream_s = run_stream_decode(
+                    fa, task, dev, name)
+            log("streaming decode s/batch: " + ", ".join(f"{k} {v:.4f}" for k, v in stream_s.items())
+                + f" (U2 attention_rescore {rescore_s:.4f}) [{name}]")
+            with phase("n"):
+                check_stream_parity(task, dev, name, stream_pairs)
 
-        (para_fwd, para_lse, para_bwd), para_ckpt_fwd = run_para_training(
-            fa, root, dev, name)  # p
-        para_step = time_para_step(dev, name)  # q
-        para_dec_fwd, para_s = run_para_decode(fa, task, dev, name)  # r
-        log(f"Paraformer decode s/batch {para_s:.4f} (U2 attention_rescore "
-            f"{rescore_s:.4f}); micro-step {para_step['step_ms']:.2f} ms, "
-            f"{para_step['utt_s']:.2f} utt/s, peak {para_step['peak_gib']:.2f} GiB [{name}]")
-        check_para_parity(task, dev, name)  # s
+            with phase("p"):
+                (para_fwd, para_lse, para_bwd), para_ckpt_fwd = run_para_training(
+                    fa, root, dev, name)
+            with phase("q"):
+                para_step = time_para_step(dev, name)
+            with phase("r"):
+                para_dec_fwd, para_s = run_para_decode(fa, task, dev, name)
+            log(f"Paraformer decode s/batch {para_s:.4f} (U2 attention_rescore "
+                f"{rescore_s:.4f}); micro-step {para_step['step_ms']:.2f} ms, "
+                f"{para_step['utt_s']:.2f} utt/s, peak {para_step['peak_gib']:.2f} GiB [{name}]")
+            with phase("s"):
+                check_para_parity(task, dev, name)
 
-        w2v_fwd = run_w2v_training(fa, root, wave_root, dev, name)  # u
-        w2v_step = time_w2v_step(dev, name)  # v
-        log(f"wav2vec2 micro-step {w2v_step['step_ms']:.2f} ms, {w2v_step['utt_s']:.2f} utt/s, "
-            f"peak {w2v_step['peak_gib']:.2f} GiB, MFU {w2v_step['mfu']:.2%} (U2 at bench.py's "
-            f"point: phase 7) [{name}]")
-        check_w2v_parity(dev, name)  # w
+            with phase("u"):
+                w2v_fwd = run_w2v_training(fa, root, wave_root, dev, name)
+            with phase("v"):
+                w2v_step = time_w2v_step(dev, name)
+            log(f"wav2vec2 micro-step {w2v_step['step_ms']:.2f} ms, {w2v_step['utt_s']:.2f} utt/s, "
+                f"peak {w2v_step['peak_gib']:.2f} GiB, MFU {w2v_step['mfu']:.2%} (U2 at bench.py's "
+                f"point: phase 7) [{name}]")
+            with phase("w"):
+                check_w2v_parity(dev, name)
 
-        # phase 6 held K1'/K2 to ENC_LAYERS launches each per micro-batch
-        dp_fwd, dp_lse, dp_bwd = run_dp_training(
-            fa, root, dev, name, (ENC_LAYERS, ENC_LAYERS))  # x
-        check_dp_parity(dev, name)  # x
-        dp_step = time_dp_step(dev, name, plain_step_ms)  # y
-        tpsp = run_tp_sp(fa, root, dev, name)  # z2-z10
+            # phase 6 held K1'/K2 to ENC_LAYERS launches each per micro-batch
+            with phase("x"):
+                dp_fwd, dp_lse, dp_bwd = run_dp_training(
+                    fa, root, dev, name, (ENC_LAYERS, ENC_LAYERS))
+                check_dp_parity(dev, name)
+            with phase("y"):
+                dp_step = time_dp_step(dev, name, plain_step_ms)
+            with phase("z2-z13"):
+                tpsp = run_tp_sp(fa, root, wave_root, dev, name)
+            with phase("e1"):  # the card is free: e1's run on it
+                ex = finish_export(*exporting)
+        finally:
+            if exporting[0].poll() is None:
+                exporting[0].kill()
+                exporting[0].wait()
     # launches with a chunk width, as the wrappers counted them: K1 in the
     # static run's validation and the static model's offline decode (chunk
     # 16), K1'/K2 in the chunked draws and the static run
     chunk_fwd = sta_c[0] + stream_dec_c
 
+    log("phase seconds: " + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     # rel_attention_fwd: ms / plain_ms are K1's per decoded batch (as since
     # the decode slice); the lse_* keys are K1' (lse + dropout) per call at
     # the training shape and its launches in the training run
@@ -4140,10 +4665,10 @@ def main() -> int:
                      + avg_fwd + attention_fwd + td_fwd + td_lse + td_ckpt_fwd
                      + td_dec_fwd + sum(dyn[:2]) + sum(sta[:2]) + stream_dec_fwd
                      + para_fwd + para_lse + para_ckpt_fwd + para_dec_fwd + w2v_fwd
-                     + dp_fwd + tpsp["fwd"]),
+                     + dp_fwd + tpsp["fwd"] + ex["launches"]),
         "max_abs_err": max(k1["max_abs_err"], k2["fwd_err"], kc["fwd_err"], kc["k1_err"],
                            kp["max_abs_err"], kw["max_abs_err"], kz["fwd_err"],
-                           kzp["max_abs_err"]),
+                           kzp["max_abs_err"], kzw["max_abs_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
@@ -4176,8 +4701,19 @@ def main() -> int:
         # call each; heads 0..2 and 2..4 of 4)
         **{f"paraformer_tp_{case}_{key}": v for case, r in kzp.items()
            if isinstance(r, dict) for key, v in r.items()},
-        "tp_sp_launches_by_family": {f: tpsp[f"{f}_launches"] for f in TP_SP_FAMILIES},
+        # z1: K1 at wav2vec 2.0's validation shapes under tp = 2 (heads 0..6
+        # and 6..12 of 12) and sp = 2 (the two query blocks), bf16, one call each
+        **{f"wav2vec2_shard_{case}_{key}": v for case, r in kzw.items()
+           if isinstance(r, dict) for key, v in r.items()},
+        # e1: the exported attention_rescore program (24 K1 nodes) on the card
+        **{f"export_{key}": v for key, v in ex.items()},
+        "tp_sp_launches_by_family": {f: tpsp[f"{f}_launches"] for f in TP_SP_FAMILIES + ("w2v",)},
         "tp_sp_step_ms": {k: v for k, v in tpsp.items() if k.endswith("step_ms")},
+        # z12: wav2vec 2.0's fp32 layout step's resolution and its bound;
+        # z11: the skipped (non-finite) updates of its training runs
+        "tp_sp_w2v_resolution": tpsp["w2v_resolution"],
+        "tp_sp_w2v_tol": tpsp["w2v_tol"],
+        "tp_sp_w2v_skipped": {k: v for k, v in tpsp.items() if k.endswith("skipped")},
         "tp_sp_peak_gib": {k: v for k, v in tpsp.items() if k.endswith("peak_gib")},
         # phase x: K1 (valid and the decode in the group) and K1' in the
         # one-rank NCCL group; phase y's micro-step in that group

@@ -3,9 +3,8 @@
 The schema is the reference's, for training and inference, so that a
 config written by either package composes here unchanged. Options the port
 does not have raise where they are read: a ``distributed`` layout that does
-not fit the processes (``parallel/mesh.py`` ``check_layout``), tensor or
-sequence parallelism of wav2vec 2.0 and a tp that does not divide the
-sharded widths (``parallel/sharding.py`` ``shard_model``,
+not fit the processes (``parallel/mesh.py`` ``check_layout``), a tp that
+does not divide the sharded widths (``parallel/sharding.py``
 ``check_widths``), another ``model.dec_arch`` (``models/u2.py`` and
 ``models/transducer.py``, ``build_model``) and an unknown decode mode
 (``decode.py`` ``decode_batch``). ``common.prng_impl`` and

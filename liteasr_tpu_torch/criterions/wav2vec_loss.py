@@ -7,12 +7,16 @@ groups' perplexities) / GV``. The Gumbel temperature anneals from
 ``batch["step"]`` (the micro-steps taken): ``max(start * decay^step,
 end)`` in fp32.
 
-Under a process group of W ranks the code usage is the global batch's (the
-quantizer all-reduces it), so every rank computes the same perplexities;
-each adds 1/W of the diversity term and reports 1/W of ``code_ppl``, so that
-the sums over the ranks count them once. The all-reduce's backward sums the
-ranks' 1/W gradients of the one global term, which gives every rank's
-inputs the gradient of the whole term.
+Under a process group the code usage is the global batch's (the quantizer
+all-reduces it over the dp x sp ranks, which hold the shares of the rows
+and frames), so every rank computes the same perplexities; each of the W =
+dp x sp ranks of its tp slice adds 1/W of the diversity term and reports
+1/W of ``code_ppl``, so that the sums over the dp x sp group count them
+once (tp peers hold the whole term alike, as they hold the whole loss). The
+all-reduce's backward sums the ranks' 1/W gradients of the one global term,
+which gives every rank's inputs the gradient of the whole term. The CE's
+and the accuracy's denominator, the masked frames, is the dp x sp group's
+sum.
 """
 
 from dataclasses import dataclass, field
@@ -43,6 +47,13 @@ def gumbel_temperature(latent_temp, step) -> torch.Tensor:
     return torch.clamp(start * power, min=end)
 
 
+def term_shares() -> int:
+    """The ranks that each add 1/W of a batch-global term (the diversity
+    term, ``code_ppl``): the W = dp x sp ranks of a tp slice."""
+    lay = parallel.layout()
+    return lay.dp * lay.sp
+
+
 @register_criterion("wav2vec", dataclass=Wav2Vec2LossConfig)
 class Wav2Vec2Loss(LiteasrLoss):
     def __init__(self, cfg, task=None):
@@ -64,13 +75,14 @@ class Wav2Vec2Loss(LiteasrLoss):
         wide = wide_float(logits.dtype)
         nll = -torch.log_softmax(logits.to(wide), dim=0)[0]  # (B, F)
         weight = mask.to(wide) * valid[:, None].to(wide)
-        denom = torch.clamp(parallel.global_sum(weight.sum()), min=1.0)  # global batch
+        # the global batch's masked frames
+        denom = torch.clamp(parallel.global_sum(weight.sum(), over="dpsp"), min=1.0)
         loss = (nll * weight).sum() / denom
 
         code_probs = code_probs.to(wide)
         ppl = torch.exp(-torch.sum(code_probs * torch.log(code_probs + 1e-9), dim=-1))
         n_codes = code_probs.shape[0] * code_probs.shape[1]
-        world = parallel.process_count()
+        world = term_shares()
         if self.diversity_weight:
             diversity = self.diversity_weight * (n_codes - ppl.sum()) / n_codes
             loss = loss + (diversity if world == 1 else diversity / world)

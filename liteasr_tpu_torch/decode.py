@@ -225,7 +225,7 @@ def attention_rescore(model, h_enc, enc_mask, prefixes, plens, ctc_scores,
 
 def attention_beam_search(model, h_enc, enc_mask, beam_size: int = 10,
                           max_decode_len: Optional[int] = None,
-                          use_cache: bool = True):
+                          use_cache: bool = True, early_stop: bool = True):
     """Batched attention beam search (liteasr_tpu/decode.py:286-406).
 
     ``use_cache`` (default) primes every decoder layer's source K/V once
@@ -234,9 +234,10 @@ def attention_beam_search(model, h_enc, enc_mask, beam_size: int = 10,
     recompute path runs the whole decoder over the (B*K, L+1) prefixes at
     every step (through K1 on the card). L = ``max_decode_len`` or the
     padded T' of ``h_enc``. A finished beam's only candidate is (eos, +0);
-    top-k puts the lower index first on ties, as ``lax.top_k`` does. The
-    loop stops early once every beam has finished: later steps would only
-    append eos at +0 and keep the order of the finite scores.
+    top-k puts the lower index first on ties, as ``lax.top_k`` does. With
+    ``early_stop`` the loop stops once every beam has finished: later steps
+    would only append eos at +0 and keep the order of the finite scores
+    (without it, all L steps run, as in a program of static shapes).
 
     Returns (tokens (B, L) without sos, lens (B,) = position of the first
     eos, scores (B,) of the best beams)."""
@@ -294,7 +295,7 @@ def attention_beam_search(model, h_enc, enc_mask, beam_size: int = 10,
             rows = (src_beam + row0).reshape(B * K)
             caches = [(k.index_select(0, rows), v.index_select(0, rows))
                       for k, v in caches]
-        if i % 8 == 0 and bool(end_flag.all()):
+        if early_stop and i % 8 == 0 and bool(end_flag.all()):
             break
 
     best = torch.argmax(scores, dim=1)
@@ -313,39 +314,61 @@ def ctc_greedy(ctc_logp: torch.Tensor, enc_lens: torch.Tensor, blank: int = 0):
     return ids, keep
 
 
-def decode_batch(model, xs, xlens, beam_size: int = 10,
-                 ctc_weight: float = 0.5,
-                 mode: str = "attention_rescore") -> List[List[int]]:
-    """Decode a padded batch of utterances (on the model's device).
-    Returns a list of token-id lists."""
-    if mode not in ("ctc_greedy", "ctc_prefix_beam_search", "attention_rescore",
-                    "attention"):
+DECODE_MODES = ("ctc_greedy", "ctc_prefix_beam_search", "attention_rescore", "attention")
+
+
+def decode_pipeline(model, mode: str = "attention_rescore", beam_size: int = 10,
+                    ctc_weight: float = 0.5, early_stop: bool = True):
+    """The U2 decode of ``mode`` as one function of the padded batch,
+    ``pipeline(xs, xlens)`` -> tensors (``_get_pipeline``,
+    liteasr_tpu/decode.py:434-464): ``ctc_greedy`` (ids (B, T'), keep
+    (B, T')), ``ctc_prefix_beam_search`` and ``attention_rescore`` (tokens
+    (B, T'), lens (B,)), ``attention`` (tokens (B, T'), lens (B,), scores
+    (B,)). It branches on no tensor's value when ``early_stop`` is off, so
+    that ``export.py`` traces it whole; :func:`decode_batch` runs the same
+    function and converts its tensors on the host."""
+    if mode not in DECODE_MODES:
         raise NotImplementedError(f"decode mode {mode!r} is not ported")
-    with torch.inference_mode():
+
+    def pipeline(xs, xlens):
         h_enc, enc_mask = model.encode(xs, xlens)
         if mode == "attention":
-            hyp, lens, _ = attention_beam_search(model, h_enc, enc_mask,
-                                                 beam_size=beam_size)
-            hyp, lens = hyp.cpu(), lens.cpu()
-            return [[t for t in hyp[b, :int(lens[b])].tolist() if t != model.eos]
-                    for b in range(hyp.shape[0])]
+            return attention_beam_search(model, h_enc, enc_mask, beam_size=beam_size,
+                                         early_stop=early_stop)
         enc_lens = model.get_pred_len(xlens)
         ctc_logp = torch.log_softmax(model.ctc_logits(h_enc).float(), dim=-1)
         if mode == "ctc_greedy":
-            ids, keep = ctc_greedy(ctc_logp, enc_lens)
-            ids, keep = ids.cpu(), keep.cpu()
-            return [ids[b][keep[b]].tolist() for b in range(ids.shape[0])]
+            return ctc_greedy(ctc_logp, enc_lens)
         prefixes, plens, scores = ctc_prefix_beam_search(
             ctc_logp, enc_lens, beam_size=beam_size)
         if mode == "ctc_prefix_beam_search":
-            best_hyp, best_len = prefixes[:, 0], plens[:, 0]
-        else:
-            best_hyp, best_len = attention_rescore(
-                model, h_enc, enc_mask, prefixes, plens, scores,
-                ctc_weight=ctc_weight)
-        best_hyp, best_len = best_hyp.cpu(), best_len.cpu()
-    return [best_hyp[b, :int(best_len[b])].tolist()
-            for b in range(best_hyp.shape[0])]
+            return prefixes[:, 0], plens[:, 0]
+        return attention_rescore(model, h_enc, enc_mask, prefixes, plens, scores,
+                                 ctc_weight=ctc_weight)
+
+    return pipeline
+
+
+def hypotheses(model, mode: str, out) -> List[List[int]]:
+    """The token-id lists of a :func:`decode_pipeline` result, on the host."""
+    if mode == "ctc_greedy":
+        ids, keep = (t.cpu() for t in out)
+        return [ids[b][keep[b]].tolist() for b in range(ids.shape[0])]
+    hyp, lens = out[0].cpu(), out[1].cpu()
+    hyps = [hyp[b, :int(lens[b])].tolist() for b in range(hyp.shape[0])]
+    if mode == "attention":
+        return [[t for t in h if t != model.eos] for h in hyps]
+    return hyps
+
+
+def decode_batch(model, xs, xlens, beam_size: int = 10,
+                 ctc_weight: float = 0.5,
+                 mode: str = "attention_rescore") -> List[List[int]]:
+    """Decode a padded batch of utterances (on the model's device) through
+    :func:`decode_pipeline`. Returns a list of token-id lists."""
+    pipeline = decode_pipeline(model, mode, beam_size, ctc_weight)
+    with torch.inference_mode():
+        return hypotheses(model, mode, pipeline(xs, xlens))
 
 
 def paraformer_decode(model, xs, xlens) -> List[List[int]]:

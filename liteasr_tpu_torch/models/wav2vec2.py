@@ -14,6 +14,17 @@ the mask and the negatives use fixed streams, as the reference falls back
 to ``PRNGKey(0)`` / ``PRNGKey(1)`` when no rng is given. Each draw is a
 method (:meth:`draw_mask`, :meth:`draw_negatives_uniform`,
 :meth:`draw_gumbel_noise`), so that a test can hand in the reference's.
+
+Under tensor parallelism the encoder layers are Megatron-sharded and the
+rest is replicated. Under sequence parallelism (``seq_parallel``, set by
+``parallel.sharding.shard_model``) every sp rank takes the whole padded
+batch and works on its block of the frames: the extractor on the block's
+sample window, the context network, the quantizer and the logits on the
+block's frames. The draws are the whole rows' (the span mask, which the
+negatives' pool needs whole; the uniforms and the Gumbel noise cut to the
+block), and the quantized targets are gathered over the group, so that a
+negative can be any frame of its row. Every rank's loss is then its share
+of the one-process loss.
 """
 
 import math
@@ -27,11 +38,11 @@ from liteasr_tpu_torch.config import LiteasrDataclass
 from liteasr_tpu_torch.models import LiteasrModel, register_model
 from liteasr_tpu_torch.models.u2 import _DTYPES
 from liteasr_tpu_torch import parallel
-from liteasr_tpu_torch.parallel import rank_seed
+from liteasr_tpu_torch.parallel import rank_seed, sharding
 from liteasr_tpu_torch.nets.common import Dense, LayerNorm, dropout, lecun_normal_
 from liteasr_tpu_torch.nets.wav2vec2 import (
     ConvFeatureExtractor, GumbelVectorQuantizer, Wav2Vec2TransformerEncoder,
-    conv_output_length, wide_float)
+    conv_output_length, sample_window, wide_float)
 
 DEFAULT_CONV_LAYERS = "[(512, 10, 5)] + [(512, 3, 2)] * 4 + [(512,2,2)] + [(512,2,2)]"
 # the mask, negatives and Gumbel generators are seeded with the dropout
@@ -166,26 +177,28 @@ def place_draw(t: torch.Tensor, device) -> torch.Tensor:
 
 
 def negative_indices(u: torch.Tensor, mask: torch.Tensor, flens: torch.Tensor,
-                     everywhere: bool = False) -> torch.Tensor:
-    """(B, F, N) frame index of each negative from the uniforms ``u`` (B, F,
-    N), self-excluded, within the row (liteasr_tpu/models/wav2vec2.py:
-    286-318). The pool is the row's masked frames (their list by a stable
+                     everywhere: bool = False, f0: int = 0) -> torch.Tensor:
+    """(B, Fu, N) frame index of each negative of frames f0 .. f0 + Fu from
+    their uniforms ``u`` (B, Fu, N), self-excluded, within the row
+    (liteasr_tpu/models/wav2vec2.py:286-318); ``mask`` (B, F) is the whole
+    rows'. The pool is the row's masked frames (their list by a stable
     argsort of ~mask, each frame's place in it by cumsum), or with
     ``everywhere`` its valid frames; the draw is ``floor(u * (pool - 1))``
     in fp32."""
-    B, F, N = u.shape
+    B, Fu, N = u.shape
+    F = mask.shape[1]
     if everywhere:
         pool = torch.clamp(flens - 1, min=1)[:, None, None]
         draw = torch.floor(u * pool).long()
-        self_pos = torch.arange(F, device=u.device)[None, :, None]
+        self_pos = torch.arange(f0, f0 + Fu, device=u.device)[None, :, None]
         return torch.clamp(torch.where(draw >= self_pos, draw + 1, draw), 0, F - 1)
     order = torch.argsort((~mask).to(torch.uint8), dim=1, stable=True)
-    rank = torch.cumsum(mask, dim=1) - 1
+    rank = (torch.cumsum(mask, dim=1) - 1)[:, f0:f0 + Fu]
     m_row = torch.clamp(mask.sum(dim=1), min=2)[:, None, None]
     draw = torch.floor(u * (m_row - 1)).long()
     draw = torch.where(draw >= rank[:, :, None], draw + 1, draw)
     draw = torch.minimum(torch.clamp(draw, min=0), m_row - 1)
-    return torch.gather(order, 1, draw.reshape(B, F * N)).reshape(B, F, N)
+    return torch.gather(order, 1, draw.reshape(B, Fu * N)).reshape(B, Fu, N)
 
 
 # --------------------------------------------------------------- model
@@ -273,32 +286,33 @@ class Wav2Vec2(LiteasrModel):
     # ---- the random draws
 
     def draw_mask(self, batch: int, frame: int, flens: torch.Tensor, train: bool):
-        """(B, F) span mask on ``flens``'s device: from ``mask_generator``
-        in training, from the fixed eval stream otherwise (under a process
-        group, the rank's rows of the global batch's draw: each row is
-        drawn and built alone, so the other rows' lengths do not matter)."""
+        """(B, F) span mask of the whole rows on ``flens``'s device: from
+        ``mask_generator`` in training, from the fixed eval stream otherwise
+        (under a process group, the dp rank's rows of the global batch's
+        draw, which its tp and sp peers share: each row is drawn and built
+        alone, so the other rows' lengths do not matter)."""
         if train:
             return device_span_mask(self.mask_generator, batch, frame, self.mask_prob,
                                     self.mask_length, flens=flens,
                                     policy=self.mask_policy, other=self.mask_other)
-        world, rank = parallel.process_count(), parallel.process_index()
+        lay = parallel.layout()
         mask = device_span_mask(torch.Generator().manual_seed(EVAL_MASK_SEED),
-                                batch * world, frame, self.mask_prob, self.mask_length,
-                                flens=flens.repeat(world), policy=self.mask_policy,
+                                batch * lay.dp, frame, self.mask_prob, self.mask_length,
+                                flens=flens.repeat(lay.dp), policy=self.mask_policy,
                                 other=self.mask_other)
-        return mask[rank * batch:(rank + 1) * batch]
+        return mask[lay.dp_i * batch:(lay.dp_i + 1) * batch]
 
     def draw_negatives_uniform(self, batch: int, frame: int, train: bool, device):
         """(B, F, N) uniform [0, 1) fp32 of the negatives' draw (at eval
-        under a process group, the rank's rows of the global draw)."""
+        under a process group, the dp rank's rows of the global draw)."""
         if train:
             u = torch.rand((batch, frame, self.num_negatives),
                            generator=self.negatives_generator)
         else:
-            world, rank = parallel.process_count(), parallel.process_index()
-            u = torch.rand((batch * world, frame, self.num_negatives),
+            lay = parallel.layout()
+            u = torch.rand((batch * lay.dp, frame, self.num_negatives),
                            generator=torch.Generator().manual_seed(EVAL_NEGATIVES_SEED))
-            u = u[rank * batch:(rank + 1) * batch]
+            u = u[lay.dp_i * batch:(lay.dp_i + 1) * batch]
         return place_draw(u, device)
 
     def draw_gumbel_noise(self, n: int, device):
@@ -324,7 +338,9 @@ class Wav2Vec2(LiteasrModel):
         Returns (logits (N+1, B, F), mask (B, F), code_probs (G, V)), the
         positive at candidate 0. ``mask`` is True only on masked valid
         frames; ``code_probs`` is the mask-weighted codebook usage. The
-        host's draws come first, so that they overlap the device's work."""
+        host's draws come first, so that they overlap the device's work.
+        Under sequence parallelism the logits and the mask are of the sp
+        rank's block of the F frames, and ``code_probs`` sums every rank's."""
         B, T = source.shape
         F = conv_output_length(T, self.conv_layers)
         if xlens is not None:
@@ -335,26 +351,37 @@ class Wav2Vec2(LiteasrModel):
         u = self.draw_negatives_uniform(B, F, train, source.device)
         gumbels = (self.draw_gumbel_noise(B * F * self.quantizer.groups, source.device)
                    if train else None)
+        seq, lo, hi = None, 0, F
+        if self.seq_parallel:  # the sp rank's frames and the samples they read
+            seq = sharding.seq_shard(F)
+            lo, hi = seq.lo, seq.hi
+            a, b = sample_window(lo, hi, self.conv_layers)
+            source, u = source[:, a:b], u[:, lo:hi]
+            if gumbels is not None:
+                gumbels = gumbels.view(B, F, -1, gumbels.shape[-1])[:, lo:hi].flatten(0, 2)
+        own = mask[:, lo:hi]
 
         # 1. features
         features = self.layer_norm(self.feature_extractor(source))
         unmasked = dropout(features, self.dropout_features, train)
         features = dropout(self.linear_input(features), self.dropout_input, train)
         # 2. the learned mask embedding over the masked frames
-        x = torch.where(mask[:, :, None], self.mask_emb.to(features.dtype), features)
+        x = torch.where(own[:, :, None], self.mask_emb.to(features.dtype), features)
         # 3. context
-        x = self.linear_final(self.encoder(x, train))
+        x = self.linear_final(self.encoder(x, train, seq))
         # 4. quantized targets of every frame, code usage weighted by the mask
-        y, code_probs = self.quantizer(unmasked, temp, train, frame_weight=mask,
+        y, code_probs = self.quantizer(unmasked, temp, train, frame_weight=own,
                                        gumbels=gumbels)
         y = self.linear_quantizer(y)
+        if seq is not None:  # any frame of the row may be a negative
+            y = self.gather_frames(y, F)
         # 5. candidates: the positive, then the negatives
-        idx = negative_indices(u, mask, flens, self.negatives_from_everywhere)
-        self_idx = torch.arange(F, device=idx.device)[None, :, None].expand(B, F, 1)
+        idx = negative_indices(u, mask, flens, self.negatives_from_everywhere, lo)
+        self_idx = torch.arange(lo, hi, device=idx.device)[None, :, None].expand(B, -1, 1)
         cand = torch.cat([self_idx, idx], dim=2).reshape(B, -1)
         rows = torch.arange(B, device=idx.device)[:, None]
-        tgt = y[rows, cand].reshape(B, F, self.num_negatives + 1, -1)
-        return self.compute_logits(x, tgt), mask, code_probs
+        tgt = y[rows, cand].reshape(B, hi - lo, self.num_negatives + 1, -1)
+        return self.compute_logits(x, tgt), own, code_probs
 
     def compute_logits(self, x, tgt):
         """Cosine similarity / ``logit_temp`` in fp32 (liteasr_tpu/models/

@@ -23,6 +23,7 @@ from torch import nn
 from liteasr_tpu_torch import parallel
 from liteasr_tpu_torch.nets.common import Dense, LayerNorm, dropout, get_activation
 from liteasr_tpu_torch.nets.layers import EncoderLayer
+from liteasr_tpu_torch.parallel import sharding
 
 gelu = get_activation("gelu")
 
@@ -75,6 +76,19 @@ def conv_output_length(length: int,
     return length
 
 
+def sample_window(lo: int, hi: int,
+                  conv_layers: Sequence[Tuple[int, int, int]]) -> Tuple[int, int]:
+    """The samples [a, b) that the extractor's frames [lo, hi) read: frame
+    f reads [S f, S f + R) for the stack's total stride S and receptive
+    field R (320 and 400 for the default stack), so the VALID convs over
+    the window give exactly those frames."""
+    stride, field = 1, 1
+    for _, kernel, s in conv_layers:
+        field += (kernel - 1) * stride
+        stride *= s
+    return stride * lo, stride * (hi - 1) + field
+
+
 class GumbelVectorQuantizer(nn.Module):
     """Grouped codebook, hard one-hot at eval and the straight-through
     Gumbel-softmax in training (liteasr_tpu/nets/wav2vec2.py:56-119)."""
@@ -110,9 +124,9 @@ class GumbelVectorQuantizer(nn.Module):
         else:
             w = frame_weight.to(wide).reshape(B * T, 1, 1)
             num, den = (probs * w).sum(dim=0), w.sum()
-        if parallel.is_initialized():  # the global batch's usage
+        if parallel.is_initialized():  # the global batch's usage: every frame's
             tot = parallel.global_sum_grad(
-                torch.cat([num.reshape(-1), den.reshape(1)]), "code_usage")
+                torch.cat([num.reshape(-1), den.reshape(1)]), "code_usage", over="dpsp")
             num, den = tot[:-1].reshape(G, V), tot[-1]
         avg_probs = num / torch.clamp(den.detach(), min=1.0)
 
@@ -139,7 +153,9 @@ class Wav2Vec2TransformerEncoder(nn.Module):
     off), ``residual + gelu(pos)``, ``embed_norm``, dropout, then pre-LN
     transformer layers with relu and no final norm
     (liteasr_tpu/nets/wav2vec2.py:122-161). The layers' self-attention is
-    the absolute one: K1 at eval, plain PyTorch in training."""
+    the absolute one: K1 at eval, plain PyTorch in training. ``seq`` (a
+    ``parallel.sharding.SeqShard``): the rank's block of frames under
+    sequence parallelism."""
 
     def __init__(self, h_dim: int, ff_dim: int, n_head: int, n_layer: int,
                  dropout_rate: float = 0.0, attn_dropout_rate: float = 0.0,
@@ -160,17 +176,22 @@ class Wav2Vec2TransformerEncoder(nn.Module):
                 dropout_rate=dropout_rate, attn_dropout_rate=attn_dropout_rate,
                 ff_dropout_rate=ff_dropout_rate, dtype=dtype, device=device))
 
-    def embed(self, x):
+    def embed(self, x, seq: Optional[sharding.SeqShard] = None):
         """``embed_norm(x + gelu(pos_conv(x)))``, the layers' input before
-        dropout."""
+        dropout. Under sequence parallelism output frame t reads input
+        frames t - k/2 .. t + k/2 - 1 of the whole row: the neighbours'
+        frames stand for the padding, zeros only at the row's ends."""
         dt = self.compute_dtype
         conv = self.pos_conv
-        pos = F.conv1d(x.to(dt).transpose(1, 2), conv.weight.to(dt), conv.bias.to(dt),
-                       padding=conv.padding, groups=conv.groups).transpose(1, 2)
+        h, padding = x.to(dt), conv.padding
+        if seq is not None:
+            h, padding = sharding.sp_halo(h, padding[0], seq), 0
+        pos = F.conv1d(h.transpose(1, 2), conv.weight.to(dt), conv.bias.to(dt),
+                       padding=padding, groups=conv.groups).transpose(1, 2)
         return self.embed_norm(x + gelu(pos[:, : x.shape[1]]))  # even kernel: drop the extra frame
 
-    def forward(self, x, train: bool = False):
-        x = dropout(self.embed(x), self.dropout_rate, train)
+    def forward(self, x, train: bool = False, seq: Optional[sharding.SeqShard] = None):
+        x = dropout(self.embed(x, seq), self.dropout_rate, train)
         for i in range(self.n_layer):
-            x = getattr(self, f"layer_{i}")(x, train=train)
+            x = getattr(self, f"layer_{i}")(x, train=train, seq=seq)
         return x

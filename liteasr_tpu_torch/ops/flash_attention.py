@@ -57,6 +57,15 @@ Beside each kernel is its plain PyTorch version (``flash_attention_plain``,
 ``flash_rel_attention_bwd_plain``, ``dropout_keep_plain``). The wrappers
 take them only for CPU tensors; a CUDA tensor launches the kernel or
 raises.
+
+K1 (no lse, no dropout) is also the custom op ``liteasr::rel_attention_fwd``
+(:data:`rel_attention_fwd`), which :func:`flash_attention` calls for it when
+it is traced: its implementation launches the kernel on the card and runs
+the plain version on the CPU, and its fake implementation gives the
+output's shape, so that ``torch.export`` keeps one node for each K1 call
+(``export.py``). The shard is the op's trailing integers. Registering the
+op builds nothing; the kernel is built at its first CUDA call. A program
+exported with the op needs this module imported to load.
 """
 
 import ctypes
@@ -334,6 +343,34 @@ def flash_attention_plain(q, k, v, mask=None, kv_lens=None, rel_qv=None,
     return out, torch.where(lse <= NEG_INF / 2, NEG_INF, lse)
 
 
+def _k1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
+        kv_lens: Optional[torch.Tensor], rel_qv: Optional[torch.Tensor],
+        rel_p: Optional[torch.Tensor], scale: float, chunk: int, q0: int, t_q: int,
+        head0: int, h_local: int, h_total: int) -> torch.Tensor:
+    """K1 (:func:`flash_attention`'s arguments without the lse and the
+    dropout, the shard as its fields): on the card the kernel
+    (``csrc/rel_attention_fwd.cu``), counted; on the CPU the plain version."""
+    shard = Shard(q0, t_q, head0, h_local, h_total)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, mask, kv_lens, rel_qv, rel_p, scale,
+                                     chunk=chunk, shard=shard)
+    out, _ = _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, False, 0.0, 0, chunk,
+                         shard)
+    flash_attention.launches += 1
+    flash_attention.chunk_launches += chunk > 0
+    return out
+
+
+# K1 as the op liteasr::rel_attention_fwd, for the programs that trace it
+rel_attention_fwd = torch.library.custom_op("liteasr::rel_attention_fwd", _k1, mutates_args=())
+
+
+@rel_attention_fwd.register_fake
+def _rel_attention_fwd_fake(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, chunk, q0, t_q,
+                            head0, h_local, h_total):
+    return torch.empty_like(q)
+
+
 def flash_attention(q, k, v, mask=None, kv_lens=None, rel_qv=None,
                     rel_p=None, scale: float = 1.0, return_lse: bool = False,
                     dropout_rate: float = 0.0, dropout_seed: int = 0,
@@ -365,17 +402,22 @@ def flash_attention(q, k, v, mask=None, kv_lens=None, rel_qv=None,
     the kernel. ``flash_attention.launches`` counts those launches,
     ``flash_attention.lse_launches`` the ones with ``return_lse`` (K1'),
     and ``chunk_launches`` / ``lse_chunk_launches`` those of each that ran
-    with a chunk width.
+    with a chunk width. Traced, K1 is the op :data:`rel_attention_fwd`.
     """
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"flash_attention: dropout_rate {dropout_rate} not in [0, 1)")
     chunk = _chunk_width(chunk)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if not return_lse and dropout_rate == 0.0:
+        # a traced program (torch.export, torch.compile) keeps K1 as one op
+        # node; an eager call skips the dispatcher's host cost per call
+        k1 = torch.ops.liteasr.rel_attention_fwd if torch.compiler.is_compiling() else _k1
+        return k1(q, k, v, mask, kv_lens, rel_qv, rel_p, float(scale), chunk, *shard)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask, kv_lens, rel_qv, rel_p,
                                      scale, return_lse, dropout_rate,
                                      dropout_seed, chunk, shard)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     out, lse = _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale,
                            return_lse, dropout_rate, dropout_seed, chunk, shard)
     flash_attention.launches += 1

@@ -12,8 +12,10 @@ bias sharded), ``fc2``, ``linear_o`` and ``pointwise_conv2`` row-parallel
 biases ``pos_bias_u/v`` sharded by heads; everything else (LayerNorms,
 embeddings, the output layer, the CTC head, the subsampling, the
 transducer's LSTM prediction network and joint, the Paraformer's CIF
-predictor) is replicated. The Paraformer's parallel decoder layers are
-U2's decoder layers and follow the same rules.
+predictor, wav2vec 2.0's extractor, quantizer, projections and positional
+conv) is replicated. The Paraformer's parallel decoder layers are U2's
+decoder layers and wav2vec 2.0's encoder layers U2's transformer layers,
+and they follow the same rules.
 The port's weight is (out, in), the transpose of flax's kernel, so a
 column rule shards dim 0 where JAX's ``P(None, 'tp')`` shards the kernel's
 dim 1.
@@ -73,7 +75,6 @@ TP_RULES: Tuple[Tuple[str, int, Optional[int]], ...] = (
 GLU = r"pointwise_conv1$"
 CHANNEL_RULES = (r"conv\.depthwise_conv$", r"conv\.norm$")
 HEAD_LEAVES = ("pos_bias_u", "pos_bias_v")
-ROADMAP_ITEM = 'the ROADMAP item "tensor and sequence parallelism for wav2vec 2.0"'
 # the model config's widths that tp divides, by family: the heads, the FFN
 # widths and the conformer conv module's channels (enc_dim)
 TP_WIDTHS = {
@@ -81,6 +82,7 @@ TP_WIDTHS = {
     "Transducer": ("enc_attn_heads", "enc_ff_dim", "enc_dim"),
     "Paraformer": ("enc_attn_heads", "dec_attn_heads", "enc_ff_dim", "dec_ff_dim",
                    "enc_dim"),
+    "Wav2Vec2": ("encoder_attention_heads", "encoder_ffn_embed_dim"),
 }
 
 
@@ -331,21 +333,16 @@ def shard_model(model: torch.nn.Module, lay: "mesh.Layout", model_cfg=None) -> t
     under tp its sharded parameters and buffers become the rank's slices
     and the attentions, FFNs and conv modules run Megatron's collectives;
     under sp the encoder runs on the rank's block of frames and the model's
-    tail on its block of rows. U2, the transducer and the Paraformer
-    (:data:`TP_WIDTHS`); wav2vec 2.0 raises, and so does a tp that does not
-    divide ``model_cfg``'s heads and widths."""
+    tail on its block of rows (wav2vec 2.0: its logits on its block of
+    frames). Every family of :data:`TP_WIDTHS`; a tp that does not divide
+    ``model_cfg``'s heads and widths raises."""
     from liteasr_tpu_torch.nets.attention import MultiHeadAttention
     from liteasr_tpu_torch.nets.common import PositionwiseFeedForward
     from liteasr_tpu_torch.nets.layers import ConformerConvolution
 
     if lay.tp == lay.sp == 1:
         return model
-    family = type(model).__name__
-    if family not in TP_WIDTHS:
-        raise NotImplementedError(
-            f"distributed.tp/sp > 1 for {family}: tensor and sequence parallelism of "
-            f"{', '.join(TP_WIDTHS)} only; {family} is {ROADMAP_ITEM}")
-    check_widths(model_cfg or {}, lay.tp, family)
+    check_widths(model_cfg or {}, lay.tp, type(model).__name__)
     if lay.sp > 1:
         model.seq_parallel = True
         model.encoder.seq_parallel = True

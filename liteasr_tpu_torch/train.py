@@ -26,14 +26,14 @@ master alone writes ``train.log``, the results rows, the checkpoints and
 Tensor and sequence parallelism: ``distributed.tp=T distributed.sp=S`` (and
 ``distributed.dp=-1`` or N / (S T)) lay the N processes out as the JAX
 package's (dp, sp, tp) mesh, tp innermost (``parallel.mesh.Layout``), for
-U2, the transducer and the Paraformer: tp shards the encoder's and the
-decoders' attentions, FFNs and conv modules Megatron's way and must divide
-the heads and the widths (the transducer's LSTM and joint and the
-Paraformer's CIF predictor stay whole); sp splits the encoder's frames and
-runs each family's tail on the rank's rows (``parallel.sharding``).
-Checkpoints and the train state are written in the one-process layout.
-wav2vec 2.0 raises ``NotImplementedError`` under tp or sp > 1, naming its
-ROADMAP item. Streaming models train here too
+every family: tp shards the encoder's and the decoders' attentions, FFNs
+and conv modules Megatron's way and must divide the heads and the widths
+(the transducer's LSTM and joint, the Paraformer's CIF predictor and
+wav2vec 2.0's extractor, quantizer and positional conv stay whole); sp
+splits the encoder's frames and runs each family's tail on the rank's rows
+(wav2vec 2.0: the extractor on the rank's sample window and the logits on
+its frames; ``parallel.sharding``). Checkpoints and the train state are
+written in the one-process layout. Streaming models train here too
 (``model.enc_arch=transformer model.dynamic_chunk=true`` or
 ``model.static_chunk_size=N``), and so do the transducer
 (``model=my_transducer criterion=my_rnnt``) and the Paraformer

@@ -37,8 +37,8 @@ glance noise, wav2vec 2.0's draws) are seeded per rank (rank 0 keeps the
 one-process streams); the attention kernels' dropout seeds move to the
 rank's rows.
 
-Under tensor and sequence parallelism (U2, the transducer and the
-Paraformer; ``parallel.sharding``) the ranks form a (dp, sp, tp) mesh: the
+Under tensor and sequence parallelism (every family;
+``parallel.sharding``) the ranks form a (dp, sp, tp) mesh: the
 datasets are sharded by the dp coordinate, so tp and sp peers collate the same rows; the batch-level draws
 (SpecAugment) follow dp_i; the throughput counts each global row once.
 ``save_model`` gathers the tp shards (a collective) and sums a partial

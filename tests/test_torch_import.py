@@ -1,6 +1,7 @@
 """liteasr_tpu_torch, training, transducer, streaming, Paraformer, wav2vec 2.0,
-native and data-parallel modules included, imports without jax, flax or
-liteasr_tpu, and its CUDA kernel loader raises (no fallback) where there is
+native, data-parallel, export, prompt and Kaldi helper modules included,
+imports without jax, flax or liteasr_tpu; registering K1's custom op builds
+no kernel; and its CUDA kernel loader raises (no fallback) where there is
 no CUDA device."""
 
 import os
@@ -37,12 +38,18 @@ def test_port_imports_without_jax():
                      "streaming", "native", "nets.paraformer", "models.paraformer",
                      "criterions.paraformer_loss", "nets.wav2vec2",
                      "models.wav2vec2", "criterions.wav2vec_loss", "tasks.pretrain",
-                     "ops.masks", "parallel", "parallel.mesh", "tasks.synthetic"):
+                     "ops.masks", "parallel", "parallel.mesh", "tasks.synthetic",
+                     "export", "prompt", "data.kaldi_helpers"):
             assert "liteasr_tpu_torch." + name in names, (name, names)
+        # K1's custom op is registered, and registering it loaded no kernel
+        import torch
+        from liteasr_tpu_torch.ops import flash_attention as fa
+        assert torch.ops.liteasr.rel_attention_fwd.default is not None
+        assert not fa._LIBS
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 51
+    assert int(proc.stdout.split()[-1]) >= 54
 
 
 def test_kernel_loader_raises_without_cuda():

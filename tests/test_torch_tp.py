@@ -460,11 +460,16 @@ def test_layouts_that_do_not_fit_raise():
 @pytest.mark.parametrize("case", ["wav2vec"])
 @pytest.mark.parametrize("tp,sp", [(2, 1), (1, 2)])
 def test_other_families_raise(case, tp, sp):
-    """wav2vec 2.0 names its own ROADMAP item (the transducer and the
-    Paraformer shard: tests/test_torch_tp_families.py)."""
+    """The other families shard too (the transducer and the Paraformer:
+    tests/test_torch_tp_families.py, wav2vec 2.0: tests/test_torch_tp_w2v.py);
+    what raises for them is a tp that does not divide their heads."""
+    from liteasr_tpu_torch.config.core import DotDict
     from liteasr_tpu_torch.parallel import mesh
 
-    model = w.build_case(case)[0]
-    with pytest.raises(NotImplementedError, match=re.escape(sharding.ROADMAP_ITEM)):
-        sharding.shard_model(model, mesh.Layout(1, sp, tp))
-    assert "wav2vec 2.0" in sharding.ROADMAP_ITEM
+    model = sharding.shard_model(w.build_case(case)[0], mesh.Layout(1, sp, tp),
+                                 DotDict(w.W2V_TINY))
+    assert model.seq_parallel == (sp > 1) and getattr(model, "tp_sharded", False) == (tp > 1)
+    assert type(model).__name__ in sharding.TP_WIDTHS
+    with pytest.raises(ValueError, match="does not divide model.encoder_attention_heads"):
+        sharding.shard_model(w.build_case(case)[0], mesh.Layout(1, sp, 2),
+                             DotDict(w.W2V_TINY, encoder_attention_heads=3))

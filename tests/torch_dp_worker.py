@@ -18,8 +18,10 @@ rank's rows, then the same forward at dropout 0.1), with ``fp64``
 :func:`tpsp_grad64`, saving the results in the one-process layout to OUT,
 or with ``remat`` :func:`tpsp_remat` (a rematerialized and a plain step at
 dropout 0.1), saving the rank's own results; ``family`` runs
-:func:`tpsp_family` for the transducer (``rnnt``) or the Paraformer
-(``paraformer``): the fp32 update, the fp64 gradient and the eval forward.
+:func:`tpsp_family` for the transducer (``rnnt``), the Paraformer
+(``paraformer``) or wav2vec 2.0 (``wav2vec``, ``wav2vec:FAULT`` with one of
+``chip_smoke.W2V_TP_SP_FAULTS``' faults planted): the fp32 update, the
+fp64 gradient and the eval forwards.
 The test process imports this module too, for the one-process references.
 """
 
@@ -125,9 +127,14 @@ def build_case(name):
         g = model.quantizer.groups
         gumbels = model.draw_gumbel_noise(B * F * g, CPU)
 
-        def hand(model, lo, hi):
-            model.draw_mask = lambda b, f, fl, train: mask[lo:hi]
-            model.draw_negatives_uniform = lambda b, f, train, d: u[lo:hi]
+        def hand(model, lo, hi, eval_own=False):
+            """Rows lo:hi of the global draws; with ``eval_own`` in train
+            mode only (eval keeps the model's own fixed streams)."""
+            own_mask, own_u = model.draw_mask, model.draw_negatives_uniform
+            model.draw_mask = lambda b, f, fl, train: (
+                mask[lo:hi] if train or not eval_own else own_mask(b, f, fl, train))
+            model.draw_negatives_uniform = lambda b, f, train, d: (
+                u[lo:hi] if train or not eval_own else own_u(b, f, train, d))
             model.draw_gumbel_noise = lambda n, d: gumbels[lo * F * g:hi * F * g]
     else:
         raise ValueError(name)
@@ -309,14 +316,15 @@ def _fp64(model):
     return model
 
 
-def _grad64(build, crit, part) -> dict:
+def _grad64(build, crit, part, eval_part=None) -> dict:
     """The gradient of one micro-step of the sharded fp64 model that
     ``build()`` makes (summed over the dp x sp ranks), the loss share and the
     BatchNorm statistics, in the one-process layout, with
     ``Tensor.float()`` keeping fp64 tensors fp64 in this process, so that
     the port's fp32 casts (the plain attention, LayerNorm, BatchNorm, the
     losses) do not round. A layout that computes the one-process step's
-    function gives it to fp64's rounding."""
+    function gives it to fp64's rounding. Also the step's aux (the rank's
+    shares) and, with ``eval_part``, the eval loss and aux on it."""
     from liteasr_tpu_torch import parallel
     from liteasr_tpu_torch.parallel import sharding
 
@@ -324,13 +332,22 @@ def _grad64(build, crit, part) -> dict:
     torch.Tensor.float = lambda x, *a, **k: x if x.dtype == torch.float64 else to_fp32(x, *a, **k)
     try:
         model = build()
-        part = dict(part, xs=part["xs"].double(), valid=part["valid"].double())
-        loss, _ = crit(model, dict(part, step=0), train=True)
+
+        def wide(p):
+            return dict(p, xs=p["xs"].double(), valid=p["valid"].double())
+
+        loss, aux = crit(model, dict(wide(part), step=0), train=True)
         loss.backward()
         named = list(model.named_parameters())
         g = parallel.global_sum_(torch.cat([p.grad.reshape(-1) for _, p in named]), "grad")
         state = sharding.gather_state_dict(model)
-        return dict(losses=loss.detach()[None], state=state, grads=_full_grads(g, named, state))
+        out = dict(losses=loss.detach()[None], aux={k: v.detach() for k, v in aux.items()},
+                   state=state, grads=_full_grads(g, named, state))
+        if eval_part is not None:
+            with torch.no_grad():
+                eloss, eaux = crit(model, wide(eval_part), train=False)
+            out["eval"] = dict(loss=eloss, aux=dict(eaux))
+        return out
     finally:
         torch.Tensor.float = to_fp32
 
@@ -423,27 +440,30 @@ def tpsp_remat() -> dict:
     return out
 
 
-# the families besides U2 that tpsp's ``family`` mode runs
+# the families besides U2 that tpsp's ``family`` mode runs (and wav2vec
+# 2.0, which tests/test_torch_tp_w2v.py runs on its own)
 TPSP_FAMILIES = ("rnnt", "paraformer")
 GLANCE_SEED = 9  # the Paraformer's handed train-mode glance noise
-
-
 def _tiny_family(family: str, fp64: bool = False):
     """(model, criterion, global numpy batch) of ``family`` at
-    :data:`TD_TINY` or :data:`PARA_TINY` (dropout 0), every stream seeded
-    as the train CLI seeds it from seed 0, sharded as the run's layout
-    says; ``fp64`` computes in float64. The Paraformer's train-mode glance
-    noise is the dp rank's rows of one global (B, L) draw, handed over as
-    the dp reduction tests hand it; its eval-mode noise is the model's own."""
+    :data:`TD_TINY`, :data:`PARA_TINY` or :data:`W2V_TINY` (dropout 0),
+    every stream seeded as the train CLI seeds it from seed 0, sharded as
+    the run's layout says; ``fp64`` computes in float64. The Paraformer's
+    train-mode glance noise and wav2vec 2.0's train-mode span mask,
+    negatives' uniforms and Gumbel noise are the dp rank's rows of one
+    global draw, handed over as the dp reduction tests hand them; their
+    eval-mode draws are the model's own."""
     from liteasr_tpu_torch import parallel
     from liteasr_tpu_torch.config.core import DotDict
     from liteasr_tpu_torch.parallel import sharding
 
     lay = parallel.layout()
-    model, crit, batch, _ = build_case(family)
+    model, crit, batch, hand = build_case(family)
     if fp64:
         _fp64(model)
     model.seed_dropout(0, lay.dp_i)
+    if family == "wav2vec":
+        hand(model, _rows().start, _rows().stop, eval_own=True)
     parallel.seed_streams(0)
     torch.manual_seed(parallel.rank_seed(0, lay.dp_i * lay.sp + lay.sp_i))
     if family == "paraformer":
@@ -455,7 +475,7 @@ def _tiny_family(family: str, fp64: bool = False):
             return noise[:b, :u].to(device) if train else own(b, u, train, device)
 
         model.draw_glance_noise = draw
-    widths = TD_TINY if family == "rnnt" else PARA_TINY
+    widths = {"rnnt": TD_TINY, "paraformer": PARA_TINY, "wav2vec": W2V_TINY}[family]
     return sharding.shard_model(model, lay, DotDict(widths)), crit, batch
 
 
@@ -468,10 +488,20 @@ def tpsp_family(family: str) -> dict:
     * ``step``: one update of two accumulated micro-steps on the batch and
       its reverse (:func:`_one_update`);
     * ``fp64``: the first micro-step's gradient in float64
-      (:func:`_grad64`)."""
+      (:func:`_grad64`), with the eval forward on the batch.
+
+    ``family`` may name a wav2vec 2.0 fault, ``wav2vec:FAULT``
+    (``chip_smoke.W2V_TP_SP_FAULTS``, which z12 plants on the card), planted
+    for all three."""
     from liteasr_tpu_torch import parallel
     from liteasr_tpu_torch.trainer import to_device
 
+    family, _, fault = family.partition(":")
+    if fault:
+        from chip_smoke import planted_w2v_fault
+
+        with planted_w2v_fault(fault):
+            return tpsp_family(family)
     lay = parallel.layout()
     model, crit, batch = _tiny_family(family)
     parts = [to_device({k: v[_rows()] for k, v in batch.items()}, CPU),
@@ -482,7 +512,8 @@ def tpsp_family(family: str) -> dict:
     if family == "paraformer":
         out["eval"]["noise"] = model.draw_glance_noise(B // lay.dp, 6, False, CPU)
     out["step"] = _one_update(model, crit, parts)
-    out["fp64"] = _grad64(lambda: _tiny_family(family, fp64=True)[0], crit, parts[0])
+    out["fp64"] = _grad64(lambda: _tiny_family(family, fp64=True)[0], crit, parts[0],
+                          eval_part=parts[0])
     return out
 
 
