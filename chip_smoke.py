@@ -77,6 +77,22 @@ f. remat at bench.py's point: one fp32 step (dropout 0.1, same seed and
    weights) with remat on and off, every gradient within the rule of 8;
    then the bf16 micro-step's time and peak memory with remat off and on.
 
+The hard-corpus recipe of ``liteasr_tpu_torch/tools`` (the port of the
+repo's tools/ recipes), my_U2 at full width:
+
+hc. ``make_synth_corpus --hard`` at seed 0 cut to 1,024 train, 64 valid and
+   64 test utterances (the BPE-unit corpus, vocab 250 with blank and
+   sos/eos); ``run_hard u2`` (tools/run_hard.sh's overrides: bf16, accum 2,
+   my_noam) for 3 epochs with a warm-up over the run's 48 steps
+   (``optimizer.warmup=48 optimizer.factor=0.2``): 12 K1' + 12 K2 per
+   micro-batch, 24 K1 per valid batch, finite valid losses in the results
+   rows equal to train.log's (``summarize_run``), the last at most 0.95 of
+   the first; ``eval_hard u2`` at epoch 3 over the 3 checkpoints: the
+   averaged attention_rescore and ctc_greedy and the last checkpoint's
+   rescore (24, 12 and 24 K1 per batch), three ``index\tref\thyp`` dumps
+   and three ``score_ci`` rows (the rate with its bootstrap CI, rescore vs
+   greedy and averaged vs last, paired).
+
 The transducer (the my_transducer preset at full width: 4 rel-pos
 transformer layers, 256-d, 4 heads, FF 2048, relu; a 2 x 2048 LSTM over
 256-d embeddings; joint 768; vocab 5000; bf16 compute over fp32 params):
@@ -319,8 +335,9 @@ of k, the ``paraformer_*`` keys o's calls and the ``wav2vec2_*`` keys t's,
 the ``dp_*`` keys x's and y's, the ``shard_*`` keys z1's calls and the
 ``tp_sp_*`` keys z2, z5 and z8's launches and z4, z7 and z10's steps, the
 ``paraformer_tp_*`` keys z1's pass-1 calls, the ``wav2vec2_shard_*`` keys
-z1's wav2vec 2.0 calls, the ``export_*`` keys e1; ``launches`` sum the main
-paths 4, 6, b, c, d, g, i, l, m, p, r, u, x, z2, z5, z8, z11 and e1).
+z1's wav2vec 2.0 calls, the ``export_*`` keys e1, the ``hard_corpus_*`` keys
+hc's; ``launches`` sum the main paths 4, 6, b, c, d, hc, g, i, l, m, p, r, u,
+x, z2, z5, z8, z11 and e1).
 
     python3 chip_smoke.py --profile-train
 
@@ -332,11 +349,28 @@ of 7 and prints the top kernels by device time.
     python3 chip_smoke.py --tp-sp-only
     python3 chip_smoke.py --export-only
     python3 chip_smoke.py --baseline DIR
+    python3 chip_smoke.py --hc-only
+    python3 chip_smoke.py --convergence [--keep DIR] [--deadline S]
 
 stop after steps 1-3, k, o, t and z1; or after them run only 7, x and y;
 or only z2-z13; or only e1; or after step 1 time every bf16 kernel call
 of the main paths against the checkout in DIR (another commit unpacked
-with git archive), in the order DIR, this tree, this tree, DIR.
+with git archive), in the order DIR, this tree, this tree, DIR;
+``--hc-only`` runs phase hc after the build; ``--convergence`` (not part of
+the default run) renders the full hard corpus (20,000 / 500 / 500
+utterances, seed 0) under ``exp/synth_hard`` unless it is there, trains
+``run_hard u2`` into ``exp/hard_u2_run`` (which must hold no run yet) in
+legs ending at epochs 5 and 30 (the second resumes the first,
+``common.resume=auto``), starting no epoch that could end the eval after
+``--deadline`` seconds of the script (3,540), prints the per-epoch valid
+rows and each leg's seconds and launches an epoch, runs ``eval_hard u2`` at
+the last saved epoch over the 5 last checkpoints, decodes the last
+checkpoint's attention rescore again at the training's padding of 128 and
+at 512 through K1's plain version, copies the run's logs, rows and dumps to
+``--keep``'s directory and fails unless epoch 30 was reached with a valid
+loss of at most 3.47, the last checkpoint's attention rescore at most 8.8%
+and the averaged rescore beating the averaged CTC greedy with the paired
+95% CI of the difference below 0.
 """
 
 import contextlib
@@ -377,6 +411,32 @@ LONG_BH, LONG_T = 32, 1499
 # the recipe on raw waves (phases a-c)
 WAVE_RATE, N_WAVE_TRAIN, N_WAVE_VALID, WAVE_MIN_S, WAVE_MAX_S = 16000, 80, 16, 4.0, 8.0
 RECIPE_EPOCHS = 3
+# the hard-corpus recipe (hc; liteasr_tpu_torch/tools): make_synth_corpus
+# --hard at seed 0 cut to (train, valid, test) utterances, run_hard u2
+# for HC_EPOCHS, eval_hard u2 at its last checkpoint over HC_AVG; my_noam's
+# 25,000 warm-up steps leave a 48-step run at a rate of ~3e-7, so the
+# warm-up spans the run and peaks at 0.2 * 256^-0.5 * 48^-0.5 = 1.8e-3
+HC_UTTS, HC_EPOCHS, HC_AVG = (1024, 64, 64), 3, 3
+HC_NOAM = ["optimizer.warmup=48", "optimizer.factor=0.2"]
+HC_MARGIN = 0.95  # the last epoch's valid loss at most this share of the first's
+# --convergence: run_hard u2 on the full hard corpus (20,000 / 500 / 500
+# utterances, seed 0) in legs ending at these epochs, each resuming the
+# last (common.resume=auto), then eval_hard u2 at the last with avg_num 5;
+# the bounds, fixed before the first run, are 1.5x the JAX package's record
+# at checkpoint 30 (BENCHMARKS.md:196-213: valid loss 2.31, attention
+# rescore of the last checkpoint 5.87%), and the averaged rescore must beat
+# the averaged CTC greedy with the paired 95% CI of the difference below 0
+CONVERGENCE_LEGS, CONVERGENCE_AVG = (5, 30), 5
+CONVERGENCE_BOUNDS = {"valid_loss": 3.47, "last_rescore": 0.088}
+# the script's wall clock by which the eval ends (``--deadline S`` sets
+# another), the seconds kept for the eval (its 3 decodes of the 500 test
+# utterances took ~25 s with the checkpoint loads; the 2 decodes beside them
+# take as long) and for the epoch in flight (96-171 s measured): no epoch
+# starts after the deadline less both (run_hard's timeout_s)
+CONVERGENCE_DEADLINE_S, CONVERGENCE_EVAL_S, CONVERGENCE_EPOCH_S = 3540, 120, 180
+# the training's padding, at which the last checkpoint is decoded beside
+# eval_hard's 512 (the padded length moves the encoder: ROADMAP section 3)
+TRAIN_PAD_TIME = 128
 # card (cuFFT) against CPU (pocketfft), after CMVN: preemphasis leaves the
 # lowest mel bins ~1e-3 of a frame's power, and in frames where that power
 # is near 0 the log amplifies the two FFTs' rounding (6.6e-3 seen at this
@@ -402,6 +462,7 @@ W2V_LAYERS, W2V_HEADS, W2V_DIM = 12, 12, 768
 W2V_SHAPES = {"step_batch": (24 * 12, 174), "long_crop": (8 * 12, 774)}
 W2V_STEP_ROWS, W2V_STEP_SAMPLES, W2V_EPOCHS = 24, 56000, 2
 REPO = os.path.dirname(os.path.abspath(__file__))
+START = time.time()
 
 
 def log(*args):
@@ -1478,6 +1539,257 @@ def check_remat(dev, name):
             f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{name}]")
         del step
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------- the hard-corpus recipe (hc)
+
+
+def results_rows(path, kind):
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r.get("kind") == kind]
+
+
+def check_eval(fa, report, out, results, n_test, name):
+    """eval_hard u2's three dumps (``index\\tref\\thyp``, one line an
+    utterance), its three CI rows in ``results``, and its K1 launches: 24 a
+    rescore batch (12 encoder, 6 + 6 decoder), 12 a greedy batch."""
+    batches = -(-n_test // 32)
+    k1 = counts(fa)[0]
+    expect = batches * (2 * (ENC_LAYERS + 2 * DEC_LAYERS) + ENC_LAYERS)
+    if k1 != expect:
+        raise RuntimeError(f"eval_hard: K1 {k1} launches, not {expect} ({batches} "
+                           "batches a decode)")
+    for dump in report["decodes"]:
+        with open(os.path.join(out, f"{dump}.tsv")) as f:
+            lines = [ln.rstrip("\n").split("\t") for ln in f]
+        if len(lines) != n_test or any(len(p) != 3 or p[0] != str(i)
+                                       for i, p in enumerate(lines)):
+            raise RuntimeError(f"{dump}.tsv: not {n_test} index/ref/hyp lines")
+    rows = [r for r in results_rows(results, "score_ci") if r["dump"].startswith(out)]
+    if len(rows) != 3 or [r.get("vs") for r in rows] != [
+            None, f"{out}/avg_ctc_greedy.tsv", f"{out}/last_rescore.tsv"]:
+        raise RuntimeError(f"eval_hard's CI rows in {results}: {rows}")
+    greedy, last = rows[1], rows[2]
+    for dump, rate, ci in (("avg_rescore", rows[0]["rate"], rows[0]["ci95"]),
+                           ("avg_ctc_greedy", greedy["vs_rate"], greedy["vs_ci95"]),
+                           ("last_rescore", last["vs_rate"], last["vs_ci95"])):
+        log(f"eval {dump}: {100 * rate:.2f}% token error [{100 * ci[0]:.2f}, "
+            f"{100 * ci[1]:.2f}] in {report['decodes'][dump]['seconds']:.2f} s "
+            f"({batches} batches) [{name}]")
+    log(f"eval rescore - greedy (avg, paired): {100 * greedy['diff']:+.2f} pp "
+        f"[{100 * greedy['diff_ci95'][0]:+.2f}, {100 * greedy['diff_ci95'][1]:+.2f}], "
+        f"p {greedy['p_two_sided']}; avg - last (rescore): {100 * last['diff']:+.2f} pp "
+        f"[{100 * last['diff_ci95'][0]:+.2f}, {100 * last['diff_ci95'][1]:+.2f}]; "
+        f"K1 {k1} launches ({batches} batches a decode) [{name}]")
+    return rows, k1
+
+
+def run_hard_corpus(fa, root, dev, name):
+    """Phase hc: the hard-corpus recipe of liteasr_tpu_torch/tools at full
+    width on a cut corpus. Returns the (K1, K1', K2) launches of the
+    training run and of the eval."""
+    from liteasr_tpu_torch.tools import eval_hard, run_hard, summarize_run
+
+    corpus, run = os.path.join(root, "synth_hard"), os.path.join(root, "hard_u2_run")
+    results = os.path.join(run, "results.jsonl")
+    t0 = time.perf_counter()
+    run_hard.ensure_corpus(corpus, HC_UTTS)
+    render_s = time.perf_counter() - t0
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    trainer = run_hard.run("u2", run, HC_EPOCHS, HC_NOAM + [f"common.results_file={results}"],
+                           corpus=corpus, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fwd, lse, bwd = counts(fa)
+    micro = HC_EPOCHS * len(trainer.task.dataset("train"))
+    n_valid = HC_EPOCHS * len(trainer.valid_set)
+    if (lse, bwd, fwd - lse) != (ENC_LAYERS * micro, ENC_LAYERS * micro,
+                                 (ENC_LAYERS + 2 * DEC_LAYERS) * n_valid):
+        raise RuntimeError(f"hc: K1' {lse}, K2 {bwd}, K1 {fwd - lse} launches for "
+                           f"{micro} micro-batches and {n_valid} valid batches")
+    losses = torch.stack(trainer._loss_accum).float().cpu() if trainer._loss_accum else None
+    valid = [r["valid_loss"] for r in results_rows(results, "valid")]
+    logged = [v for _, _, v in summarize_run.parse(os.path.join(run, "train.log"))[0]]
+    if (len(valid) != HC_EPOCHS or not all(math.isfinite(v) for v in valid)
+            or logged != [round(v, 2) for v in valid]):
+        raise RuntimeError(f"hc: valid losses {valid}, train.log's {logged}")
+    if losses is not None and not bool(torch.isfinite(losses).all()):
+        raise RuntimeError(f"hc: training losses {losses.tolist()}")
+    if not valid[-1] <= HC_MARGIN * valid[0]:
+        raise RuntimeError(f"hc: the valid loss fell from {valid[0]:.3f} to {valid[-1]:.3f}, "
+                           f"not below {HC_MARGIN} of the first")
+    vocab = trainer.task.vocab_size
+    log(f"hc: --hard corpus of {HC_UTTS} utterances (vocab {vocab}) rendered in "
+        f"{render_s:.2f} s; run_hard u2 for {HC_EPOCHS} epochs ({micro} micro-batches, "
+        f"{int(trainer.tx.count)} optimizer steps, {int(trainer.tx.notfinite_count)} skipped) "
+        f"in {train_s:.2f} s, {HC_EPOCHS * HC_UTTS[0] / train_s:.1f} utt/s incl. validation "
+        f"and checkpoints; valid loss {[round(v, 3) for v in valid]} (the last at most "
+        f"{HC_MARGIN} of the first); K1' {lse}, K2 {bwd}, K1 {fwd - lse} [{name}]")
+    del trainer
+    gc.collect()
+    reset_counts(fa)
+    report = eval_hard.evaluate("u2", run, HC_EPOCHS, HC_AVG, device=dev)
+    out = os.path.join(run, f"eval_ep{HC_EPOCHS}")
+    _, k1 = check_eval(fa, report, out, results, HC_UTTS[2], name)
+    return (fwd - lse, lse, bwd), k1
+
+
+@contextlib.contextmanager
+def plain_attention(fa):
+    """Every attention call of ``nets.attention`` through K1's plain version
+    on the card (a check of the kernels, never used by the package)."""
+    from liteasr_tpu_torch.nets import attention
+
+    kernel = attention.flash_attention
+
+    def plain(q, k, v, *args, chunk=0, **kwargs):
+        return fa.flash_attention_plain(q, k, v, *args, chunk=int(chunk), **kwargs)
+
+    attention.flash_attention = plain
+    try:
+        yield
+    finally:
+        attention.flash_attention = kernel
+
+
+def diagnose_last(fa, run, last, out, dev, name):
+    """The last checkpoint's attention rescore beside eval_hard's (512, the
+    kernels): at the training's padding (:data:`TRAIN_PAD_TIME`), and at 512
+    through K1's plain version. Prints each rate and CI, the paired
+    differences and the hypotheses that differ; rows in ``<diag>/score_ci.jsonl``."""
+    from liteasr_tpu_torch.tools import eval_hard, score_ci
+
+    diag = os.path.join(run, f"diagnose_ep{last}")
+    rows = os.path.join(diag, "score_ci.jsonl")
+    last_mode = ["inference.model_avg=false", "inference.mode=attention_rescore"]
+    reset_counts(fa)
+    pad = eval_hard.decode(run, last, f"last_rescore_pad{TRAIN_PAD_TIME}", last_mode, diag,
+                           device=dev, pad=TRAIN_PAD_TIME)
+    k1 = counts(fa)[0]
+    with plain_attention(fa):
+        plain = eval_hard.decode(run, last, "last_rescore_plain", last_mode, diag, device=dev)
+    if counts(fa)[0] != k1 or not k1:
+        raise RuntimeError(f"diagnose: K1 {k1} launches at pad {TRAIN_PAD_TIME}, "
+                           f"{counts(fa)[0] - k1} under plain_attention")
+    ref = os.path.join(out, "last_rescore.tsv")
+    for dump, secs in ((f"last_rescore_pad{TRAIN_PAD_TIME}", pad["seconds"]),
+                       ("last_rescore_plain", plain["seconds"])):
+        path = os.path.join(diag, f"{dump}.tsv")
+        row = score_ci.score(path, vs=ref, json_out=rows)
+        with open(path) as f, open(ref) as g:
+            differ = sum(a != b for a, b in zip(f, g))
+        log(f"diagnose {dump}: {100 * row['rate']:.2f}% [{100 * row['ci95'][0]:.2f}, "
+            f"{100 * row['ci95'][1]:.2f}] in {secs:.2f} s; minus eval_hard's last_rescore "
+            f"(512, kernels) {100 * row['diff']:+.2f} pp [{100 * row['diff_ci95'][0]:+.2f}, "
+            f"{100 * row['diff_ci95'][1]:+.2f}], p {row['p_two_sided']}; {differ} of "
+            f"{row['n_utts']} hypotheses differ [{name}]")
+    return diag
+
+
+def run_convergence(fa, dev, name, legs=CONVERGENCE_LEGS, keep=None,
+                    deadline_s=CONVERGENCE_DEADLINE_S):
+    """--convergence: run_hard u2 on the full hard corpus in ``legs``, then
+    eval_hard u2 at the last epoch and :func:`diagnose_last`; prints the
+    per-epoch rows and the eval table, copies the run's logs, rows and dumps
+    to ``keep`` (if given) and raises if a bound of
+    :data:`CONVERGENCE_BOUNDS` is missed. No epoch starts after
+    ``deadline_s`` of the script's clock less the eval's and an epoch's
+    seconds; the eval then runs at the last saved epoch, and the run fails.
+    Refuses a run directory that already holds a train state."""
+    import shutil
+
+    from liteasr_tpu_torch.tools import eval_hard, run_hard, summarize_run
+
+    run = run_hard.default_run_dir("u2")
+    results = os.path.join(run, "results.jsonl")
+    if os.path.exists(os.path.join(run, "ckpts", "train_state.pt")):
+        raise RuntimeError(f"{run} holds a run already: move it away, so that the legs "
+                           "train and are judged on this call's epochs only")
+    t0 = time.perf_counter()
+    # in a process of its own, so that the training's process starts clean
+    subprocess.run([sys.executable, "-c", "from liteasr_tpu_torch.tools import run_hard; "
+                    "run_hard.ensure_corpus()"], cwd=REPO, check=True, timeout=900)
+    log(f"convergence: corpus {run_hard.CORPUS} ready in {time.perf_counter() - t0:.2f} s "
+        f"({run_hard.CORPUS_UTTS} utterances) [{name}]")
+    extra = ["common.resume=auto", f"common.results_file={results}"]
+    start_epoch = start_step = 0
+    for end in legs:
+        reset_counts(fa)
+        budget = (deadline_s - CONVERGENCE_EVAL_S - CONVERGENCE_EPOCH_S
+                  - (time.time() - START))
+        if budget <= 0:
+            break
+        t0 = time.perf_counter()
+        trainer = run_hard.run("u2", run, end, extra, device=dev, timeout_s=budget)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        fwd, lse, bwd = counts(fa)
+        epochs, micro = trainer.epoch - start_epoch, trainer.step - start_step
+        n_valid = epochs * len(trainer.valid_set)
+        if (lse, bwd, fwd - lse) != (ENC_LAYERS * micro, ENC_LAYERS * micro,
+                                     (ENC_LAYERS + 2 * DEC_LAYERS) * n_valid):
+            raise RuntimeError(f"leg to {end}: K1' {lse}, K2 {bwd}, K1 {fwd - lse} "
+                               f"launches for {micro} micro-batches, {n_valid} valid batches")
+        log(f"convergence leg: epochs {start_epoch + 1}-{trainer.epoch} "
+            f"({f'resumed after epoch {start_epoch}' if start_epoch else 'fresh'}), "
+            f"{micro} micro-batches, {int(trainer.tx.count)} optimizer steps so far "
+            f"({int(trainer.tx.notfinite_count)} skipped) in {secs:.2f} s, "
+            f"{secs / max(epochs, 1):.2f} s an epoch; per epoch K1' {lse // max(epochs, 1)}, "
+            f"K2 {bwd // max(epochs, 1)}, K1 {(fwd - lse) // max(epochs, 1)} (valid) [{name}]")
+        start_epoch, start_step = trainer.epoch, trainer.step
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        if start_epoch < end:
+            log(f"convergence leg to epoch {end}: stopped by the deadline after epoch "
+                f"{start_epoch} [{name}]")
+            break
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not start_epoch:
+        raise RuntimeError(f"convergence: no epoch fits before the deadline of {deadline_s} s")
+    with open(os.path.join(run, "ckpts", "train_state.pt.meta")) as f:
+        last = int(json.load(f)["epoch"])  # the last epoch whose save completed
+    meta = results_rows(results, "run_meta")
+    valid = results_rows(results, "valid")
+    if [r["epoch"] for r in valid][:last] != list(range(1, last + 1)):
+        raise RuntimeError(f"valid rows for epochs {[r['epoch'] for r in valid]}")
+    log("convergence epochs: | epoch | iter | valid loss | loss_attn | loss_ctc | s |")
+    prev = meta[0]["ts"]
+    for r in valid:
+        after_resume = [m["ts"] for m in meta[1:] if prev < m["ts"] < r["ts"]]
+        t = r["ts"] - (after_resume[-1] if after_resume else prev)
+        log(f"| {r['epoch']} | {r['iter']} | {r['valid_loss']:.4f} | {r.get('loss_attn')} | "
+            f"{r.get('loss_ctc')} | {t:.1f}{' (after a resume)' if after_resume else ''} |")
+        prev = r["ts"]
+    thr = summarize_run.parse(os.path.join(run, "train.log"))[1]
+    if thr:
+        log(f"convergence throughput: median {statistics.median(thr):.1f} utt/s over "
+            f"{len(thr)} report windows, {min(thr):.1f}-{max(thr):.1f} [{name}]")
+    reset_counts(fa)
+    report = eval_hard.evaluate("u2", run, last, min(CONVERGENCE_AVG, last), device=dev)
+    out = os.path.join(run, f"eval_ep{last}")
+    rows, _ = check_eval(fa, report, out, results, run_hard.CORPUS_UTTS[2], name)
+    diag = diagnose_last(fa, run, last, out, dev, name)
+    if keep:
+        os.makedirs(keep, exist_ok=True)
+        for path in [os.path.join(run, f) for f in ("train.log", "results.jsonl",
+                                                   "config.yaml", "infer.log")] + [
+                os.path.join(d, f) for d in (out, diag) for f in os.listdir(d)]:
+            if os.path.isfile(path):
+                shutil.copy(path, keep)
+    last_valid, last_rescore = valid[last - 1]["valid_loss"], rows[2]["vs_rate"]
+    beats = rows[1]["diff_ci95"][1] < 0
+    ok = (last == legs[-1] and last_valid <= CONVERGENCE_BOUNDS["valid_loss"]
+          and last_rescore <= CONVERGENCE_BOUNDS["last_rescore"] and beats)
+    log(f"convergence bounds ({'held' if ok else 'MISSED'}): valid loss at epoch "
+        f"{last} of {legs[-1]} {last_valid:.4f} (at most {CONVERGENCE_BOUNDS['valid_loss']}), "
+        f"last-checkpoint rescore {100 * last_rescore:.2f}% (at most "
+        f"{100 * CONVERGENCE_BOUNDS['last_rescore']:.1f}%), rescore - greedy CI upper "
+        f"{100 * rows[1]['diff_ci95'][1]:+.2f} pp (below 0: {beats}) [{name}]")
+    if not ok:
+        raise RuntimeError("a convergence bound was missed")
 
 
 # ------------------------------------------------- the transducer (g-j)
@@ -4509,6 +4821,16 @@ def main() -> int:
         base.build_libraries()
         compare_kernels(fa, base, dev, name)
         return 0
+    if "--convergence" in sys.argv[1:]:
+        keep = sys.argv[sys.argv.index("--keep") + 1] if "--keep" in sys.argv else None
+        deadline = (float(sys.argv[sys.argv.index("--deadline") + 1])
+                    if "--deadline" in sys.argv else CONVERGENCE_DEADLINE_S)
+        run_convergence(fa, dev, name, keep=keep, deadline_s=deadline)
+        return 0
+    if "--hc-only" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as root, phase("hc"):
+            run_hard_corpus(fa, root, dev, name)
+        return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4585,6 +4907,8 @@ def main() -> int:
                 check_beam_parity(task, dev, name)
             with phase("f"):
                 check_remat(dev, name)
+            with phase("hc"):
+                (hc_fwd, hc_lse, hc_bwd), hc_eval_fwd = run_hard_corpus(fa, root, dev, name)
 
             with phase("g"):
                 (td_fwd, td_lse, td_bwd), td_ckpt_fwd = run_td_training(fa, root, dev, name)
@@ -4665,7 +4989,8 @@ def main() -> int:
                      + avg_fwd + attention_fwd + td_fwd + td_lse + td_ckpt_fwd
                      + td_dec_fwd + sum(dyn[:2]) + sum(sta[:2]) + stream_dec_fwd
                      + para_fwd + para_lse + para_ckpt_fwd + para_dec_fwd + w2v_fwd
-                     + dp_fwd + tpsp["fwd"] + ex["launches"]),
+                     + dp_fwd + tpsp["fwd"] + ex["launches"] + hc_fwd + hc_lse
+                     + hc_eval_fwd),
         "max_abs_err": max(k1["max_abs_err"], k2["fwd_err"], kc["fwd_err"], kc["k1_err"],
                            kp["max_abs_err"], kw["max_abs_err"], kz["fwd_err"],
                            kzp["max_abs_err"], kzw["max_abs_err"]),
@@ -4690,7 +5015,11 @@ def main() -> int:
            for key, v in r.items()},
         "wav2vec2_launches": w2v_fwd,
         "lse_launches": (train_lse + recipe_lse + td_lse + dyn[1] + sta[1] + para_lse
-                         + dp_lse + tpsp["lse"]),
+                         + dp_lse + tpsp["lse"] + hc_lse),
+        # hc: the hard-corpus recipe's training run (K1 its validation, K1'
+        # its micro-batches) and its eval's three decodes
+        "hard_corpus_launches": hc_fwd + hc_lse + hc_eval_fwd,
+        "hard_corpus_lse_launches": hc_lse,
         # z1: K1' and K1 at the tp and sp shards of the training shape (bf16,
         # one call each); z2: their launches in the 2-rank training runs
         "tp_sp_launches": tpsp["fwd"],
@@ -4750,7 +5079,8 @@ def main() -> int:
         "source": "liteasr_tpu_torch/csrc/rel_attention_bwd.cu",
         "replaces": "liteasr_tpu/ops/flash_attention.py:566",
         "launches": (train_bwd + recipe_bwd + td_bwd + dyn[2] + sta[2] + para_bwd + dp_bwd
-                     + tpsp["bwd"]),
+                     + tpsp["bwd"] + hc_bwd),
+        "hard_corpus_launches": hc_bwd,
         "dp_launches": dp_bwd,
         "tp_sp_launches": tpsp["bwd"],
         **{f"shard_{case}_{key}": v for case, r in kz.items() if isinstance(r, dict)

@@ -79,10 +79,12 @@ def setup_logging(run_dir: str, level: str = "INFO",
     root.addHandler(fileh)
 
 
-def train(cfg, device: Optional[torch.device] = None):
+def train(cfg, device: Optional[torch.device] = None,
+          deadline: Optional[float] = None):
     """Join the process group that ``distributed.*`` names (if any), then
     build everything and run the trainer on ``device`` (default
-    ``cuda:<process_id % device count>``, which must exist); returns the
+    ``cuda:<process_id % device count>``, which must exist) until
+    ``deadline`` (a ``time.time()`` value; the Trainer's); returns the
     Trainer. A group started here ends here, after a barrier. Layouts the
     port does not have raise first (``parallel.mesh.check_layout``).
 
@@ -91,16 +93,16 @@ def train(cfg, device: Optional[torch.device] = None):
     has one optimizer path)."""
     device = parallel.distributed_init(cfg.distributed, device)  # before the device is used
     if not cfg.distributed.get("coordinator_address"):
-        return _train(cfg, device)
+        return _train(cfg, device, deadline)
     try:
-        trainer = _train(cfg, device)
+        trainer = _train(cfg, device, deadline)
         parallel.barrier()  # no rank leaves while another still needs it
     finally:
         parallel.destroy()
     return trainer
 
 
-def _train(cfg, device: torch.device):
+def _train(cfg, device: torch.device, deadline: Optional[float] = None):
     from liteasr_tpu_torch.trainer import Trainer
 
     seed, lay = int(cfg.common.seed), parallel.layout()
@@ -154,15 +156,15 @@ def _train(cfg, device: torch.device):
         with open(os.path.join(cfg.common.run_dir, "config.yaml"), "w") as f:
             f.write(to_yaml(cfg))
 
-    trainer = Trainer(cfg, task, model, criter, optim, device)
+    trainer = Trainer(cfg, task, model, criter, optim, device, deadline)
     trainer.run()
     return trainer
 
 
 def main(argv: Optional[List[str]] = None,
-         device: Optional[torch.device] = None):
+         device: Optional[torch.device] = None, deadline: Optional[float] = None):
     """``argv``: config overrides, and ``--device DEVICE`` (e.g. ``cpu``)
-    where ``device`` is not given."""
+    where ``device`` is not given; ``deadline``: :func:`train`'s."""
     overrides = list(argv if argv is not None else sys.argv[1:])
     if "--device" in overrides:
         i = overrides.index("--device")
@@ -172,7 +174,7 @@ def main(argv: Optional[List[str]] = None,
     master = int(cfg.distributed.get("process_id") or 0) == 0
     setup_logging(cfg.common.run_dir, cfg.common.log_level,
                   filename="train.log" if master else None)
-    return train(cfg, device)
+    return train(cfg, device, deadline)
 
 
 def cli_main() -> None:

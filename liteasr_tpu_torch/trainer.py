@@ -19,7 +19,9 @@ attention dropout's, the dynamic chunk widths', the Paraformer's glance
 noise's and wav2vec 2.0's span masks', negatives' and Gumbel noise's.
 ``common.resume`` (``auto`` or a path) restores it, so that a resumed run
 continues as the uninterrupted one would have (liteasr_tpu/trainer.py:
-314-375). ``common.profile_dir`` traces the run with ``torch.profiler``
+314-375). A ``deadline`` (a ``time.time()`` value) ends the run at the first
+epoch boundary past it, after that epoch's events, so the run stops with
+its last save whole. ``common.profile_dir`` traces the run with ``torch.profiler``
 into a Chrome trace there.
 
 Under a process group (``parallel.distributed_init``; liteasr_tpu/trainer.py
@@ -57,6 +59,7 @@ import logging
 import os
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -90,8 +93,9 @@ def to_device(batch, device):
 
 class Trainer:
     def __init__(self, cfg, task, model, criterion, optimizer,
-                 device: torch.device):
+                 device: torch.device, deadline: Optional[float] = None):
         self.cfg = cfg
+        self.deadline = deadline
         self.task = task
         self.model = model
         self.criterion = criterion
@@ -148,6 +152,7 @@ class Trainer:
                 time_mask_times=int(sa.get("time_mask_times", 2)),
                 replace_with_zero=bool(sa.get("replace_with_zero", False)))
         self._maybe_resume()
+        self._epoch_seen = self.epoch  # the deadline is read when this moves
         self._emit_run_meta(n_params)
         self._add_events()
 
@@ -334,7 +339,21 @@ class Trainer:
     def stop(self) -> bool:
         opt = self.cfg.optimization
         return ((opt.max_epoch >= 0 and self.epoch >= opt.max_epoch)
-                or (opt.max_iter >= 0 and self.iter >= opt.max_iter))
+                or (opt.max_iter >= 0 and self.iter >= opt.max_iter)
+                or self._past_deadline())
+
+    def _past_deadline(self) -> bool:
+        """At an epoch's first micro-step: whether ``deadline`` has passed
+        on any rank (so that the ranks stop together)."""
+        if self.deadline is None or self.epoch == self._epoch_seen:
+            return False
+        self._epoch_seen = self.epoch
+        past = time.time() >= self.deadline
+        if self.world > 1:
+            past = any(parallel.all_gather_object(past))
+        if past:
+            logger.info("deadline passed: stopping after epoch %d", self.epoch)
+        return past
 
     # ---------------------------------------------------------------- run
 

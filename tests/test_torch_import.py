@@ -1,8 +1,8 @@
 """liteasr_tpu_torch, training, transducer, streaming, Paraformer, wav2vec 2.0,
-native, data-parallel, export, prompt and Kaldi helper modules included,
-imports without jax, flax or liteasr_tpu; registering K1's custom op builds
-no kernel; and its CUDA kernel loader raises (no fallback) where there is
-no CUDA device."""
+native, data-parallel, export, prompt, Kaldi helper and recipe (tools)
+modules included, imports without jax, flax or liteasr_tpu; registering
+K1's custom op builds no kernel; and its CUDA kernel loader raises (no
+fallback) where there is no CUDA device."""
 
 import os
 import subprocess
@@ -39,7 +39,10 @@ def test_port_imports_without_jax():
                      "criterions.paraformer_loss", "nets.wav2vec2",
                      "models.wav2vec2", "criterions.wav2vec_loss", "tasks.pretrain",
                      "ops.masks", "parallel", "parallel.mesh", "tasks.synthetic",
-                     "export", "prompt", "data.kaldi_helpers"):
+                     "export", "prompt", "data.kaldi_helpers", "tools",
+                     "tools.make_synth_corpus", "tools.make_synth_waves",
+                     "tools.score_ci", "tools.summarize_run", "tools.run_hard",
+                     "tools.eval_hard"):
             assert "liteasr_tpu_torch." + name in names, (name, names)
         # K1's custom op is registered, and registering it loaded no kernel
         import torch
@@ -49,7 +52,7 @@ def test_port_imports_without_jax():
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 54
+    assert int(proc.stdout.split()[-1]) >= 75  # 68 before the 7 tools modules
 
 
 def test_kernel_loader_raises_without_cuda():
