@@ -1,5 +1,8 @@
 """Host-side batch iteration: shuffling and multi-threaded prefetch (a copy
-of liteasr_tpu/data/loader.py, which is framework-free).
+of liteasr_tpu/data/loader.py, which is framework-free, with the spans of
+``utils.tracing``: ``data.wait`` where the consumer blocks on a batch, and
+``data.collate``, each batch's collation, stamped on its worker and
+recorded by the consumer).
 
 Replaces the reference's DataLoader(batch_size=1) + DistributedSampler +
 EpochDataLoader stack (liteasr/trainer.py:48-62, liteasr/utils/
@@ -11,11 +14,15 @@ overlaps feature I/O + collation with device compute, preserving order.
 """
 
 import itertools
+import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional
 
 import numpy as np
+
+from liteasr_tpu_torch.utils import tracing
 
 
 class EpochDataLoader:
@@ -47,7 +54,11 @@ class EpochDataLoader:
         return order
 
     def _load(self, idx: int):
-        return self.collate_fn(self.dataset[idx])
+        """The batch, with its collation's ``time.time_ns()`` stamps and
+        the worker's name (a profiler does not record on the workers)."""
+        start = time.time_ns()
+        batch = self.collate_fn(self.dataset[idx])
+        return batch, start, time.time_ns(), threading.current_thread().name
 
     def epoch_iter(self, epoch: int) -> Iterator:
         """One in-order pass for a given epoch; up to ``num_workers``
@@ -59,7 +70,9 @@ class EpochDataLoader:
                 pool.submit(self._load, int(i))
                 for i in itertools.islice(indices, window))
             while pending:
-                batch = pending.popleft().result()
+                with tracing.span("data.wait"):
+                    batch, start, end, worker = pending.popleft().result()
+                tracing.record("data.collate", start, end, thread=worker)
                 nxt = next(indices, None)
                 if nxt is not None:
                     pending.append(pool.submit(self._load, int(nxt)))

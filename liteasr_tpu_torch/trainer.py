@@ -22,7 +22,9 @@ continues as the uninterrupted one would have (liteasr_tpu/trainer.py:
 314-375). A ``deadline`` (a ``time.time()`` value) ends the run at the first
 epoch boundary past it, after that epoch's events, so the run stops with
 its last save whole. ``common.profile_dir`` traces the run with ``torch.profiler``
-into a Chrome trace there.
+into a Chrome trace there, with the spans of ``utils.tracing`` (the micro-step
+and its forward, backward and optimizer phases, the loader's wait and its
+workers' collation, the copy to the device) appended as rows of their own.
 
 Under a process group (``parallel.distributed_init``; liteasr_tpu/trainer.py
 :150-159, 336-370, 454, 492, 532-578) each rank trains on its row shard of
@@ -71,6 +73,7 @@ from liteasr_tpu_torch.data.loader import EpochDataLoader
 from liteasr_tpu_torch.ops.fbank import log_mel_fbank
 from liteasr_tpu_torch.ops.spec_augment import spec_augment, step_generator
 from liteasr_tpu_torch.optims.fused_step import build_tx
+from liteasr_tpu_torch.utils import tracing
 from liteasr_tpu_torch.utils.trigger import EventManager
 
 TRAIN_STATE = "train_state.pt"
@@ -81,13 +84,15 @@ logger = logging.getLogger(__name__)
 
 
 def to_device(batch, device):
-    """numpy batch dict -> tensors on ``device`` (ids as int64)."""
+    """numpy batch dict -> tensors on ``device`` (ids as int64); the
+    ``data.to_device`` span."""
     out = {}
-    for key, val in batch.items():
-        t = torch.from_numpy(np.asarray(val))
-        if key in ("ys", "xlens", "ylens"):
-            t = t.long()
-        out[key] = t.to(device, non_blocking=True)
+    with tracing.span("data.to_device", device):
+        for key, val in batch.items():
+            t = torch.from_numpy(np.asarray(val))
+            if key in ("ys", "xlens", "ylens"):
+                t = t.long()
+            out[key] = t.to(device, non_blocking=True)
     return out
 
 
@@ -168,22 +173,31 @@ class Trainer:
         return dict(batch, xs=feats, xlens=feat_lens.long())
 
     def train_step(self, batch) -> torch.Tensor:
-        """One micro-step on a device batch; returns the detached loss."""
-        batch = self.frontend(batch)
-        if self.spec_aug is not None and batch["xs"].dim() == 3:  # not raw waves
-            gen = step_generator(parallel.rank_seed(self.cfg.common.seed, self.layout.dp_i),
-                                 self.step, self.device)
-            batch = dict(batch, xs=spec_augment(batch["xs"], batch["xlens"], gen,
-                                                **self.spec_aug))
-        # the criterion sees the micro-steps taken before this one, as JAX's
-        # batch["step"] = state.step (the glancing-ratio schedule reads it)
-        batch = dict(batch, step=self.step)
-        self.step += 1
-        loss, _ = self.criterion(self.model, batch, train=True)
-        loss.backward()
-        self.tx.update([p.grad for p in self.params])
-        for p in self.params:
-            p.grad = None
+        """One micro-step on a device batch; returns the detached loss.
+        Spans: ``train.step`` around ``train.forward``, ``train.backward``
+        and ``train.optimizer`` (``utils.tracing``)."""
+        dev = self.device
+        with tracing.span("train.step", dev, step=self.step):
+            with tracing.span("train.forward", dev):
+                batch = self.frontend(batch)
+                if self.spec_aug is not None and batch["xs"].dim() == 3:  # not raw waves
+                    gen = step_generator(
+                        parallel.rank_seed(self.cfg.common.seed, self.layout.dp_i),
+                        self.step, dev)
+                    batch = dict(batch, xs=spec_augment(batch["xs"], batch["xlens"], gen,
+                                                        **self.spec_aug))
+                # the criterion sees the micro-steps taken before this one, as
+                # JAX's batch["step"] = state.step (the glancing-ratio schedule
+                # reads it)
+                batch = dict(batch, step=self.step)
+                self.step += 1
+                loss, _ = self.criterion(self.model, batch, train=True)
+            with tracing.span("train.backward", dev):
+                loss.backward()
+            with tracing.span("train.optimizer", dev):
+                self.tx.update([p.grad for p in self.params])
+                for p in self.params:
+                    p.grad = None
         return loss.detach()
 
     @torch.no_grad()
@@ -366,12 +380,14 @@ class Trainer:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
+        tracing.reset()
         with profile(activities=activities) as prof:
             self._run()
         os.makedirs(profile_dir, exist_ok=True)
         path = os.path.join(profile_dir, "trace.json")
         prof.export_chrome_trace(path)
-        logger.info("wrote the run's torch.profiler trace to %s", path)
+        tracing.export_chrome_trace(path)
+        logger.info("wrote the run's torch.profiler trace and spans to %s", path)
 
     def _run(self):
         accum = max(1, int(self.cfg.optimization.accum_grad or 1))

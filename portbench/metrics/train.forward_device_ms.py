@@ -1,0 +1,11 @@
+"""Stream milliseconds a traced micro-step spends in the front end,
+SpecAugment and the criterion's forward: the time between the timing
+events that the program's ``train.forward`` span records on the current
+stream (from the phase's first queued work to its last, idle included)
+over the count of ``train.step``."""
+
+import program_spans
+
+
+def read(run):
+    return program_spans.per_step(run, "train.forward", "device_ms")

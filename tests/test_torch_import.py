@@ -42,7 +42,7 @@ def test_port_imports_without_jax():
                      "export", "prompt", "data.kaldi_helpers", "tools",
                      "tools.make_synth_corpus", "tools.make_synth_waves",
                      "tools.score_ci", "tools.summarize_run", "tools.run_hard",
-                     "tools.eval_hard"):
+                     "tools.eval_hard", "utils.tracing"):
             assert "liteasr_tpu_torch." + name in names, (name, names)
         # K1's custom op is registered, and registering it loaded no kernel
         import torch
