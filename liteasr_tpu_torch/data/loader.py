@@ -2,7 +2,8 @@
 of liteasr_tpu/data/loader.py, which is framework-free, with the spans of
 ``utils.tracing``: ``data.wait`` where the consumer blocks on a batch, and
 ``data.collate``, each batch's collation, stamped on its worker and
-recorded by the consumer).
+recorded by the consumer; and, with ``pin_memory``, a page-locked copy of
+each batch made on its worker for ``trainer.to_device``).
 
 Replaces the reference's DataLoader(batch_size=1) + DistributedSampler +
 EpochDataLoader stack (liteasr/trainer.py:48-62, liteasr/utils/
@@ -21,8 +22,27 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional
 
 import numpy as np
+import torch
 
 from liteasr_tpu_torch.utils import tracing
+
+ID_KEYS = ("ys", "xlens", "ylens")  # the batch's ids, which cross as int64
+
+
+def host_tensor(key: str, val) -> torch.Tensor:
+    """A batch value as the CPU tensor that crosses to the device: the
+    numpy array's own memory, ids cast to int64."""
+    t = torch.from_numpy(np.asarray(val))
+    return t.long() if key in ID_KEYS else t
+
+
+class PinnedBatch(dict):
+    """A collated batch, its values the collator's own, that carries beside
+    them ``pinned``: each value's :func:`host_tensor` in page-locked memory
+    from torch's caching host allocator, which ``trainer.to_device`` copies
+    from without waiting for the stream."""
+
+    __slots__ = ("pinned",)
 
 
 class EpochDataLoader:
@@ -37,6 +57,7 @@ class EpochDataLoader:
         seed: int = 0,
         prefetch: int = 2,
         num_workers: int = 1,
+        pin_memory: bool = False,
     ):
         self.dataset = dataset
         self.collate_fn = collate_fn or dataset.collator
@@ -44,6 +65,7 @@ class EpochDataLoader:
         self.seed = seed
         self.prefetch = max(1, prefetch)
         self.num_workers = max(1, num_workers)
+        self.pin_memory = pin_memory
         self.epoch = 0
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
@@ -54,10 +76,15 @@ class EpochDataLoader:
         return order
 
     def _load(self, idx: int):
-        """The batch, with its collation's ``time.time_ns()`` stamps and
-        the worker's name (a profiler does not record on the workers)."""
+        """The batch (a :class:`PinnedBatch` with ``pin_memory``), with its
+        collation's ``time.time_ns()`` stamps, the page-locked copies
+        included, and the worker's name (a profiler does not record on the
+        workers)."""
         start = time.time_ns()
         batch = self.collate_fn(self.dataset[idx])
+        if self.pin_memory:
+            batch = PinnedBatch(batch)
+            batch.pinned = {k: host_tensor(k, v).pin_memory() for k, v in batch.items()}
         return batch, start, time.time_ns(), threading.current_thread().name
 
     def epoch_iter(self, epoch: int) -> Iterator:

@@ -63,13 +63,12 @@ import sys
 import time
 from typing import Optional
 
-import numpy as np
 import torch
 
 from liteasr_tpu_torch import parallel
 from liteasr_tpu_torch.checkpoint import CKPT_TEMPLATE
 from liteasr_tpu_torch.parallel import sharding
-from liteasr_tpu_torch.data.loader import EpochDataLoader
+from liteasr_tpu_torch.data.loader import EpochDataLoader, host_tensor
 from liteasr_tpu_torch.ops.fbank import log_mel_fbank
 from liteasr_tpu_torch.ops.spec_augment import spec_augment, step_generator
 from liteasr_tpu_torch.optims.fused_step import build_tx
@@ -85,14 +84,23 @@ logger = logging.getLogger(__name__)
 
 def to_device(batch, device):
     """numpy batch dict -> tensors on ``device`` (ids as int64); the
-    ``data.to_device`` span."""
-    out = {}
+    ``data.to_device`` span. A value that the batch carries page-locked
+    (``loader.PinnedBatch``) crosses on a copy that the host does not wait
+    for; from pageable memory the copy waits for the stream to drain. The
+    counters ``data.h2d_pinned_bytes`` and ``data.h2d_pageable_bytes``
+    take each kind's bytes."""
+    pinned = getattr(batch, "pinned", {})
+    out, nbytes = {}, {True: 0, False: 0}
     with tracing.span("data.to_device", device):
         for key, val in batch.items():
-            t = torch.from_numpy(np.asarray(val))
-            if key in ("ys", "xlens", "ylens"):
-                t = t.long()
+            t = pinned.get(key)
+            locked = t is not None and t.is_pinned()
+            if t is None:
+                t = host_tensor(key, val)
+            nbytes[locked] += t.numel() * t.element_size()
             out[key] = t.to(device, non_blocking=True)
+        tracing.add("data.h2d_pinned_bytes", nbytes[True])
+        tracing.add("data.h2d_pageable_bytes", nbytes[False])
     return out
 
 
@@ -130,7 +138,8 @@ class Trainer:
             ds.shard_index = self.layout.dp_i
         self.train_iter = EpochDataLoader(
             task.dataset("train"), shuffle=True, seed=cfg.common.seed,
-            prefetch=2, num_workers=max(1, cfg.dataset.get("num_workers", 2)))
+            prefetch=2, num_workers=max(1, cfg.dataset.get("num_workers", 2)),
+            pin_memory=self.device.type == "cuda")
         self.valid_set = task.dataset("valid")
 
         named = [(k, p) for k, p in model.named_parameters() if p.requires_grad]

@@ -39,6 +39,15 @@ that follows it. The records are a bounded ring of the last
 :data:`RING` spans, and beside it each name's totals; :func:`totals`
 reads the totals, :func:`spans` the ring, and :func:`export_chrome_trace`
 appends the ring to a profiler's Chrome trace as rows of its own.
+
+A counter (:func:`add`) records, under the same switch, a sum and the
+number of its additions:
+
+=========================== ==========================================
+``data.h2d_pinned_bytes``   ``trainer.to_device``: bytes copied to the
+                            device from page-locked host memory
+``data.h2d_pageable_bytes`` the same, from pageable host memory
+=========================== ==========================================
 """
 
 import json
@@ -148,6 +157,7 @@ class Recorder:
             self._totals: Dict[str, List] = {}  # name -> [count, host, self ns, device ms, timed]
             self._pending: deque = deque()  # (Span, start event, end event) in flight
             self._unstepped: deque = deque(maxlen=RING)
+            self._counters: Dict[str, List[int]] = {}  # name -> [count, total]
 
     def span(self, name: str, device=None, step: Optional[int] = None):
         """A context manager that records ``name`` while a profiler records
@@ -168,6 +178,16 @@ class Recorder:
         self._add(Span(name, None, step, thread or threading.current_thread().name,
                        int(start_ns), int(end_ns)), int(end_ns) - int(start_ns), None)
 
+    def add(self, name: str, amount: int):
+        """Add ``amount`` to the counter ``name``, if a profiler records on
+        the calling thread."""
+        if not recording():
+            return
+        with self._lock:
+            counter = self._counters.setdefault(name, [0, 0])
+            counter[0] += 1
+            counter[1] += int(amount)
+
     def spans(self) -> List[Span]:
         """The ring's spans, oldest first, device times resolved."""
         with self._lock:
@@ -175,16 +195,21 @@ class Recorder:
             return list(self._spans)
 
     def totals(self) -> Dict[str, Dict[str, Optional[float]]]:
-        """Each name's ``count``, ``host_ms`` (the spans' sum), ``self_ms``
-        (less their children) and ``device_ms`` (the stream's, None where
-        no span of the name ran on a CUDA device), over every span since
-        :meth:`reset`. Waits for the pending device events: synchronize the
-        device first, or this blocks until it has caught up."""
+        """Each span name's ``count``, ``host_ms`` (the spans' sum),
+        ``self_ms`` (less their children) and ``device_ms`` (the stream's,
+        None where no span of the name ran on a CUDA device), and each
+        counter's ``count`` (its additions) and ``total``, over every
+        record since :meth:`reset`. Waits for the pending device events:
+        synchronize the device first, or this blocks until it has caught
+        up."""
         with self._lock:
             self._resolve(wait=True)
-            return {name: {"count": c, "host_ms": h * 1e-6, "self_ms": s * 1e-6,
-                           "device_ms": d if timed else None}
-                    for name, (c, h, s, d, timed) in self._totals.items()}
+            table = {name: {"count": c, "host_ms": h * 1e-6, "self_ms": s * 1e-6,
+                            "device_ms": d if timed else None}
+                     for name, (c, h, s, d, timed) in self._totals.items()}
+            table.update({name: {"count": c, "total": t}
+                          for name, (c, t) in self._counters.items()})
+            return table
 
     def export_chrome_trace(self, path: str):
         """Append the ring's spans to the ``torch.profiler`` Chrome trace at
@@ -251,6 +276,7 @@ class Recorder:
 _RECORDER = Recorder()
 span = _RECORDER.span
 record = _RECORDER.record
+add = _RECORDER.add
 spans = _RECORDER.spans
 totals = _RECORDER.totals
 reset = _RECORDER.reset

@@ -9,7 +9,10 @@ loader's worker; a span's stamps bracket the profiler's own event of an op
 inside it, and no span reaches the profiler's events; the benchmark's
 nine readers of the spans read nothing without them and the per-micro-step
 values of a hand-built table; a ``common.profile_dir`` run's trace carries
-the spans as rows of their own, on the trace's time base. On the card: no
+the spans as rows of their own, on the trace's time base. ``to_device``
+gives the same tensors whether a batch carries page-locked copies or not,
+and its byte counters record each copy, as pageable on the CPU, only under
+a profiler; the benchmark's reader of their share. On the card: no
 device event carries a span's name, and the three phases' stream times are
 positive and add up to no more than the traced wall.
 """
@@ -30,6 +33,8 @@ from liteasr_tpu_torch.utils import tracing
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("train.forward", "train.backward", "train.optimizer")
 NAMES = ("train.step",) + PHASES + ("data.wait", "data.collate", "data.to_device")
+COUNTERS = ("data.h2d_pinned_bytes", "data.h2d_pageable_bytes")
+IDS = ("ys", "xlens", "ylens")
 # each reader of the benchmark: (span, key, divided by the micro-steps)
 READERS = {
     "train.batch_wait_ms": ("data.wait", "host_ms", True),
@@ -132,7 +137,11 @@ def test_two_micro_steps_under_a_cpu_profiler(corpus, tmp_path):
         assert tracing.span("train.step") is not tracing.OFF
         _micro_steps(trainer, 2)
     totals = tracing.totals()
-    assert set(totals) == set(NAMES)
+    assert set(totals) == set(NAMES) | set(COUNTERS)
+    # the CPU has no page-locked memory: every batch crossed as pageable
+    assert totals["data.h2d_pinned_bytes"] == {"count": 2, "total": 0}
+    assert totals["data.h2d_pageable_bytes"]["count"] == 2
+    assert totals["data.h2d_pageable_bytes"]["total"] > 0
     for name in NAMES:
         t = totals[name]
         assert t["count"] == 2, name
@@ -220,6 +229,88 @@ def test_benchmark_reader_of_the_spans(name, monkeypatch):
     monkeypatch.setattr(tracing, "totals", lambda: {
         k: dict(v, device_ms=None) for k, v in table.items()})
     assert (reader.read(train) is None) == (key == "device_ms")
+
+
+def _batch(seed):
+    """A collated batch as the port's collator makes one: float features,
+    int32 ids."""
+    rng = np.random.default_rng(seed)
+    return {"xs": rng.standard_normal((3, 8, 4)).astype(np.float32),
+            "xlens": np.array([8, 5, 3], np.int32),
+            "ys": rng.integers(0, 9, (3, 6)).astype(np.int32),
+            "ylens": np.array([6, 2, 1], np.int32),
+            "valid": np.array([1, 1, 0], np.float32)}
+
+
+BATCH_BYTES = 3 * 8 * 4 * 4 + 3 * 8 + 3 * 6 * 8 + 3 * 8 + 3 * 4  # the ids as int64
+
+
+def _carried(batch):
+    """``batch`` as a loader with ``pin_memory`` hands it on, its copies in
+    ordinary memory (the CPU has no page-locked memory)."""
+    from liteasr_tpu_torch.data.loader import PinnedBatch, host_tensor
+
+    carried = PinnedBatch(batch)
+    carried.pinned = {k: host_tensor(k, v).clone() for k, v in batch.items()}
+    return carried
+
+
+def test_to_device_gives_the_same_tensors_on_either_path():
+    from liteasr_tpu_torch.trainer import to_device
+
+    cpu = torch.device("cpu")
+    batch = _batch(3)
+    carried = _carried(batch)
+    plain, other = to_device(batch, cpu), to_device(carried, cpu)
+    assert list(plain) == list(other) == list(batch)
+    for key, val in batch.items():
+        want = torch.int64 if key in IDS else torch.float32
+        assert plain[key].dtype == other[key].dtype == want, key
+        assert torch.equal(plain[key], other[key]), key
+        assert np.array_equal(plain[key].numpy(), val), key
+        assert other[key] is carried.pinned[key], key  # the carried copy is the source
+    assert all(carried[k] is batch[k] for k in batch)
+
+
+def test_copy_counters_record_each_copy_only_under_a_profiler():
+    from liteasr_tpu_torch.trainer import to_device
+
+    cpu = torch.device("cpu")
+    tracing.reset()
+    to_device(_batch(1), cpu)
+    to_device(_carried(_batch(2)), cpu)
+    assert tracing.totals() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        to_device(_batch(1), cpu)
+        to_device(_carried(_batch(2)), cpu)
+    totals = tracing.totals()
+    assert totals["data.h2d_pageable_bytes"] == {"count": 2, "total": 2 * BATCH_BYTES}
+    assert totals["data.h2d_pinned_bytes"] == {"count": 2, "total": 0}
+    assert totals["data.to_device"]["count"] == 2
+
+
+def test_benchmark_reader_of_the_copy_counters(monkeypatch):
+    harness, reader = _reader("train.h2d_pinned_pct")
+    train = harness.Run(stats={"kind": "train"})
+    tracing.reset()
+    assert reader.read(train) is None  # an untraced run: no counter
+
+    step = {"train.step": {"count": 4, "host_ms": 800.0, "self_ms": 8.0, "device_ms": None}}
+    table = dict(step, **{"data.h2d_pinned_bytes": {"count": 4, "total": 300},
+                          "data.h2d_pageable_bytes": {"count": 4, "total": 100}})
+    monkeypatch.setattr(tracing, "totals", lambda: table)
+    assert reader.read(train) == pytest.approx(75.0)
+    assert reader.read(harness.Run(stats={"kind": "decode"})) is None
+    # a program with the spans and without the counters
+    monkeypatch.setattr(tracing, "totals", lambda: step)
+    assert reader.read(train) is None
+    # counters of a run with no micro-step, or that copied nothing
+    monkeypatch.setattr(tracing, "totals", lambda: {k: v for k, v in table.items()
+                                                    if k != "train.step"})
+    assert reader.read(train) is None
+    monkeypatch.setattr(tracing, "totals", lambda: dict(step, **{
+        name: {"count": 4, "total": 0} for name in COUNTERS}))
+    assert reader.read(train) is None
 
 
 def test_profile_dir_trace_carries_the_spans(corpus, tmp_path):
