@@ -11,6 +11,10 @@ rule and stay replicated. Under sp the training forward gathers the
 encoder's blocks of frames and runs the prediction network and the joint
 on the rank's block of rows (:meth:`tail_rows`), so that a rank's lattice
 is (B/sp, T', U+1, V).
+
+Spans (``utils.tracing``, on only under a profiler): ``rnnt.predictor``
+around the prediction network and ``rnnt.joint`` around the joint, in
+:meth:`Transducer.forward`.
 """
 
 from dataclasses import dataclass, field
@@ -27,6 +31,7 @@ from liteasr_tpu_torch.nets.common import Dense, lecun_normal_
 from liteasr_tpu_torch.nets.encoder import TransformerEncoder, subsample_mask
 from liteasr_tpu_torch.nets.rnn_decoder import RNNDecoder
 from liteasr_tpu_torch.ops.masks import padding_mask
+from liteasr_tpu_torch.utils import tracing
 
 IGNORE = -1
 BLANK = 0
@@ -147,8 +152,10 @@ class Transducer(LiteasrModel):
             rows = self.tail_rows(B)
             h_enc = self.gather_frames(h_enc, subsample_mask(xs_mask).shape[1])[rows]
             ys_in = ys_in[rows]
-        h_dec = self.decoder(ys_in, train=train)  # (B, U+1, H)
-        return self.joint(h_enc[:, :, None, :], h_dec[:, None, :, :])
+        with tracing.span("rnnt.predictor", xs.device):
+            h_dec = self.decoder(ys_in, train=train)  # (B, U+1, H)
+        with tracing.span("rnnt.joint", xs.device):
+            return self.joint(h_enc[:, :, None, :], h_dec[:, None, :, :])
 
     def encode(self, xs, xlens):
         """Encoder forward for decoding. Returns (h_enc, enc_mask (B, T'))."""

@@ -16,9 +16,16 @@ Gradients come from autograd through the loop, as JAX's come from autodiff
 through the scan.
 
 loss[b] = -(alpha[T_b-1, U_b] + blank[T_b-1, U_b])
+
+Spans (``utils.tracing``, on only under a profiler): ``rnnt.lattice``
+around :func:`lattice_log_probs` and ``rnnt.dp`` around the forward of
+:func:`lattice_nll`; the counter ``rnnt.lattice_cells`` takes each
+lattice's B x T x (U+1) x V.
 """
 
 import torch
+
+from liteasr_tpu_torch.utils import tracing
 
 NEG_INF = -1e30
 
@@ -27,23 +34,30 @@ def lattice_log_probs(logits: torch.Tensor, targets: torch.Tensor, blank: int = 
     """The two slices of the lattice's log-softmax that the DP reads, in fp32:
     (lp_blank (B, T, U+1), lp_emit (B, T, U)). log p[v] = h[v] - lse(h); the
     lse is taken over V in fp32, and only the blank and target-label scores
-    are gathered (liteasr_tpu/ops/rnnt.py:48-59)."""
+    are gathered (liteasr_tpu/ops/rnnt.py:48-59). The ``rnnt.lattice`` span."""
     B, T, U1, _ = logits.shape
     U = U1 - 1
     if targets.shape[1] != U:
         raise ValueError(f"targets {tuple(targets.shape)} against the lattice "
                          f"{tuple(logits.shape)}")
-    lse = torch.logsumexp(logits.float(), dim=-1)  # (B, T, U+1)
-    lp_blank = logits[..., blank].float() - lse
-    index = targets.long()[:, None, :, None].expand(B, T, U, 1)
-    lp_emit = torch.gather(logits[:, :, :U, :], 3, index)[..., 0].float() - lse[:, :, :U]
+    tracing.add("rnnt.lattice_cells", logits.numel())
+    with tracing.span("rnnt.lattice", logits.device):
+        lse = torch.logsumexp(logits.float(), dim=-1)  # (B, T, U+1)
+        lp_blank = logits[..., blank].float() - lse
+        index = targets.long()[:, None, :, None].expand(B, T, U, 1)
+        lp_emit = torch.gather(logits[:, :, :U, :], 3, index)[..., 0].float() - lse[:, :, :U]
     return lp_blank, lp_emit
 
 
 def lattice_nll(lp_blank: torch.Tensor, lp_emit: torch.Tensor,
                 input_lengths: torch.Tensor, label_lengths: torch.Tensor) -> torch.Tensor:
     """The forward DP over the lattice: -(alpha[T_b-1, U_b] + blank[T_b-1,
-    U_b]) per utterance, (B,)."""
+    U_b]) per utterance, (B,). The ``rnnt.dp`` span."""
+    with tracing.span("rnnt.dp", lp_blank.device):
+        return _lattice_nll(lp_blank, lp_emit, input_lengths, label_lengths)
+
+
+def _lattice_nll(lp_blank, lp_emit, input_lengths, label_lengths):
     B, T, U1 = lp_blank.shape
     U = U1 - 1
     dev = lp_blank.device

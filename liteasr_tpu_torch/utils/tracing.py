@@ -32,6 +32,13 @@ The spans, each where the work happens:
                     there and recorded by the consumer that takes it
 ``data.to_device``  ``trainer.to_device``: the host-to-device copy,
                     any wait for the stream included
+``rnnt.predictor``  the transducer's prediction network
+                    (``models.transducer``), inside ``train.forward``
+``rnnt.joint``      the transducer's joint, to the (B, T', U+1, V)
+                    lattice
+``rnnt.lattice``    ``ops.rnnt.lattice_log_probs``: the lattice's
+                    log-softmax and the blank and label gathers
+``rnnt.dp``         ``ops.rnnt.lattice_nll``: the forward DP's loop
 =================== ==================================================
 
 A span outside a micro-step (the data spans) belongs to the micro-step
@@ -47,6 +54,8 @@ number of its additions:
 ``data.h2d_pinned_bytes``   ``trainer.to_device``: bytes copied to the
                             device from page-locked host memory
 ``data.h2d_pageable_bytes`` the same, from pageable host memory
+``rnnt.lattice_cells``      ``ops.rnnt.lattice_log_probs``: the cells
+                            B x T' x (U+1) x V of each lattice
 =========================== ==========================================
 """
 

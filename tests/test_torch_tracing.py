@@ -7,8 +7,10 @@ span is the shared no-op; under a profiler two micro-steps record each
 span twice with its parent and micro-step, the collation from the
 loader's worker; a span's stamps bracket the profiler's own event of an op
 inside it, and no span reaches the profiler's events; the benchmark's
-nine readers of the spans read nothing without them and the per-micro-step
-values of a hand-built table; a ``common.profile_dir`` run's trace carries
+twelve readers of the spans read nothing without them and the per-micro-step
+values of a hand-built table; a transducer's forward records its four
+spans and its lattice counter once, only under a profiler, and the
+benchmark's reader of the counter; a ``common.profile_dir`` run's trace carries
 the spans as rows of their own, on the trace's time base. ``to_device``
 gives the same tensors whether a batch carries page-locked copies or not,
 and its byte counters record each copy, as pageable on the CPU, only under
@@ -46,7 +48,11 @@ READERS = {
     "train.backward_device_ms": ("train.backward", "device_ms", True),
     "train.optimizer_host_ms": ("train.optimizer", "host_ms", True),
     "train.optimizer_device_ms": ("train.optimizer", "device_ms", True),
+    "train.rnnt_joint_device_ms": ("rnnt.joint", "device_ms", True),
+    "train.rnnt_lattice_device_ms": ("rnnt.lattice", "device_ms", True),
+    "train.rnnt_dp_host_ms": ("rnnt.dp", "host_ms", True),
 }
+RNNT = ("rnnt.predictor", "rnnt.joint", "rnnt.lattice", "rnnt.dp")
 
 
 @pytest.fixture(scope="module")
@@ -216,7 +222,10 @@ def test_benchmark_reader_of_the_spans(name, monkeypatch):
              "data.collate": {"count": 5, "host_ms": 150.0, "self_ms": 150.0,
                               "device_ms": None},
              "data.to_device": {"count": 4, "host_ms": 12.0, "self_ms": 12.0,
-                                "device_ms": 2.0}}
+                                "device_ms": 2.0},
+             "rnnt.joint": {"count": 4, "host_ms": 6.0, "self_ms": 6.0, "device_ms": 36.0},
+             "rnnt.lattice": {"count": 4, "host_ms": 2.0, "self_ms": 2.0, "device_ms": 52.0},
+             "rnnt.dp": {"count": 4, "host_ms": 240.0, "self_ms": 240.0, "device_ms": 250.0}}
     monkeypatch.setattr(tracing, "totals", lambda: table)
     want = table[span][key] / (4 if per_step else table[span]["count"])
     assert reader.read(train) == pytest.approx(want)
@@ -310,6 +319,62 @@ def test_benchmark_reader_of_the_copy_counters(monkeypatch):
     assert reader.read(train) is None
     monkeypatch.setattr(tracing, "totals", lambda: dict(step, **{
         name: {"count": 4, "total": 0} for name in COUNTERS}))
+    assert reader.read(train) is None
+
+
+def _transducer_step(criterion, model, batch):
+    loss, _ = criterion(model, batch, train=True)
+    loss.backward()
+
+
+def test_transducer_spans_record_once_a_forward_only_under_a_profiler():
+    from liteasr_tpu_torch import tasks
+    from liteasr_tpu_torch.config import compose
+
+    cfg = compose(["task=synthetic", "model=my_transducer", "criterion=my_rnnt",
+                   "task.vocab_size=12", "task.feat_dim=16", "model.enc_arch=conformer",
+                   "model.enc_dim=32", "model.enc_ff_dim=64", "model.enc_layers=1",
+                   "model.dec_dim=16", "model.dec_units=20", "model.joint_dim=24"])
+    task = tasks.setup_task(cfg.task)
+    torch.manual_seed(0)
+    model = task.build_model(cfg.model, device=torch.device("cpu"),
+                             generator=torch.Generator().manual_seed(0))
+    criterion = task.build_criterion(cfg.criterion)
+    B, T, U = 3, 40, 5
+    batch = {"xs": torch.randn(B, T, 16), "xlens": torch.tensor([40, 33, 21]),
+             "ys": torch.randint(1, 12, (B, U)), "ylens": torch.tensor([5, 2, 1]),
+             "valid": torch.ones(B)}
+    tracing.reset()
+    _transducer_step(criterion, model, batch)
+    assert tracing.totals() == {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            _transducer_step(criterion, model, batch)
+    totals = tracing.totals()
+    assert set(totals) == set(RNNT) | {"rnnt.lattice_cells"}
+    for name in RNNT:
+        assert totals[name]["count"] == 2, name
+        assert totals[name]["host_ms"] > 0 and totals[name]["device_ms"] is None, name
+    t_sub = ((T - 1) // 2 - 1) // 2  # the conv2d front end's frames
+    assert totals["rnnt.lattice_cells"] == {"count": 2, "total": 2 * B * t_sub * (U + 1) * 12}
+    spans = tracing.spans()
+    assert [s.name for s in spans] == list(RNNT) * 2  # in the forward's order
+    assert not set(RNNT) & _event_names(prof)
+
+
+def test_benchmark_reader_of_the_lattice_counter(monkeypatch):
+    harness, reader = _reader("train.rnnt_lattice_mcells")
+    train = harness.Run(stats={"kind": "train"})
+    tracing.reset()
+    assert reader.read(train) is None  # an untraced run: no counter
+
+    step = {"train.step": {"count": 4, "host_ms": 800.0, "self_ms": 8.0, "device_ms": None}}
+    table = dict(step, **{"rnnt.lattice_cells": {"count": 4, "total": 6_000_000_000}})
+    monkeypatch.setattr(tracing, "totals", lambda: table)
+    assert reader.read(train) == pytest.approx(1500.0)
+    assert reader.read(harness.Run(stats={"kind": "decode"})) is None
+    # a program with the spans and without the counter (a U2 cell, the parent)
+    monkeypatch.setattr(tracing, "totals", lambda: step)
     assert reader.read(train) is None
 
 
