@@ -99,14 +99,21 @@ transformer layers, 256-d, 4 heads, FF 2048, relu; a 2 x 2048 LSTM over
 
 g. trained through ``train.main`` (my_rnnt, my_noam, dropout 0.1, clip 5,
    accum 2, no SpecAugment) on the corpus of 6 for 2 epochs: 4 K1' and 4 K2
-   launches per micro-batch, 4 K1 per valid batch, finite losses, moved
+   launches per micro-batch, 4 K1 per valid batch, one RNN-T DP forward
+   launch a micro-batch and a valid batch and one backward a micro-batch,
+   finite losses, moved
    parameters (every LSTM leaf among them), ``valid loss:`` lines and a
    ``model.ep.2.pt`` that ``infer.infer`` decodes greedily and with the beam
    (4 K1 launches per batch each);
 h. the micro-step at bench.py's point (B=32, T=800, U=48): median of 5
    repetitions of 4, utt/s and peak memory; the joint's output GEMM, the
-   lattice's fp32 lse and gathers, and the RNN-T DP loop over T'=199 each
-   timed alone (forward and backward) at those shapes;
+   lattice's fp32 lse and gathers, and the RNN-T DP (its two kernels) each
+   timed alone (forward and backward) at those shapes, one DP launch each
+   way a micro-step; the DP's kernels and the plain loop over T'=199 in
+   fp32 against the loop in fp64 on the phase's batch (loss and both
+   gradients, to the limits of ``tests/test_torch_rnnt_gpu.py``: the
+   kernels' gradients relative to each), one launch each way, and each
+   side's forward and backward timed alone beside the kernels' bound;
 i. the corpus of 4 decoded through ``infer_dataset`` with random weights,
    greedy (3 symbols per frame) and the beam (K=10, E=5): s/batch, utt/s,
    RTF, with and without the host's scoring, 4 K1 launches per batch;
@@ -289,7 +296,9 @@ z4. the bf16 micro-step at bench.py's point in the layout: ms and peak
    memory per rank, informational (the two ranks share the card);
 z5-z7. the same for the transducer in the same 2 processes (after U2's):
    my_transducer at full width through ``train.main`` (4 K1' + 4 K2 per
-   micro-batch a rank at the shard's shapes; transducer_greedy decoding),
+   micro-batch a rank at the shard's shapes; one RNN-T DP forward launch a
+   micro-batch and a valid batch, one backward a micro-batch, and one each
+   way a bf16 micro-step; transducer_greedy decoding),
    its fp32 step (2 encoder + 1 LSTM layer) with a planted fault (under tp
    the last encoder layer's attention output all-reduce dropped, under sp
    the RNN-T utterance count reduced over dp x sp), its bf16 micro-step
@@ -337,7 +346,8 @@ the ``dp_*`` keys x's and y's, the ``shard_*`` keys z1's calls and the
 ``paraformer_tp_*`` keys z1's pass-1 calls, the ``wav2vec2_shard_*`` keys
 z1's wav2vec 2.0 calls, the ``export_*`` keys e1, the ``hard_corpus_*`` keys
 hc's; ``launches`` sum the main paths 4, 6, b, c, d, hc, g, i, l, m, p, r, u,
-x, z2, z5, z8, z11 and e1).
+x, z2, z5, z8, z11 and e1; for rnnt_dp, the RNN-T DP's kernels, the main
+paths g, h, z5 and z7, and ``ms``/``plain_ms`` its forward at h's batch).
 
     python3 chip_smoke.py --profile-train
 
@@ -529,6 +539,21 @@ def chunk_counts(fa):
     count them."""
     return (fa.flash_attention.chunk_launches - fa.flash_attention.lse_chunk_launches,
             fa.flash_attention.lse_chunk_launches, fa.flash_rel_attention_bwd.chunk_launches)
+
+
+def reset_dp_counts():
+    """Zero the RNN-T DP kernels' launch counts (``ops.rnnt.lattice_nll``)."""
+    from liteasr_tpu_torch.ops import rnnt
+
+    rnnt.lattice_nll.launches = 0
+    rnnt.lattice_nll.bwd_launches = 0
+
+
+def dp_counts():
+    """(forward, backward) launches of the RNN-T DP kernels."""
+    from liteasr_tpu_torch.ops import rnnt
+
+    return rnnt.lattice_nll.launches, rnnt.lattice_nll.bwd_launches
 
 
 def nbytes(*tensors) -> int:
@@ -1838,17 +1863,21 @@ def infer_td_checkpoint(fa, run, mode, dev, name):
 def run_td_training(fa, root, dev, name):
     """Phase g: the transducer through train.main at full width, then
     infer.infer of its checkpoint in both modes. Returns the (K1, K1', K2)
-    launches of the training run and the K1 launches of the two decodes."""
+    launches of the training run, the K1 launches of the two decodes and
+    the run's (forward, backward) RNN-T DP launches: one forward a
+    micro-batch and a valid batch, one backward a micro-batch."""
     from liteasr_tpu_torch import train
 
     run = os.path.join(root, "td_run")
     overrides = train_overrides("rnnt", root, run, TRAIN_EPOCHS)
     reset_counts(fa)
+    reset_dp_counts()
     t0 = time.perf_counter()
     trainer = train.main(overrides, device=dev)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     fwd, lse, bwd = counts(fa)
+    dp = dp_counts()
     micro = TRAIN_EPOCHS * len(trainer.task.dataset("train"))
     n_valid = TRAIN_EPOCHS * len(trainer.valid_set)
     losses = torch.stack(trainer._loss_accum).float().cpu()
@@ -1856,6 +1885,9 @@ def run_td_training(fa, root, dev, name):
                                  TD_ENC_LAYERS * n_valid):
         raise RuntimeError(f"transducer launches K1' {lse}, K2 {bwd}, K1 {fwd - lse} for "
                            f"{micro} micro-batches and {n_valid} valid batches")
+    if dp != (micro + n_valid, micro):
+        raise RuntimeError(f"RNN-T DP launches {dp} (forward, backward) for {micro} "
+                           f"micro-batches and {n_valid} valid batches")
     if len(losses) != micro or not bool(torch.isfinite(losses).all()):
         raise RuntimeError(f"transducer training losses {losses.tolist()}")
     init = dict(build_td_model(torch.bfloat16, "cpu").named_parameters())
@@ -1877,13 +1909,14 @@ def run_td_training(fa, root, dev, name):
         f"{TRAIN_EPOCHS} epochs, {int(trainer.tx.count)} optimizer steps "
         f"({int(trainer.tx.notfinite_count)} skipped), {secs:.2f} s incl. validation and "
         f"checkpoints; losses {[round(x, 3) for x in losses.tolist()]}; K1' {lse}, K2 "
-        f"{bwd}, K1 {fwd - lse} launches; {len(moved)} of {len(init)} parameter leaves "
+        f"{bwd}, K1 {fwd - lse} launches; RNN-T DP launches {dp[0]} forward + {dp[1]} "
+        f"backward; {len(moved)} of {len(init)} parameter leaves "
         f"moved, the {len(lstm)} LSTM leaves among them; "
         f"{valid_lines[-1].split(' - ')[-1].strip()} [{name}]")
     del trainer
     dec = [infer_td_checkpoint(fa, run, mode, dev, name)
            for mode in ("transducer_greedy", "transducer_beam_search")]
-    return (fwd - lse, lse, bwd), sum(dec)
+    return (fwd - lse, lse, bwd), sum(dec), dp
 
 
 def td_bench_step(dev, shard=False):
@@ -1934,16 +1967,19 @@ def host_time_ms(fn, reps: int = 5) -> float:
 
 def time_td_step(dev, name):
     """Phase h: the transducer micro-step at bench.py's point: median of 5
-    repetitions of 4 micro-steps, utt/s and peak memory; then the step's
-    parts that were predicted to take its time, each timed alone (forward
-    and backward) on the same shapes: the joint's output GEMM, the lattice's
-    fp32 lse and gathers, and the DP loop over T'."""
+    repetitions of 4 micro-steps, utt/s and peak memory, one RNN-T DP
+    launch each way a micro-step; then the step's parts that were predicted
+    to take its time, each timed alone (forward and backward) on the same
+    shapes: the joint's output GEMM, the lattice's fp32 lse and gathers, and
+    the DP's kernels; then :func:`check_rnnt_dp`. Returns its numbers and
+    the micro-steps' DP launches."""
     from liteasr_tpu_torch.ops.rnnt import lattice_log_probs, lattice_nll
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     step, model, batch, B = td_bench_step(dev)
+    reset_dp_counts()
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -1956,6 +1992,9 @@ def time_td_step(dev, name):
         reps.append((time.perf_counter() - t0) / 4)
     if not bool(torch.isfinite(loss)):
         raise RuntimeError("non-finite transducer loss in the timed steps")
+    step_dp = dp_counts()
+    if step_dp != (23, 23):
+        raise RuntimeError(f"RNN-T DP launches {step_dp} (forward, backward) in 23 micro-steps")
     med = statistics.median(reps)
     peak = torch.cuda.max_memory_allocated() / 2**30
     with torch.no_grad():
@@ -1991,7 +2030,100 @@ def time_td_step(dev, name):
         f"{peak:.2f} GiB; parts timed alone, fwd+bwd: the joint's output GEMM "
         f"{gemm_ms:.2f} ms ({gemm_flops / 1e12:.2f} TFLOP, "
         f"{gemm_flops / gemm_ms / 1e9:.0f} TFLOP/s), the lattice's fp32 lse and gathers "
-        f"{lse_ms:.2f} ms, the {T_}-step DP loop {dp_ms:.2f} ms [{name}]")
+        f"{lse_ms:.2f} ms, the DP (its two kernels) {dp_ms:.2f} ms; RNN-T DP launches in "
+        f"the 23 micro-steps {step_dp[0]} forward + {step_dp[1]} backward [{name}]")
+    rep = check_rnnt_dp(lp_blank.detach(), lp_emit.detach(), pred_len, batch["ylens"], name)
+    return dict(rep, step_launches=step_dp)
+
+
+# one step of the DP kernels' chain: a barrier, a shared-memory read of
+# the neighbour and a logadd (expf, log1pf), ~90 cycles at 1.755 GHz
+DP_STEP_NS = 50.0
+
+
+def check_rnnt_dp(lp_blank, lp_emit, in_lens, lab_lens, name):
+    """Phase h's DP: the kernels (``csrc/rnnt_dp.cu``) and the plain loop
+    over T', both in fp32 on the phase's planes, against the plain loop in
+    fp64 on the card, under ``tests/test_torch_rnnt_gpu.py``'s limits: the
+    losses to 2e-5 of themselves; both gradients of a weighted sum (one row
+    at weight 0) of the kernels to delta = 4 sqrt(T' + U) ulp(logZ) of each
+    gradient over a floor of 1e-6 (a gradient is exp(alpha + lp + beta -
+    logZ): an error delta in its exponent is one of delta of itself), the
+    loop's to delta absolute (its emit gradient leaves autograd through the
+    differences of a cumulative sum); the kernels' gradient on the weight-0
+    row exactly 0, and one launch each way. Then each side's forward and
+    backward timed alone (the kernels by CUDA events, the loop by the host
+    clock, which paces it) beside the kernels' bound: the larger of the two
+    planes' bytes at 3.35 TB/s and T' + U steps of DP_STEP_NS. Returns the
+    numbers of the kernels line's ``rnnt_dp`` entry."""
+    from liteasr_tpu_torch.ops import rnnt
+
+    B, T, U1 = lp_blank.shape
+    in_lens, lab_lens = in_lens.long(), lab_lens.long()
+    weights = torch.linspace(0.5, 1.5, B, device=lp_blank.device)
+    weights[-1] = 0.0
+
+    def run(fn, dtype=torch.float32):
+        b, e = (x.to(dtype, copy=True).requires_grad_() for x in (lp_blank, lp_emit))
+        loss = fn(b, e, in_lens, lab_lens)
+        (loss * weights.to(dtype)).sum().backward()
+        return loss.detach().double(), b.grad.double(), e.grad.double()
+
+    reset_dp_counts()
+    got = run(rnnt.lattice_nll)
+    if dp_counts() != (1, 1):
+        raise RuntimeError(f"the DP launched {dp_counts()} kernels (forward, backward), "
+                           "not one each way")
+    plain = run(rnnt._lattice_nll)
+    ref = run(rnnt._lattice_nll, torch.float64)
+    delta = 4.0 * (T + U1 - 1) ** 0.5 * float(np.spacing(np.float32(ref[0].abs().max().item())))
+
+    def gaps(side, rtol, atol):
+        """The loss's largest relative gap; each gradient's largest absolute
+        gap and its largest share of the limit (1 is the limit)."""
+        out = [((side[0] - ref[0]).abs() / ref[0].abs()).max().item()]
+        for x, r in zip(side[1:], ref[1:]):
+            d = (x - r).abs()
+            out += [d.max().item(), (d / (atol + rtol * r.abs())).max().item()]
+        return out
+
+    k_gaps, p_gaps = gaps(got, delta, 1e-6), gaps(plain, 0.0, delta)
+    for side, (loss_gap, _, b_share, _, e_share) in (("kernels", k_gaps), ("loop", p_gaps)):
+        if loss_gap > 2e-5 or max(b_share, e_share) > 1.0:
+            raise RuntimeError(f"the DP's {side} against the fp64 loop: loss {loss_gap:.3g} "
+                               f"(limit 2e-5), gradients at {b_share:.3g} and {e_share:.3g} "
+                               f"of the limit (delta {delta:.3g})")
+    if (got[1][-1] != 0).any() or (got[2][-1] != 0).any():
+        raise RuntimeError("the DP kernels gave a weight-0 row a gradient")
+
+    loss, alpha = rnnt._launch_fwd(lp_blank, lp_emit, in_lens, lab_lens)
+    k_fwd = cuda_time_ms(lambda: rnnt._launch_fwd(lp_blank, lp_emit, in_lens, lab_lens))
+    k_bwd = cuda_time_ms(lambda: rnnt._launch_bwd(lp_blank, lp_emit, in_lens, lab_lens,
+                                                  alpha, loss, weights))
+    b, e = (x.clone().requires_grad_() for x in (lp_blank, lp_emit))
+    p_fwd = host_time_ms(lambda: rnnt._lattice_nll(b, e, in_lens, lab_lens))
+    p_all = host_time_ms(lambda: (rnnt._lattice_nll(b, e, in_lens, lab_lens) * weights)
+                         .sum().backward())
+    byte_ms = 2 * B * T * U1 * 4 / 3.35e12 * 1e3
+    chain_ms = (T + U1 - 1) * DP_STEP_NS * 1e-6
+    p_rel = gaps(plain, delta, 1e-6)  # the loop under the kernels' limit: a reading only
+    log(f"RNN-T DP at B={B}, T'={T}, U+1={U1} against the fp64 loop (delta {delta:.3g}): "
+        f"kernels loss {k_gaps[0]:.3g} relative, d lp_blank {k_gaps[1]:.3g} abs at "
+        f"{k_gaps[2]:.3g} of their limit (delta of each gradient + 1e-6), d lp_emit "
+        f"{k_gaps[3]:.3g} at {k_gaps[4]:.3g}, the weight-0 row's gradient 0, 1 launch each "
+        f"way; fp32 loop loss {p_gaps[0]:.3g}, d lp_blank {p_gaps[1]:.3g} abs, d lp_emit "
+        f"{p_gaps[3]:.3g} abs (limit delta absolute; at {p_rel[2]:.3g} and {p_rel[4]:.3g} of "
+        f"the kernels' limit); kernel fwd {k_fwd:.4f} ms, bwd "
+        f"{k_bwd:.4f} ms (CUDA events); plain loop fwd {p_fwd:.2f} ms, bwd "
+        f"{p_all - p_fwd:.2f} ms (host clock); bound {max(byte_ms, chain_ms):.4f} ms a "
+        f"direction (bytes {byte_ms:.4f}, chain of {T + U1 - 1} steps at {DP_STEP_NS:.0f} "
+        f"ns {chain_ms:.4f}) [{name}]")
+    return {"max_abs_err": max(k_gaps[1], k_gaps[3]), "loss_rel_err": k_gaps[0],
+            "limit_share": max(k_gaps[2], k_gaps[4]), "delta": delta,
+            "plain_max_abs_err": max(p_gaps[1], p_gaps[3]), "ms": k_fwd, "bwd_ms": k_bwd,
+            "plain_ms": p_fwd, "plain_bwd_ms": p_all - p_fwd,
+            "bound_ms": max(byte_ms, chain_ms),
+            "bound_by": "bytes" if byte_ms > chain_ms else "chain"}
 
 
 def run_td_decode(fa, task, dev, name):
@@ -4201,6 +4333,7 @@ def tp_sp_family(family, rank, sp, tp, addrs, root, dev, fa):
         "{name: save_model, interval: 1, unit: epoch}, "
         "{name: inference, interval: 1, unit: epoch}]"]
     reset_counts(fa)
+    reset_dp_counts()
     parallel.counts.clear()
     fa._launch_fwd, fa._launch_bwd = rec_fwd, rec_bwd
     trainer_mod.Trainer.train_step = rec_step
@@ -4211,7 +4344,7 @@ def tp_sp_family(family, rank, sp, tp, addrs, root, dev, fa):
     finally:
         fa._launch_fwd, fa._launch_bwd = launch_fwd, launch_bwd
         trainer_mod.Trainer.train_step = train_step
-    res = dict(train_s=time.perf_counter() - t0, counts=counts(fa),
+    res = dict(train_s=time.perf_counter() - t0, counts=counts(fa), dp_counts=dp_counts(),
                collectives=dict(parallel.counts), calls=calls,
                steps=[(rows, k1) for rows, k1, _ in steps],
                micro=len(trainer.task.dataset("train")), n_valid=len(trainer.valid_set),
@@ -4242,6 +4375,7 @@ def tp_sp_family(family, rank, sp, tp, addrs, root, dev, fa):
             step, _, _, B = td_bench_step(dev, shard=True)
         else:
             step, B = para_bench_step(dev, shard=True)
+        reset_dp_counts()
         for _ in range(2):
             step()
         torch.cuda.synchronize()
@@ -4254,6 +4388,7 @@ def tp_sp_family(family, rank, sp, tp, addrs, root, dev, fa):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) / 5)
         res.update(step_ms=statistics.median(times) * 1e3, step_loss=loss.item(), step_rows=B,
+                   step_dp_counts=dp_counts(),
                    step_collectives={k: v / 15 for k, v in parallel.counts.items()},
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         del step, loss
@@ -4515,8 +4650,10 @@ def check_tp_sp_run(fa, family, label, res, sp, tp, dev, name):
     the T' queries, each micro-batch's K1 calls (the Paraformer's pass 1)
     at the rank's heads of its block of rows, finite losses; the checkpoint
     in the one-process layout, decoded in one process to the error count
-    the run's inference trigger logged. Returns the (K1, K1', K2) launches
-    of both ranks."""
+    the run's inference trigger logged; the RNN-T DP's launches in the
+    run and in the bf16 micro-steps (the transducer's only). Returns the
+    (K1, K1', K2) launches and the (forward, backward) DP launches of both
+    ranks."""
     from liteasr_tpu_torch import infer
     from liteasr_tpu_torch.config import compose
     from liteasr_tpu_torch.config.core import load_yaml
@@ -4525,7 +4662,7 @@ def check_tp_sp_run(fa, family, label, res, sp, tp, dev, name):
     enc = TD_ENC_LAYERS if family == "rnnt" else ENC_LAYERS
     pass1 = 2 * DEC_LAYERS if family == "paraformer" else 0
     micro, heads = res[0]["micro"], HEADS // tp
-    total = [0, 0, 0]
+    total, total_dp = [0, 0, 0], [0, 0]
     for r, x in enumerate(res):
         fwd, lse, bwd = x["counts"]
         if ((lse, bwd) != (enc * micro, enc * micro)
@@ -4547,6 +4684,18 @@ def check_tp_sp_run(fa, family, label, res, sp, tp, dev, name):
                                    f"{shard}")
         if len(x["steps"]) != micro:
             raise RuntimeError(f"{label} rank {r}: {len(x['steps'])} train steps recorded")
+        # the transducer's RNN-T DP: one backward launch a micro-batch whose
+        # block of rows this rank holds, and one forward more a valid batch
+        # (each holds N_VALID >= sp rows); one each way a bf16 micro-step
+        held = sum(sharding.split_sizes(rows, sp)[lay.sp_i] > 0 for rows, _ in x["steps"])
+        want_dp = (held + x["n_valid"], held) if family == "rnnt" else (0, 0)
+        want_step = (17, 17) if family == "rnnt" else (0, 0)
+        if x["dp_counts"] != want_dp or x["step_dp_counts"] != want_step:
+            raise RuntimeError(f"{label} rank {r}: RNN-T DP launches {x['dp_counts']} in the "
+                               f"run (want {want_dp}), {x['step_dp_counts']} in the micro-steps "
+                               f"(want {want_step})")
+        total_dp = [a + b + c for a, b, c in
+                    zip(total_dp, x["dp_counts"], x["step_dp_counts"])]
         for rows, k1 in x["steps"]:
             # pass 1 on the rank's block of rows, at its heads
             mine = sharding.split_sizes(rows, sp)[lay.sp_i]
@@ -4587,8 +4736,10 @@ def check_tp_sp_run(fa, family, label, res, sp, tp, dev, name):
         + f"; losses rank 0 {[round(v, 3) for v in res[0]['losses']]}, rank 1 "
         f"{[round(v, 3) for v in res[1]['losses']]}; collectives {res[0]['collectives']}; "
         f"{valid}; checkpoint in the one-process layout, decoded in one process: error "
-        f"count {one[0][0]}/{one[0][1]}, as the trigger logged [{name}]")
-    return total
+        f"count {one[0][0]}/{one[0][1]}, as the trigger logged; RNN-T DP launches "
+        f"(forward, backward) rank 0 {res[0]['dp_counts']} in the run and "
+        f"{res[0]['step_dp_counts']} in the micro-steps [{name}]")
+    return total, total_dp
 
 
 def check_tp_sp_step(family, label, res, sp, ref, floor, resolution, name, tol=TP_SP_TOL):
@@ -4660,7 +4811,7 @@ def run_tp_sp(fa, root, wave_root, dev, name):
     torch.backends.cudnn.allow_tf32 = True
     gc.collect()
     torch.cuda.empty_cache()  # the ranks' micro-steps share the card
-    rep = {"fwd": 0, "lse": 0, "bwd": 0}
+    rep = {"fwd": 0, "lse": 0, "bwd": 0, "rnnt_dp": [0, 0]}
     for sp, tp in TP_SP_LAYOUTS:
         addrs = ",".join(free_address() for _ in range(2 * len(TP_SP_FAMILIES) + 2))
         outs = [os.path.join(root, f"tpsp_{sp}{tp}_r{r}.pt") for r in (0, 1)]
@@ -4682,7 +4833,8 @@ def run_tp_sp(fa, root, wave_root, dev, name):
         for family in TP_SP_FAMILIES:
             res = [x[family] for x in by_rank]
             label = f"{FAMILY_NAMES[family]} sp={sp} tp={tp}"
-            fwd, lse, bwd = check_tp_sp_run(fa, family, label, res, sp, tp, dev, name)
+            (fwd, lse, bwd), dp = check_tp_sp_run(fa, family, label, res, sp, tp, dev, name)
+            rep["rnnt_dp"] = [a + b for a, b in zip(rep["rnnt_dp"], dp)]
             rep["fwd"] += fwd
             rep["lse"] += lse
             rep["bwd"] += bwd
@@ -4911,9 +5063,10 @@ def main() -> int:
                 (hc_fwd, hc_lse, hc_bwd), hc_eval_fwd = run_hard_corpus(fa, root, dev, name)
 
             with phase("g"):
-                (td_fwd, td_lse, td_bwd), td_ckpt_fwd = run_td_training(fa, root, dev, name)
+                (td_fwd, td_lse, td_bwd), td_ckpt_fwd, td_dp = run_td_training(
+                    fa, root, dev, name)
             with phase("h"):
-                time_td_step(dev, name)
+                td_step = time_td_step(dev, name)
             with phase("i"):
                 td_dec_fwd, td_s = run_td_decode(fa, task, dev, name)
             log(f"transducer decode s/batch: greedy {td_s['transducer_greedy']:.4f}, beam "
@@ -5095,6 +5248,25 @@ def main() -> int:
         "chunk_ms": kc["bwd_ms"],
         "chunk_bound_ms": kc["bwd_bound_ms"],
         "chunk16_plain_ms": kc["bwd_plain_ms"],
+    }, {
+        # the RNN-T loss's DP: launches on the main paths g (train.main's
+        # micro-batches and valid batches), h (its 23 micro-steps) and z5/z7
+        # (both ranks' runs and micro-steps); ms / plain_ms its forward at
+        # h's batch, the bwd_* keys its backward, bound_ms either's (the
+        # chain of T' + U steps or the two planes' bytes, bound_by);
+        # max_abs_err its gradients' against the loop in fp64, limit_share
+        # their largest share of the limit (delta of each gradient + 1e-6)
+        "name": "rnnt_dp",
+        "route": "cuda",
+        "source": "liteasr_tpu_torch/csrc/rnnt_dp.cu",
+        "replaces": "liteasr_tpu/ops/rnnt.py:77-83",
+        "launches": td_dp[0] + td_step["step_launches"][0] + tpsp["rnnt_dp"][0],
+        "bwd_launches": td_dp[1] + td_step["step_launches"][1] + tpsp["rnnt_dp"][1],
+        "train_launches": list(td_dp),
+        "step_launches": list(td_step["step_launches"]),
+        "tp_sp_launches": tpsp["rnnt_dp"],
+        **{k: v for k, v in td_step.items() if k != "step_launches"},
+        "library_ms": None,  # no library computes the transducer's lattice DP
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

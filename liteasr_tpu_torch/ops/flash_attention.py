@@ -87,8 +87,11 @@ HASH_TQ = 128
 HASH_TK = 128
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
+# every CUDA source of the port, built and loaded here: the attention
+# kernels and the RNN-T loss's DP (ops/rnnt.py)
 SOURCES = {"rel_attention_fwd": _CSRC / "rel_attention_fwd.cu",
-           "rel_attention_bwd": _CSRC / "rel_attention_bwd.cu"}
+           "rel_attention_bwd": _CSRC / "rel_attention_bwd.cu",
+           "rnnt_dp": _CSRC / "rnnt_dp.cu"}
 # build output lives beside the package, in the repository's build/ tree
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "liteasr_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -770,19 +773,25 @@ def build_libraries(names=tuple(SOURCES)) -> Dict[str, Path]:
     return paths
 
 
+# each library's C functions and their argument types
 _ARGTYPES = {
-    "rel_attention_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                          + [ctypes.c_int] * 6
-                          + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
-                             ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * 5
-                          + [ctypes.c_void_p]),
-    "rel_attention_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 16
-                          + [ctypes.c_int] * 5
-                          + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
-                             ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * 5
-                          + [ctypes.c_void_p]),
+    "rel_attention_fwd": {"rel_attention_fwd": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 9
+        + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
+           ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+           ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * 5
+        + [ctypes.c_void_p])},
+    "rel_attention_bwd": {"rel_attention_bwd": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 16
+        + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
+           ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+           ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * 5
+        + [ctypes.c_void_p])},
+    "rnnt_dp": {
+        "rnnt_dp_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        "rnnt_dp_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]},
 }
 
 
@@ -796,8 +805,9 @@ def load_library(name: str = "rel_attention_fwd") -> ctypes.CDLL:
             f"CUDA is not available: the {name} kernel needs an NVIDIA GPU "
             "(sm_90a) and nvcc")
     lib = ctypes.CDLL(str(build_libraries((name,))[name]))
-    fn = getattr(lib, name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in _ARGTYPES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     _LIBS[name] = lib
     return lib

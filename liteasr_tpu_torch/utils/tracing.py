@@ -38,7 +38,9 @@ The spans, each where the work happens:
                     lattice
 ``rnnt.lattice``    ``ops.rnnt.lattice_log_probs``: the lattice's
                     log-softmax and the blank and label gathers
-``rnnt.dp``         ``ops.rnnt.lattice_nll``: the forward DP's loop
+``rnnt.dp``         ``ops.rnnt.lattice_nll``: the forward DP (on a
+                    CUDA device its one kernel launch, on the CPU
+                    the plain loop over T')
 =================== ==================================================
 
 A span outside a micro-step (the data spans) belongs to the micro-step
@@ -56,6 +58,9 @@ number of its additions:
 ``data.h2d_pageable_bytes`` the same, from pageable host memory
 ``rnnt.lattice_cells``      ``ops.rnnt.lattice_log_probs``: the cells
                             B x T' x (U+1) x V of each lattice
+``rnnt.dp_kernel_rows``     ``ops.rnnt.lattice_nll``: the utterances
+                            whose DP ran in the CUDA kernels
+``rnnt.dp_plain_rows``      the same, in the plain loop over T'
 =========================== ==========================================
 """
 

@@ -67,4 +67,4 @@ def test_kernel_loader_raises_without_cuda():
                 raise SystemExit(f"the loader returned {name} without a CUDA device")
     """)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.count("raised: CUDA is not available") == 2
+    assert proc.stdout.count("raised: CUDA is not available") == 3

@@ -11,26 +11,9 @@ import torch
 
 from liteasr_tpu.ops.rnnt import rnnt_loss as jax_rnnt_loss
 from liteasr_tpu_torch.ops.rnnt import rnnt_loss
+from rnnt_oracle import oracle_rnnt
 
 TOL = 1e-5
-
-
-def oracle_rnnt(logp: np.ndarray, target: np.ndarray, T: int, U: int) -> float:
-    """The transducer forward algorithm cell by cell over (T, U+1), in fp64
-    (the idea of tests/test_rnnt.py's oracle). logp: (Tmax, Umax+1, V)."""
-    alpha = np.full((T, U + 1), -np.inf)
-    alpha[0, 0] = 0.0
-    for t in range(T):
-        for u in range(U + 1):
-            if t == 0 and u == 0:
-                continue
-            cands = []
-            if t > 0:
-                cands.append(alpha[t - 1, u] + logp[t - 1, u, 0])
-            if u > 0:
-                cands.append(alpha[t, u - 1] + logp[t, u - 1, target[u - 1]])
-            alpha[t, u] = np.logaddexp.reduce(cands)
-    return -(alpha[T - 1, U] + logp[T - 1, U, 0])
 
 
 def _case(seed: int, B: int = 4, T: int = 9, U: int = 5, V: int = 7):

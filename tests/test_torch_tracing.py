@@ -9,9 +9,11 @@ loader's worker; a span's stamps bracket the profiler's own event of an op
 inside it, and no span reaches the profiler's events; the benchmark's
 twelve readers of the spans read nothing without them and the per-micro-step
 values of a hand-built table; a transducer's forward records its four
-spans and its lattice counter once, only under a profiler, and the
-benchmark's reader of the counter; a ``common.profile_dir`` run's trace carries
-the spans as rows of their own, on the trace's time base. ``to_device``
+spans, its lattice counter and its DP's row counter once, only under a
+profiler, and the benchmark's reader of the lattice counter; the CPU's
+DP counts its rows as the plain loop's; a ``common.profile_dir`` run's
+trace carries the spans as rows of their own, on the trace's time base.
+``to_device``
 gives the same tensors whether a batch carries page-locked copies or not,
 and its byte counters record each copy, as pageable on the CPU, only under
 a profiler; the benchmark's reader of their share. On the card: no
@@ -351,15 +353,35 @@ def test_transducer_spans_record_once_a_forward_only_under_a_profiler():
         for _ in range(2):
             _transducer_step(criterion, model, batch)
     totals = tracing.totals()
-    assert set(totals) == set(RNNT) | {"rnnt.lattice_cells"}
+    assert set(totals) == set(RNNT) | {"rnnt.lattice_cells", "rnnt.dp_plain_rows"}
     for name in RNNT:
         assert totals[name]["count"] == 2, name
         assert totals[name]["host_ms"] > 0 and totals[name]["device_ms"] is None, name
     t_sub = ((T - 1) // 2 - 1) // 2  # the conv2d front end's frames
     assert totals["rnnt.lattice_cells"] == {"count": 2, "total": 2 * B * t_sub * (U + 1) * 12}
+    assert totals["rnnt.dp_plain_rows"] == {"count": 2, "total": 2 * B}
     spans = tracing.spans()
     assert [s.name for s in spans] == list(RNNT) * 2  # in the forward's order
     assert not set(RNNT) & _event_names(prof)
+
+
+def test_dp_row_counters_name_the_plain_loop_on_the_cpu():
+    from liteasr_tpu_torch.ops.rnnt import rnnt_loss
+
+    rng = np.random.default_rng(4)
+    B, T, U, V = 5, 9, 4, 7
+    logits = torch.from_numpy(rng.normal(size=(B, T, U + 1, V)).astype(np.float32))
+    args = (torch.from_numpy(rng.integers(1, V, (B, U))), torch.tensor([9, 7, 5, 2, 1]),
+            torch.tensor([4, 3, 1, 0, 2]))
+    tracing.reset()
+    rnnt_loss(logits, *args).sum()
+    assert tracing.totals() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        rnnt_loss(logits.requires_grad_(), *args).sum().backward()
+    totals = tracing.totals()
+    assert totals["rnnt.dp_plain_rows"] == {"count": 1, "total": B}
+    assert "rnnt.dp_kernel_rows" not in totals
+    assert totals["rnnt.dp"]["count"] == 1
 
 
 def test_benchmark_reader_of_the_lattice_counter(monkeypatch):
