@@ -4868,16 +4868,35 @@ def run_tp_sp(fa, root, wave_root, dev, name):
 
 def load_baseline(root):
     """The flash_attention module of another checkout (the parent commit,
-    unpacked with git archive), loaded on its own: it builds that
-    checkout's csrc/ into that checkout's build/."""
+    unpacked with git archive), loaded on its own, with that checkout's
+    csrc/ built into that checkout's build/. A checkout with
+    ops/cuda_libs.py has its utils/shared_lib.py and ops/cuda_libs.py loaded
+    from its files too, standing in for this tree's while its
+    flash_attention.py executes; an older one builds through
+    flash_attention.py alone."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(
-        "baseline_flash_attention",
-        os.path.join(root, "liteasr_tpu_torch", "ops", "flash_attention.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    def load(*path):
+        spec = importlib.util.spec_from_file_location(
+            "baseline_" + path[-1][:-3], os.path.join(root, "liteasr_tpu_torch", *path))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    if not os.path.isfile(os.path.join(root, "liteasr_tpu_torch", "ops", "cuda_libs.py")):
+        fa = load("ops", "flash_attention.py")
+        fa.build_libraries()
+        return fa
+    names = ("liteasr_tpu_torch.utils.shared_lib", "liteasr_tpu_torch.ops.cuda_libs")
+    saved = {n: sys.modules[n] for n in names}
+    try:
+        sys.modules[names[0]] = load("utils", "shared_lib.py")
+        libs = sys.modules[names[1]] = load("ops", "cuda_libs.py")
+        fa = load("ops", "flash_attention.py")
+    finally:
+        sys.modules.update(saved)
+    libs.build_libraries()
+    return fa
 
 
 def compare_kernels(fa, base, dev, name):
@@ -4940,6 +4959,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     from liteasr_tpu_torch.config.core import DotDict
+    from liteasr_tpu_torch.ops import cuda_libs, rnnt  # noqa: F401 (rnnt declares its library)
     from liteasr_tpu_torch.ops import flash_attention as fa
     from liteasr_tpu_torch.tasks.asr import ASRTask
 
@@ -4956,21 +4976,20 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     if "--profile-train" in sys.argv[1:]:
-        fa.build_libraries()
+        cuda_libs.build_libraries()
         profile_train_step(dev, name)
         return 0
 
     t0 = time.perf_counter()
-    libs = fa.build_libraries()
-    for lib in libs:
-        fa.load_library(lib)
+    libs = cuda_libs.build_libraries()
+    for lib in cuda_libs.LIBRARIES.values():
+        lib.load()
     log(f"kernel build (parallel nvcc): {time.perf_counter() - t0:.2f} s "
         f"({', '.join(p.name for p in libs.values())})")
     for path in libs.values():
         report_build(path)
     if "--baseline" in sys.argv[1:]:
         base = load_baseline(sys.argv[sys.argv.index("--baseline") + 1])
-        base.build_libraries()
         compare_kernels(fa, base, dev, name)
         return 0
     if "--convergence" in sys.argv[1:]:

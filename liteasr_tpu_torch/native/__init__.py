@@ -3,26 +3,25 @@ liteasr_tpu/native): Levenshtein distance over code points, one pair or a
 batch, and the Kaldi binary float-matrix reader.
 
 The library is built with g++ at first use into ``build/liteasr_tpu_torch/``
-(named by a hash of the source and flags), never beside the source. Where
-it cannot be built or loaded, every caller falls back to its pure-Python
-version, and the first such fallback logs a WARNING.
+(named by a hash of the source and flags; ``utils/shared_lib.py``), never
+beside the source. Where it cannot be built or loaded, every caller falls
+back to its pure-Python version, and the first such fallback logs a WARNING.
 """
 
 import ctypes
-import hashlib
 import logging
-import os
 import subprocess
-import tempfile
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from liteasr_tpu_torch.utils import shared_lib
+from liteasr_tpu_torch.utils.shared_lib import BUILD_DIR  # noqa: F401 (native.BUILD_DIR)
+
 logger = logging.getLogger(__name__)
 
 SOURCE = Path(__file__).resolve().parent / "liteasr_native.cc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "liteasr_tpu_torch"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
@@ -30,23 +29,11 @@ _tried = False
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libliteasr_native.{digest.hexdigest()[:16]}.so"
+    return shared_lib.library_path("liteasr_native", [SOURCE.read_bytes()], CXX_FLAGS)
 
 
 def _build(path: Path) -> None:
-    """g++ into a temporary file beside ``path``, then an atomic rename, so
-    that processes building at once never load a half-written library."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run(["g++", *CXX_FLAGS, str(SOURCE), "-o", tmp], check=True,
-                       capture_output=True, timeout=300)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    shared_lib.build({path: ["g++", *CXX_FLAGS, str(SOURCE)]}, timeout=300)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -77,7 +64,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if not path.is_file():
             _build(path)
         _lib = _bind(ctypes.CDLL(str(path)))
-    except (OSError, subprocess.SubprocessError) as e:
+    except (OSError, subprocess.SubprocessError, shared_lib.BuildError) as e:
         detail = getattr(e, "stderr", None) or e
         logger.warning("the native host library could not be built or loaded "
                        "(%s); scoring and feature reads fall back to pure Python",

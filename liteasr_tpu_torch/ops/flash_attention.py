@@ -69,15 +69,11 @@ exported with the op needs this module imported to load.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
-from typing import Dict, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
+
+from liteasr_tpu_torch.ops.cuda_libs import Library, check, launch, ptr
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
@@ -85,17 +81,6 @@ MAX_HEAD_DIM = 128
 # the dropout hash is keyed by (tile, row and column inside the tile)
 HASH_TQ = 128
 HASH_TK = 128
-
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-# every CUDA source of the port, built and loaded here: the attention
-# kernels and the RNN-T loss's DP (ops/rnnt.py)
-SOURCES = {"rel_attention_fwd": _CSRC / "rel_attention_fwd.cu",
-           "rel_attention_bwd": _CSRC / "rel_attention_bwd.cu",
-           "rnnt_dp": _CSRC / "rnnt_dp.cu"}
-# build output lives beside the package, in the repository's build/ tree
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "liteasr_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -118,7 +103,6 @@ class Shard(NamedTuple):
 
 
 WHOLE = Shard()
-_LIBS: Dict[str, ctypes.CDLL] = {}
 _MASK32 = 0xFFFFFFFF
 
 
@@ -573,22 +557,6 @@ def _chunk_width(chunk) -> int:
     return chunk
 
 
-def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype:
-        raise TypeError(f"flash_attention: {name} is {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"flash_attention: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if t.device != device:
-        raise ValueError(f"flash_attention: {name} is on {t.device}, not {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"flash_attention: {name} must be contiguous")
-
-
-def _ptr(t):
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
 def _dropout_args(dropout_rate: float, seed: int):
     """(enabled, seed as uint32, threshold) for the kernels' hash."""
     on = dropout_rate > 0.0
@@ -605,6 +573,17 @@ def _shard_args(tqv: int, shard: Shard):
     return (tqv, shard.q0, shard.h_local, shard.h_total, shard.head0)
 
 
+# K1/K1' and K2's C entry points (csrc/rel_attention_fwd.cu, csrc/rel_attention_bwd.cu)
+_FWD = Library("rel_attention_fwd", rel_attention_fwd=(
+    [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float]
+    + [ctypes.c_int] * 8 + [ctypes.c_void_p]))
+_BWD = Library("rel_attention_bwd", rel_attention_bwd=(
+    [ctypes.c_int] + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float]
+    + [ctypes.c_int] * 8 + [ctypes.c_void_p]))
+
+
 def _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse,
                 dropout_rate, dropout_seed, chunk, shard):
     if q.dtype not in _DTYPE_CODE:
@@ -616,16 +595,15 @@ def _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse,
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {d} not in 1..{MAX_HEAD_DIM}")
     dev = q.device
-    _check("q", q, q.dtype, (bh, tq, d), dev)
-    _check("k", k, q.dtype, (bh, tk, d), dev)
-    _check("v", v, q.dtype, (bh, tk, d), dev)
+    check("flash_attention", dev, ("q", q, q.dtype, (bh, tq, d)),
+          ("k", k, q.dtype, (bh, tk, d)), ("v", v, q.dtype, (bh, tk, d)))
     mask_div, p_mod = 1, 1
     if mask is not None:
         mask_div = _group_rows(bh, mask.shape[0], "mask")
-        _check("mask", mask, torch.bool, (bh // mask_div, tq, tk), dev)
+        check("flash_attention", dev, ("mask", mask, torch.bool, (bh // mask_div, tq, tk)))
         mask = mask.view(torch.uint8)
     if kv_lens is not None:
-        _check("kv_lens", kv_lens, torch.int32, (bh,), dev)
+        check("flash_attention", dev, ("kv_lens", kv_lens, torch.int32, (bh,)))
     if (rel_qv is None) != (rel_p is None):
         raise ValueError("flash_attention: rel_qv and rel_p go together")
     tqv = tq
@@ -634,8 +612,8 @@ def _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse,
         _check_shard(tq, tqv, tk, shard, "flash_attention")
         p_mod = rel_p.shape[0]
         _group_rows(bh, p_mod, "rel_p")
-        _check("rel_qv", rel_qv, q.dtype, (bh, tqv, d), dev)
-        _check("rel_p", rel_p, q.dtype, (p_mod, tk, d), dev)
+        check("flash_attention", dev, ("rel_qv", rel_qv, q.dtype, (bh, tqv, d)),
+              ("rel_p", rel_p, q.dtype, (p_mod, tk, d)))
     elif shard.q0 + tq > (shard.t_q or tq):
         raise ValueError(f"flash_attention: queries {shard.q0}..{shard.q0 + tq} "
                          f"past the full call's {shard.t_q}")
@@ -646,16 +624,11 @@ def _launch_fwd(q, k, v, mask, kv_lens, rel_qv, rel_p, scale, return_lse,
         return out, lse
     on, seed, thr = _dropout_args(dropout_rate, dropout_seed)
     tqe, tke = hash_tiles(shard.t_q or tq, tk)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = load_library("rel_attention_fwd").rel_attention_fwd(
-            _DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(rel_qv),
-            _ptr(rel_p), _ptr(mask), _ptr(kv_lens), _ptr(out), _ptr(lse),
-            bh, tq, tk, d, mask_div, p_mod, ctypes.c_float(scale), on, seed,
-            thr, ctypes.c_float(1.0 - dropout_rate), tqe, tke, chunk,
-            *_shard_args(tqv, shard), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"rel_attention_fwd launch failed: CUDA error {err}")
+    launch(_FWD.load().rel_attention_fwd, dev,
+           _DTYPE_CODE[q.dtype], ptr(q), ptr(k), ptr(v), ptr(rel_qv), ptr(rel_p), ptr(mask),
+           ptr(kv_lens), ptr(out), ptr(lse), bh, tq, tk, d, mask_div, p_mod,
+           ctypes.c_float(scale), on, seed, thr, ctypes.c_float(1.0 - dropout_rate), tqe,
+           tke, chunk, *_shard_args(tqv, shard))
     return out, lse
 
 
@@ -674,16 +647,12 @@ def _launch_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout, scale,
     p_mod = p.shape[0]
     _group_rows(bh, p_mod, "p")
     _check_shard(t, tqv, tk, shard, "flash_rel_attention_bwd")
-    _check("q_u", q_u, dt, (bh, t, d), dev)
-    _check("qv", qv, dt, (bh, tqv, d), dev)
-    for name, x in (("k", k), ("v", v)):
-        _check(name, x, dt, (bh, tk, d), dev)
-    _check("p", p, dt, (p_mod, tk, d), dev)
-    _check("out", out, torch.float32, (bh, t, d), dev)
-    _check("dout", dout, torch.float32, (bh, t, d), dev)
-    _check("lse", lse, torch.float32, (bh, t), dev)
+    check("flash_rel_attention_bwd", dev, ("q_u", q_u, dt, (bh, t, d)),
+          ("qv", qv, dt, (bh, tqv, d)), ("k", k, dt, (bh, tk, d)), ("v", v, dt, (bh, tk, d)),
+          ("p", p, dt, (p_mod, tk, d)), ("out", out, torch.float32, (bh, t, d)),
+          ("dout", dout, torch.float32, (bh, t, d)), ("lse", lse, torch.float32, (bh, t)))
     if kv_lens is not None:
-        _check("kv_lens", kv_lens, torch.int32, (bh,), dev)
+        check("flash_rel_attention_bwd", dev, ("kv_lens", kv_lens, torch.int32, (bh,)))
     # the fp32 body owns dQ_u per query tile and sums dK, dV, dQ_v and dP
     # with atomics; the bf16 body owns dK, dV per key tile and sums dQ_u,
     # dQ_v and dP. dP is the shared table's gradient, summed over the rows
@@ -702,112 +671,9 @@ def _launch_bwd(q_u, qv, k, v, p, kv_lens, out, lse, dout, scale,
         on, seed, thr = _dropout_args(dropout_rate, dropout_seed)
         tqe, tke = hash_tiles(shard.t_q or t, tk)
         inv_keep = 1.0 / (1.0 - dropout_rate) if on else 1.0
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = load_library("rel_attention_bwd").rel_attention_bwd(
-                _DTYPE_CODE[dt], _ptr(q_u), _ptr(qv), _ptr(k), _ptr(v), _ptr(p),
-                _ptr(kv_lens), _ptr(out), _ptr(lse), _ptr(dout), _ptr(dq_u),
-                _ptr(dqv), _ptr(dk), _ptr(dv), _ptr(dp), _ptr(dob), _ptr(dvec),
-                bh, t, tk, d, p_mod, ctypes.c_float(scale), on, seed, thr,
-                ctypes.c_float(inv_keep), tqe, tke, chunk, *_shard_args(tqv, shard),
-                ctypes.c_void_p(stream))
-        if err != 0:
-            raise RuntimeError(f"rel_attention_bwd launch failed: CUDA error {err}")
+        launch(_BWD.load().rel_attention_bwd, dev,
+               _DTYPE_CODE[dt], ptr(q_u), ptr(qv), ptr(k), ptr(v), ptr(p), ptr(kv_lens),
+               ptr(out), ptr(lse), ptr(dout), ptr(dq_u), ptr(dqv), ptr(dk), ptr(dv), ptr(dp),
+               ptr(dob), ptr(dvec), bh, t, tk, d, p_mod, ctypes.c_float(scale), on, seed, thr,
+               ctypes.c_float(inv_keep), tqe, tke, chunk, *_shard_args(tqv, shard))
     return dq_u, dqv, dk, dv, dp
-
-
-def _find_nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
-        "kernels of liteasr_tpu_torch cannot be built")
-
-
-def library_path(name: str) -> Path:
-    """Where the library of kernel ``name`` for the current source (and the
-    shared ``csrc/*.cuh`` headers it includes) lives."""
-    text = SOURCES[name].read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}.{digest}.so"
-
-
-def build_libraries(names=tuple(SOURCES)) -> Dict[str, Path]:
-    """Compile the named ``csrc/*.cu`` sources for sm_90a that are not built
-    yet, one nvcc process per source, all started together. nvcc's output
-    (ptxas's registers, shared memory and spills per kernel) goes to a
-    ``.log`` beside each library."""
-    paths = {name: library_path(name) for name in names}
-    todo = [name for name, path in paths.items() if not path.is_file()]
-    if not todo:
-        return paths
-    nvcc = _find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    try:
-        for name in todo:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            with open(paths[name].with_suffix(".log"), "w") as log:
-                proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp,
-                                         str(SOURCES[name])],
-                                        stdout=log, stderr=subprocess.STDOUT)
-            jobs.append((name, tmp, proc))
-        failed = [name for name, _, proc in jobs if proc.wait() != 0]
-        if failed:
-            logs = "\n".join(paths[n].with_suffix(".log").read_text()[-4000:]
-                             for n in failed)
-            raise RuntimeError(f"nvcc failed to build {failed}:\n{logs}")
-        for name, tmp, _ in jobs:
-            os.replace(tmp, paths[name])  # atomic: no half-written library
-    finally:
-        for _, tmp, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    return paths
-
-
-# each library's C functions and their argument types
-_ARGTYPES = {
-    "rel_attention_fwd": {"rel_attention_fwd": (
-        [ctypes.c_int] + [ctypes.c_void_p] * 9
-        + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
-           ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-           ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * 5
-        + [ctypes.c_void_p])},
-    "rel_attention_bwd": {"rel_attention_bwd": (
-        [ctypes.c_int] + [ctypes.c_void_p] * 16
-        + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
-           ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-           ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * 5
-        + [ctypes.c_void_p])},
-    "rnnt_dp": {
-        "rnnt_dp_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-        "rnnt_dp_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]},
-}
-
-
-def load_library(name: str = "rel_attention_fwd") -> ctypes.CDLL:
-    """Build (once) and load the library of kernel ``name``. Raises when
-    there is no CUDA device or no nvcc; there is no fallback."""
-    if name in _LIBS:
-        return _LIBS[name]
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            f"CUDA is not available: the {name} kernel needs an NVIDIA GPU "
-            "(sm_90a) and nvcc")
-    lib = ctypes.CDLL(str(build_libraries((name,))[name]))
-    for fn_name, argtypes in _ARGTYPES[name].items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _LIBS[name] = lib
-    return lib

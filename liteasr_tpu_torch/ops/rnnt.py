@@ -36,7 +36,7 @@ import ctypes
 
 import torch
 
-from liteasr_tpu_torch.ops.flash_attention import load_library
+from liteasr_tpu_torch.ops.cuda_libs import Library, check, launch, ptr
 from liteasr_tpu_torch.utils import tracing
 
 NEG_INF = -1e30
@@ -102,47 +102,26 @@ class LatticeNLL(torch.autograd.Function):
         return d_blank, d_emit, None, None
 
 
-def _check_dp_args(dev, *named):
-    """The kernels' tensors, each ``(name, tensor, dtype, shape)``: of that
-    dtype and shape, contiguous, and on the CUDA device ``dev``."""
-    if dev.type != "cuda":
-        raise ValueError(f"lattice_nll: unsupported device {dev}")
-    for name, t, dtype, shape in named:
-        if t.dtype != dtype:
-            raise TypeError(f"lattice_nll: {name} is {t.dtype}, expected {dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"lattice_nll: {name} has shape {tuple(t.shape)}, "
-                             f"expected {tuple(shape)}")
-        if t.device != dev:
-            raise ValueError(f"lattice_nll: {name} is on {t.device}, not {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"lattice_nll: {name} must be contiguous")
-
-
 def _dp_shape(lp_blank, lp_emit, input_lengths, label_lengths):
     """(B, T, U+1) of the kernels' inputs, checked: fp32 planes (B, T, U+1)
     and (B, T, U) with T >= 1, int64 lengths (B,)."""
     if lp_blank.dim() != 3 or lp_blank.shape[1] < 1:
         raise ValueError(f"lattice_nll: lp_blank must be (B, T >= 1, U+1), "
                          f"got {tuple(lp_blank.shape)}")
+    if lp_blank.device.type != "cuda":
+        raise ValueError(f"lattice_nll: unsupported device {lp_blank.device}")
     B, T, U1 = lp_blank.shape
-    _check_dp_args(lp_blank.device, ("lp_blank", lp_blank, torch.float32, (B, T, U1)),
-                   ("lp_emit", lp_emit, torch.float32, (B, T, U1 - 1)),
-                   ("input_lengths", input_lengths, torch.int64, (B,)),
-                   ("label_lengths", label_lengths, torch.int64, (B,)))
+    check("lattice_nll", lp_blank.device, ("lp_blank", lp_blank, torch.float32, (B, T, U1)),
+          ("lp_emit", lp_emit, torch.float32, (B, T, U1 - 1)),
+          ("input_lengths", input_lengths, torch.int64, (B,)),
+          ("label_lengths", label_lengths, torch.int64, (B,)))
     return B, T, U1
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _launch(fn: str, dev, *args):
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(load_library("rnnt_dp"), fn)(*args, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
+# the DP's C entry points (csrc/rnnt_dp.cu)
+_LIB = Library("rnnt_dp",
+               rnnt_dp_fwd=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+               rnnt_dp_bwd=[ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _launch_fwd(lp_blank, lp_emit, input_lengths, label_lengths):
@@ -151,8 +130,8 @@ def _launch_fwd(lp_blank, lp_emit, input_lengths, label_lengths):
     loss = torch.empty(B, dtype=torch.float32, device=lp_blank.device)
     alpha = torch.empty_like(lp_blank)
     if B:
-        _launch("rnnt_dp_fwd", lp_blank.device, _ptr(lp_blank), _ptr(lp_emit),
-                _ptr(input_lengths), _ptr(label_lengths), _ptr(alpha), _ptr(loss), B, T, U1 - 1)
+        launch(_LIB.load().rnnt_dp_fwd, lp_blank.device, ptr(lp_blank), ptr(lp_emit),
+               ptr(input_lengths), ptr(label_lengths), ptr(alpha), ptr(loss), B, T, U1 - 1)
         lattice_nll.launches += 1
     return loss, alpha
 
@@ -161,15 +140,15 @@ def _launch_bwd(lp_blank, lp_emit, input_lengths, label_lengths, alpha, loss, gr
     """The backward kernel: fp32 (d lp_blank, d lp_emit) for the loss's
     cotangent ``grad`` (B,)."""
     B, T, U1 = _dp_shape(lp_blank, lp_emit, input_lengths, label_lengths)
-    _check_dp_args(lp_blank.device, ("alpha", alpha, torch.float32, (B, T, U1)),
-                   ("loss", loss, torch.float32, (B,)), ("grad", grad, torch.float32, (B,)))
+    check("lattice_nll", lp_blank.device, ("alpha", alpha, torch.float32, (B, T, U1)),
+          ("loss", loss, torch.float32, (B,)), ("grad", grad, torch.float32, (B,)))
     d_blank = torch.empty_like(lp_blank)
     d_emit = torch.empty_like(lp_emit)
     carry = torch.empty((B, T), dtype=torch.float32, device=lp_blank.device)
     if B:
-        _launch("rnnt_dp_bwd", lp_blank.device, _ptr(lp_blank), _ptr(lp_emit),
-                _ptr(input_lengths), _ptr(label_lengths), _ptr(alpha), _ptr(loss), _ptr(grad),
-                _ptr(carry), _ptr(d_blank), _ptr(d_emit), B, T, U1 - 1)
+        launch(_LIB.load().rnnt_dp_bwd, lp_blank.device, ptr(lp_blank), ptr(lp_emit),
+               ptr(input_lengths), ptr(label_lengths), ptr(alpha), ptr(loss), ptr(grad),
+               ptr(carry), ptr(d_blank), ptr(d_emit), B, T, U1 - 1)
         lattice_nll.bwd_launches += 1
     return d_blank, d_emit
 

@@ -1,8 +1,9 @@
 """liteasr_tpu_torch, training, transducer, streaming, Paraformer, wav2vec 2.0,
 native, data-parallel, export, prompt, Kaldi helper and recipe (tools)
 modules included, imports without jax, flax or liteasr_tpu; registering
-K1's custom op builds no kernel; and its CUDA kernel loader raises (no
-fallback) where there is no CUDA device."""
+K1's custom op loads no CUDA library; and every declared CUDA library
+(ops/cuda_libs.py) raises on loading (no fallback) where there is no CUDA
+device."""
 
 import os
 import subprocess
@@ -42,13 +43,14 @@ def test_port_imports_without_jax():
                      "export", "prompt", "data.kaldi_helpers", "tools",
                      "tools.make_synth_corpus", "tools.make_synth_waves",
                      "tools.score_ci", "tools.summarize_run", "tools.run_hard",
-                     "tools.eval_hard", "utils.tracing"):
+                     "tools.eval_hard", "utils.tracing", "ops.cuda_libs",
+                     "utils.shared_lib"):
             assert "liteasr_tpu_torch." + name in names, (name, names)
-        # K1's custom op is registered, and registering it loaded no kernel
+        # K1's custom op is registered, and registering it loaded no library
         import torch
-        from liteasr_tpu_torch.ops import flash_attention as fa
+        from liteasr_tpu_torch.ops import cuda_libs
         assert torch.ops.liteasr.rel_attention_fwd.default is not None
-        assert not fa._LIBS
+        assert cuda_libs.LIBRARIES and not cuda_libs._LOADED
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
@@ -57,14 +59,14 @@ def test_port_imports_without_jax():
 
 def test_kernel_loader_raises_without_cuda():
     proc = _run("""
-        from liteasr_tpu_torch.ops import flash_attention as fa
-        for name in fa.SOURCES:
+        from liteasr_tpu_torch.ops import cuda_libs, flash_attention, rnnt
+        for lib in cuda_libs.LIBRARIES.values():
             try:
-                fa.load_library(name)
+                lib.load()
             except RuntimeError as e:
                 print("raised:", e)
             else:
-                raise SystemExit(f"the loader returned {name} without a CUDA device")
+                raise SystemExit(f"the loader returned {lib.name} without a CUDA device")
     """)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.count("raised: CUDA is not available") == 3
