@@ -323,6 +323,20 @@ z11-z13. the same for wav2vec 2.0 (Wav2Vec2Config's defaults): pretraining
    process count, under sp the positional conv's halo zeroed); the bf16
    micro-step at v's point: ms and peak memory per rank.
 
+LayerNorm, after z1:
+
+ln. LayerNorm's kernels (csrc/layer_norm.cu) in bf16 at the encoder's
+   calls in the 200k and 25k benchmark cells (51,200 and 6,400 rows of
+   256) and at the wav2vec 2.0 extractor's first (24 x 11,199 frames of
+   512 channels, read through the transposed view): the output and each
+   gradient against fp64, within twice the plain version's gap, and each
+   direction timed by CUDA events beside its bytes at 3.35 TB/s, beside
+   the plain chain's and beside ATen's fused F.layer_norm, with each
+   version's device ops in a forward and backward. The main paths 4, 6,
+   g, h, m, u, z5, z11 and e1 each require LayerNorm's launches: every
+   LayerNorm module of the model once a forward, and two backward
+   launches a call under autograd.
+
 Export, in a process of its own started after the kernel build, so that
 its host-bound export and load overlap the phases above:
 
@@ -347,7 +361,12 @@ the ``dp_*`` keys x's and y's, the ``shard_*`` keys z1's calls and the
 z1's wav2vec 2.0 calls, the ``export_*`` keys e1, the ``hard_corpus_*`` keys
 hc's; ``launches`` sum the main paths 4, 6, b, c, d, hc, g, i, l, m, p, r, u,
 x, z2, z5, z8, z11 and e1; for rnnt_dp, the RNN-T DP's kernels, the main
-paths g, h, z5 and z7, and ``ms``/``plain_ms`` its forward at h's batch).
+paths g, h, z5 and z7, and ``ms``/``plain_ms`` its forward at h's batch;
+for layer_norm, ``ms``/``bwd_ms`` its kernels at the 200k cell's shape,
+``library_ms``/``library_bwd_ms`` ATen's there in fp32 and the
+``library_bf16_*`` keys in bf16, ``shapes`` every shape of
+ln, and ``launches``/``bwd_launches`` the sum of the main paths'
+launches, each path's under ``main_path_launches``).
 
     python3 chip_smoke.py --profile-train
 
@@ -362,7 +381,7 @@ of 7 and prints the top kernels by device time.
     python3 chip_smoke.py --hc-only
     python3 chip_smoke.py --convergence [--keep DIR] [--deadline S]
 
-stop after steps 1-3, k, o, t and z1; or after them run only 7, x and y;
+stop after steps 1-3, k, o, t, z1 and ln; or after them run only 7, x and y;
 or only z2-z13; or only e1; or after step 1 time every bf16 kernel call
 of the main paths against the checkout in DIR (another commit unpacked
 with git archive), in the order DIR, this tree, this tree, DIR;
@@ -471,6 +490,11 @@ STREAM_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_streaming_decode.py:63-64
 W2V_LAYERS, W2V_HEADS, W2V_DIM = 12, 12, 768
 W2V_SHAPES = {"step_batch": (24 * 12, 174), "long_crop": (8 * 12, 774)}
 W2V_STEP_ROWS, W2V_STEP_SAMPLES, W2V_EPOCHS = 24, 56000, 2
+# LayerNorm (ln): (rows, D) of the encoder's calls in the 200k and 25k
+# cells (204,800 and 25,600 frames a micro-step, subsampled 4x), and the
+# wav2vec 2.0 extractor's first, (B, C, frames) read as (B, frames, C)
+LN_SHAPES = {"u2_200k": (51200, 256), "u2_25k": (6400, 256),
+             "w2v2_extractor": (W2V_STEP_ROWS, 512, (W2V_STEP_SAMPLES - 10) // 5 + 1)}
 REPO = os.path.dirname(os.path.abspath(__file__))
 START = time.time()
 
@@ -520,6 +544,43 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_time_ms(fn, reps: int = 7, inner: int = 20) -> float:
+    """As :func:`cuda_time_ms`, with the calls queued behind a 50M-cycle
+    ``torch.cuda._sleep`` first, so that the events read the device's time
+    alone even where the host's cost a call is the larger."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(50_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def host_call_us(fn, reps: int = 7, inner: int = 100) -> float:
+    """Host microseconds a call of ``fn``, the device kept busy by a
+    ``torch.cuda._sleep`` so that no call waits for it (``inner`` calls
+    must fit the launch queue): the median over ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(300_000_000)
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        times.append((time.perf_counter() - t0) / inner * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def reset_counts(fa):
     fa.flash_attention.launches = 0
     fa.flash_attention.lse_launches = 0
@@ -554,6 +615,48 @@ def dp_counts():
     from liteasr_tpu_torch.ops import rnnt
 
     return rnnt.lattice_nll.launches, rnnt.lattice_nll.bwd_launches
+
+
+def reset_ln_counts():
+    """Zero LayerNorm's kernel launch counts (``ops.layer_norm.layer_norm``)."""
+    from liteasr_tpu_torch.ops import layer_norm as ln
+
+    ln.layer_norm.launches = 0
+    ln.layer_norm.bwd_launches = 0
+
+
+def ln_counts():
+    """(forward, backward) launches of LayerNorm's kernels: one forward a
+    call, two backward a call under autograd."""
+    from liteasr_tpu_torch.ops import layer_norm as ln
+
+    return ln.layer_norm.launches, ln.layer_norm.bwd_launches
+
+
+def ln_calls(module) -> int:
+    """LayerNorm calls in one forward of ``module``: every model runs each
+    of its LayerNorm modules once a forward."""
+    from liteasr_tpu_torch.nets.common import LayerNorm
+
+    return sum(isinstance(m, LayerNorm) for m in module.modules())
+
+
+# LayerNorm's (forward, backward) launches on each main path, by label
+LN_MAIN = {}
+
+
+def check_ln(label, got, per_fwd, grad_fwds, nograd_fwds):
+    """Requires ``got`` (:func:`ln_counts`) to be ``per_fwd`` forward
+    launches for each of the ``grad_fwds + nograd_fwds`` forwards and two
+    backward launches a call for each of the ``grad_fwds``; adds them to
+    :data:`LN_MAIN` under ``label``."""
+    want = (per_fwd * (grad_fwds + nograd_fwds), 2 * per_fwd * grad_fwds)
+    if tuple(got) != want:
+        raise RuntimeError(f"{label}: LayerNorm launches {tuple(got)} (forward, backward), "
+                           f"expected {want}: {per_fwd} calls a forward, {grad_fwds} "
+                           f"forwards under autograd and {nograd_fwds} without")
+    LN_MAIN[label] = [a + b for a, b in zip(LN_MAIN.get(label, (0, 0)), want)]
+    return want
 
 
 def nbytes(*tensors) -> int:
@@ -815,6 +918,138 @@ def check_train_kernels(fa, dev, name):
     return report
 
 
+def check_layer_norm(dev, name):
+    """Phase ln: LayerNorm's kernels (``csrc/layer_norm.cu``) in bf16 at
+    :data:`LN_SHAPES`: the output and the gradients against fp64, within
+    twice the plain version's gap (plus 2^-24), and timed by CUDA
+    events on the device alone (:func:`device_time_ms`): the forward
+    launch, the backward's two, and the plain chain's forward and its
+    autograd backward, beside the kernels' bytes at 3.35 TB/s; the whole
+    call too, which for the extractor's transposed view holds its copy to
+    rows, and forward and backward through autograd; and the host's
+    microseconds a launch call. Returns the numbers
+    of the kernels line's ``layer_norm`` entry. ATen's fused LayerNorm
+    (``F.layer_norm``), which on the card takes no bf16 x with an fp32
+    weight, is timed the same way beside them in both forms it takes: in
+    fp32 on x cast up, y cast down (``library_*``: the plain chain's
+    numbers), and in bf16 with the weight and bias cast down
+    (``library_bf16_*``: their rounding differs); each version's device
+    ops in one forward and backward are counted under torch.profiler."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity
+
+    from liteasr_tpu_torch.ops import layer_norm as ln
+
+    dt, rep = torch.bfloat16, {}
+
+    def library(xs, ws, bs, dtype):
+        return F.layer_norm(xs.float(), (xs.shape[-1],), ws, bs, ln.LN_EPS).to(dtype)
+
+    def library_bf16(xs, ws, bs, dtype):
+        return F.layer_norm(xs, (xs.shape[-1],), ws.to(xs.dtype), bs.to(xs.dtype),
+                            ln.LN_EPS).to(dtype)
+
+    libraries = {"library": library, "library_bf16": library_bf16}
+
+    def device_ops(fn, x, w, b, dy):
+        """Device ops (kernels, copies, fills) of one forward and backward."""
+        xs, ws, bs = (t.detach().requires_grad_() for t in (x, w, b))
+        return traced_steps(lambda: torch.autograd.grad(fn(xs, ws, bs, dt), (xs, ws, bs), dy),
+                            1, [ProfilerActivity.CUDA])[3]
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for shape_name, shape in LN_SHAPES.items():
+        if len(shape) == 3:  # (B, C, frames), normalized over C
+            x = torch.randn(shape, device=dev, generator=gen).to(dt).transpose(1, 2)
+        else:
+            x = torch.randn(shape, device=dev, generator=gen).to(dt)
+        D = x.shape[-1]
+        w = 1.0 + 0.1 * torch.randn(D, device=dev, generator=gen)
+        b = 0.1 * torch.randn(D, device=dev, generator=gen)
+        dy = torch.randn(x.shape, device=dev, generator=gen).to(dt)
+
+        def grads(fn):
+            xs, ws, bs = (t.detach().requires_grad_() for t in (x, w, b))
+            y = fn(xs, ws, bs, dt)
+            y.backward(dy)
+            return [y.double(), xs.grad.double(), ws.grad.double(), bs.grad.double()]
+
+        # the fp64 reference of the same bf16 inputs: y, dx, dw, db
+        x64, w64, d64 = x.double(), w.double(), dy.double()
+        xc = x64 - x64.mean(-1, keepdim=True)
+        rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + ln.LN_EPS)
+        xhat, g = xc * rstd, d64 * w64
+        ref = [xhat * w64 + b.double(),
+               rstd * (g - g.mean(-1, keepdim=True) - xhat * (g * xhat).mean(-1, keepdim=True)),
+               (d64 * xhat).sum((0, 1)[:x.dim() - 1]), d64.sum((0, 1)[:x.dim() - 1])]
+
+        def rel_gaps(fn):
+            return [((g - r).abs().max() / r.abs().max()).item() for g, r in zip(grads(fn), ref)]
+
+        got, plain = grads(ln.layer_norm), grads(ln.layer_norm_plain)
+        gaps = [((k - r).abs().max() / r.abs().max()).item() for k, r in zip(got, ref)]
+        plain_gaps = [((p - r).abs().max() / r.abs().max()).item() for p, r in zip(plain, ref)]
+        lib_gaps = {k: rel_gaps(fn) for k, fn in libraries.items()}
+        fwd_gap = (got[0] - plain[0]).abs().max().item()
+
+        rows, dy_rows = ln._as_rows(x), ln._as_rows(dy)
+        xg, wg, bg = (t.detach().requires_grad_() for t in (x, w, b))
+        with torch.no_grad():
+            k_call = device_time_ms(lambda: ln.layer_norm(x, w, b, dt))
+            k_fwd = device_time_ms(lambda: ln._launch_fwd(rows, w, b, dt))
+            p_fwd = device_time_ms(lambda: ln.layer_norm_plain(x, w, b, dt))
+            k_host = host_call_us(lambda: ln._launch_fwd(rows, w, b, dt))
+        k_bwd = device_time_ms(lambda: ln._launch_bwd(rows, w, dy_rows))
+        k_bwd_host = host_call_us(lambda: ln._launch_bwd(rows, w, dy_rows))
+        # forward and backward through autograd, the gradients returned (not
+        # summed into .grad, which would add a kernel a leaf)
+        fns = {"kernels": ln.layer_norm, "plain": ln.layer_norm_plain, **libraries}
+        both = {k: device_time_ms(lambda fn=fn: torch.autograd.grad(
+            fn(xg, wg, bg, dt), (xg, wg, bg), dy)) for k, fn in fns.items()}
+        p_all, k_all = both["plain"], both["kernels"]
+        with torch.no_grad():
+            lib_fwd = {k: device_time_ms(lambda fn=fn: fn(x, w, b, dt))
+                       for k, fn in libraries.items()}
+        ops = {k: device_ops(fn, x, w, b, dy) for k, fn in fns.items()}
+        n = rows.numel() * rows.element_size()
+        fwd_bound = 2 * n / H100_HBM_RATE * 1e3
+        bwd_bound = 3 * n / H100_HBM_RATE * 1e3
+        r = {"rows": rows.shape[0], "dim": D, "ms": k_fwd, "call_ms": k_call,
+             "bwd_ms": k_bwd, "plain_ms": p_fwd, "plain_bwd_ms": p_all - p_fwd,
+             "host_us": k_host, "bwd_host_us": k_bwd_host,
+             "bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound,
+             "roofline_pct": 100 * fwd_bound / k_fwd,
+             "bwd_roofline_pct": 100 * bwd_bound / k_bwd,
+             "autograd_ms": k_all, "plain_autograd_ms": p_all,
+             **{f"{k}_ms": v for k, v in lib_fwd.items()},
+             **{f"{k}_bwd_ms": both[k] - v for k, v in lib_fwd.items()},
+             **{f"{k}_autograd_ms": both[k] for k in libraries},
+             "device_ops": ops,
+             "fwd_gap": fwd_gap, "rel_gaps": gaps, "plain_rel_gaps": plain_gaps,
+             **{f"{k}_rel_gaps": v for k, v in lib_gaps.items()}}
+        rep[shape_name] = r
+        view = ", transposed" if x.dim() == 3 else ""
+        log(f"LayerNorm {shape_name} ({r['rows']} x {D} bf16{view}), device ms: kernel fwd "
+            f"{k_fwd:.4f} ({r['roofline_pct']:.1f}% of the bound "
+            f"{fwd_bound:.4f}; the whole call {k_call:.4f}), bwd {k_bwd:.4f} "
+            f"({r['bwd_roofline_pct']:.1f}% of {bwd_bound:.4f}); plain fwd {p_fwd:.4f}, bwd "
+            f"{p_all - p_fwd:.4f}; ATen's F.layer_norm fp32 / bf16 fwd "
+            + " / ".join(f"{v:.4f}" for v in lib_fwd.values()) + "; through autograd, fwd + "
+            "bwd: " + ", ".join(f"{k} {v:.4f}" for k, v in both.items())
+            + f"; device ops a forward and backward: {ops}; host us a launch call: fwd "
+            f"{k_host:.1f}, bwd {k_bwd_host:.1f}; largest gap to the plain "
+            f"forward {fwd_gap:.3g}; against fp64 (y, dx, dw, db) kernels "
+            + ", ".join(f"{g:.3g}" for g in gaps) + ", plain bf16 "
+            + ", ".join(f"{g:.3g}" for g in plain_gaps) + "".join(
+                f", {k} " + ", ".join(f"{g:.3g}" for g in v) for k, v in lib_gaps.items())
+            + f" [{name}]")
+        for g, p in zip(gaps, plain_gaps):
+            if g > 2 * p + 2.0 ** -24:
+                raise RuntimeError(f"LayerNorm {shape_name}: the kernels' gaps {gaps} against "
+                                   f"fp64 exceed twice the plain version's {plain_gaps}")
+    return rep
+
+
 def time_long_kernels(fa, dev, name):
     """K1' and K2 in bf16 at a long utterance (BH=32, T'=1499, D=64,
     dropout 0.1), held against the plain versions and timed."""
@@ -931,6 +1166,7 @@ def run_slice(fa, task, dev, name, mode="attention_rescore", model=None):
     infer_dataset(task, model, dataset, cfg, dev, PAD_TIME, verbose=False)  # warm-up
     torch.cuda.synchronize()
     reset_counts(fa)
+    reset_ln_counts()
     t0 = time.perf_counter()
     pairs = []
     err, length = infer_dataset(task, model, dataset, cfg, dev, PAD_TIME,
@@ -949,12 +1185,19 @@ def run_slice(fa, task, dev, name, mode="attention_rescore", model=None):
     if chunk_counts(fa) != (chunked, 0, 0):
         raise RuntimeError(f"chunked (K1, K1', K2) launches {chunk_counts(fa)}, "
                            f"expected ({chunked}, 0, 0)")
+    # LayerNorm: the encoder's and the rescoring decoder's once a batch, or
+    # the encoder's (ctc_greedy); the attention beam's steps are not counted
+    ln_per = {"attention_rescore": ln_calls(model),
+              "ctc_greedy": ln_calls(model.encoder)}.get(mode)
+    ln_got = ln_counts()
+    if ln_per is not None:
+        check_ln(f"decode {mode}", ln_got, ln_per, 0, n_batches)
     if len(pairs) != len(dataset.data) or length <= 0:
         raise RuntimeError("infer_dataset did not score every utterance")
     log(f"slice {mode}: {n_batches} batches of <= {BATCH} utts (longest padded "
         f"to 1600 frames), {secs / n_batches:.4f} s/batch, "
         f"{len(pairs) / secs:.2f} utt/s, RTF {secs / audio_s:.5f}, "
-        f"K1 launches {launches} ({per_batch}/batch), "
+        f"K1 launches {launches} ({per_batch}/batch), LayerNorm launches {ln_got[0]}, "
         f"error count {err}/{length} (random weights) [{name}]")
     return launches, secs / n_batches
 
@@ -1024,6 +1267,7 @@ def run_training(fa, root, dev, name):
     run = os.path.join(root, "run")
     overrides = train_overrides("u2", root, run, TRAIN_EPOCHS)
     reset_counts(fa)
+    reset_ln_counts()
     t0 = time.perf_counter()
     trainer = train.main(overrides, device=dev)
     torch.cuda.synchronize()
@@ -1031,6 +1275,8 @@ def run_training(fa, root, dev, name):
     fwd, lse, bwd = counts(fa)
     micro = TRAIN_EPOCHS * len(trainer.task.dataset("train"))
     n_valid = TRAIN_EPOCHS * len(trainer.valid_set)
+    ln_per = ln_calls(trainer.model)
+    ln_train = check_ln("U2 train", ln_counts(), ln_per, micro, n_valid)
     losses = torch.stack(trainer._loss_accum).float().cpu()
     if (lse, bwd, fwd - lse) != (ENC_LAYERS * micro, ENC_LAYERS * micro,
                                  (ENC_LAYERS + 2 * DEC_LAYERS) * n_valid):
@@ -1055,7 +1301,8 @@ def run_training(fa, root, dev, name):
         f"{TRAIN_EPOCHS} epochs, {int(trainer.tx.count)} optimizer steps "
         f"({int(trainer.tx.notfinite_count)} skipped), {secs:.2f} s incl. "
         f"validation and checkpoints; losses {[round(x, 3) for x in losses.tolist()]}; "
-        f"K1' {lse}, K2 {bwd}, K1 {fwd - lse} launches; "
+        f"K1' {lse}, K2 {bwd}, K1 {fwd - lse} launches; LayerNorm launches {ln_train[0]} "
+        f"forward + {ln_train[1]} backward ({ln_per} calls a forward); "
         f"{len(moved)} parameter leaves moved; {valid_lines[-1].split(' - ')[-1].strip()} "
         f"[{name}]")
 
@@ -1064,11 +1311,13 @@ def run_training(fa, root, dev, name):
                    f"inference.beam_size={BEAM}"],
                   base=load_yaml(os.path.join(run, "config.yaml")))
     reset_counts(fa)
+    reset_ln_counts()
     results = infer.infer(cfg, device=dev)
     torch.cuda.synchronize()
     dec_fwd = counts(fa)[0]
     if dec_fwd != ENC_LAYERS + 2 * DEC_LAYERS or results[0][1] <= 0:
         raise RuntimeError(f"decoding the checkpoint: {results}, K1 {dec_fwd}")
+    check_ln("U2 decode of the checkpoint", ln_counts(), ln_per, 0, 1)  # one batch
     log(f"decoded {ckpt.split('/')[-1]}: error count {results[0][0]}/"
         f"{results[0][1]} (2 epochs on random data), K1 launches {dec_fwd} [{name}]")
     return fwd, lse, bwd, dec_fwd
@@ -1872,6 +2121,7 @@ def run_td_training(fa, root, dev, name):
     overrides = train_overrides("rnnt", root, run, TRAIN_EPOCHS)
     reset_counts(fa)
     reset_dp_counts()
+    reset_ln_counts()
     t0 = time.perf_counter()
     trainer = train.main(overrides, device=dev)
     torch.cuda.synchronize()
@@ -1888,6 +2138,7 @@ def run_td_training(fa, root, dev, name):
     if dp != (micro + n_valid, micro):
         raise RuntimeError(f"RNN-T DP launches {dp} (forward, backward) for {micro} "
                            f"micro-batches and {n_valid} valid batches")
+    ln = check_ln("transducer train", ln_counts(), ln_calls(trainer.model), micro, n_valid)
     if len(losses) != micro or not bool(torch.isfinite(losses).all()):
         raise RuntimeError(f"transducer training losses {losses.tolist()}")
     init = dict(build_td_model(torch.bfloat16, "cpu").named_parameters())
@@ -1910,8 +2161,8 @@ def run_td_training(fa, root, dev, name):
         f"({int(trainer.tx.notfinite_count)} skipped), {secs:.2f} s incl. validation and "
         f"checkpoints; losses {[round(x, 3) for x in losses.tolist()]}; K1' {lse}, K2 "
         f"{bwd}, K1 {fwd - lse} launches; RNN-T DP launches {dp[0]} forward + {dp[1]} "
-        f"backward; {len(moved)} of {len(init)} parameter leaves "
-        f"moved, the {len(lstm)} LSTM leaves among them; "
+        f"backward; LayerNorm launches {ln[0]} forward + {ln[1]} backward; {len(moved)} of "
+        f"{len(init)} parameter leaves moved, the {len(lstm)} LSTM leaves among them; "
         f"{valid_lines[-1].split(' - ')[-1].strip()} [{name}]")
     del trainer
     dec = [infer_td_checkpoint(fa, run, mode, dev, name)
@@ -1980,6 +2231,7 @@ def time_td_step(dev, name):
     torch.cuda.reset_peak_memory_stats()
     step, model, batch, B = td_bench_step(dev)
     reset_dp_counts()
+    reset_ln_counts()
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -1995,6 +2247,7 @@ def time_td_step(dev, name):
     step_dp = dp_counts()
     if step_dp != (23, 23):
         raise RuntimeError(f"RNN-T DP launches {step_dp} (forward, backward) in 23 micro-steps")
+    step_ln = check_ln("transducer micro-steps", ln_counts(), ln_calls(model), 23, 0)
     med = statistics.median(reps)
     peak = torch.cuda.max_memory_allocated() / 2**30
     with torch.no_grad():
@@ -2031,7 +2284,8 @@ def time_td_step(dev, name):
         f"{gemm_ms:.2f} ms ({gemm_flops / 1e12:.2f} TFLOP, "
         f"{gemm_flops / gemm_ms / 1e9:.0f} TFLOP/s), the lattice's fp32 lse and gathers "
         f"{lse_ms:.2f} ms, the DP (its two kernels) {dp_ms:.2f} ms; RNN-T DP launches in "
-        f"the 23 micro-steps {step_dp[0]} forward + {step_dp[1]} backward [{name}]")
+        f"the 23 micro-steps {step_dp[0]} forward + {step_dp[1]} backward, LayerNorm "
+        f"launches {step_ln[0]} forward + {step_ln[1]} backward [{name}]")
     rep = check_rnnt_dp(lp_blank.detach(), lp_emit.detach(), pred_len, batch["ylens"], name)
     return dict(rep, step_launches=step_dp)
 
@@ -3226,6 +3480,7 @@ def run_w2v_training(fa, root, wave_root, dev, name):
     Wav2Vec2Loss.__call__ = record
     try:
         reset_counts(fa)
+        reset_ln_counts()
         t0 = time.perf_counter()
         trainer = train.main(w2v_overrides(wave_root, run, W2V_EPOCHS), device=dev)
         torch.cuda.synchronize()
@@ -3240,6 +3495,7 @@ def run_w2v_training(fa, root, wave_root, dev, name):
         train_seen = [s[1:] for s in seen if s[0]]
         if len(train_seen) != micro or not np.isfinite(train_seen).all():
             raise RuntimeError(f"wav2vec2 training (loss, accuracy, code_ppl): {train_seen}")
+        ln = check_ln("wav2vec2 train", ln_counts(), ln_calls(trainer.model), micro, n_valid)
         init = dict(build_w2v_model(torch.bfloat16, "cpu").named_parameters())
         moved = {n for n, p in trainer.model.named_parameters()
                  if not torch.equal(p.detach().cpu(), init[n])}
@@ -3259,7 +3515,8 @@ def run_w2v_training(fa, root, wave_root, dev, name):
             f"{int(trainer.tx.count)} optimizer steps ({int(trainer.tx.notfinite_count)} "
             f"skipped), {secs:.2f} s incl. validation and checkpoints; (loss, accuracy, "
             f"code_ppl) {[tuple(round(x, 3) for x in s) for s in train_seen]}; K1 {fwd} "
-            f"({W2V_LAYERS} per valid batch), K1' {lse}, K2 {bwd}; all {len(moved)} parameter "
+            f"({W2V_LAYERS} per valid batch), K1' {lse}, K2 {bwd}; LayerNorm launches "
+            f"{ln[0]} forward + {ln[1]} backward; all {len(moved)} parameter "
             f"leaves ({sum(p.numel() for p in trainer.params)} parameters) moved "
             f"(quantizer.vars and mask_emb among them); {lines} [{name}]")
         params = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
@@ -4204,12 +4461,15 @@ def export_worker(out):
         want = live(xs, xlens)
     torch.cuda.synchronize()
     reset_counts(fa)
+    reset_ln_counts()
     got = run(state, xs, xlens)
     torch.cuda.synchronize()
     launches = fa.flash_attention.launches
     if launches != per_batch:
         raise RuntimeError(f"the loaded program launched K1 {launches} times, expected "
                            f"{per_batch}")
+    # liteasr::layer_norm: the forward kernel once a node
+    ln_launches = check_ln("exported program", ln_counts(), ln_calls(model), 0, 1)
     if len(got) != 2 or not all(torch.equal(w, g) for w, g in zip(want, got)):
         raise RuntimeError("the exported program's hypotheses differ from the live pipeline's")
 
@@ -4232,13 +4492,14 @@ def export_worker(out):
         f"(bf16, random weights): export + save {export_s:.2f} s, {len(blob)} bytes, "
         f"{n_nodes} graph nodes of which {nodes} liteasr::rel_attention_fwd; load "
         f"{load_s:.2f} s (both in a process of their own, beside the other phases); the "
-        f"loaded program on the card: {launches} K1 launches a batch, tokens and lengths "
+        f"loaded program on the card: {launches} K1 and {ln_launches[0]} LayerNorm launches "
+        f"a batch, tokens and lengths "
         f"equal to the live pipeline's; {prog_s:.3f} s a batch against the live "
         f"pipeline's {live_s:.3f} s (host clock, informational) [{name}]")
     with open(out, "w") as f:
         json.dump(dict(export_s=export_s, load_s=load_s, bytes=len(blob), nodes=nodes,
-                       graph_nodes=n_nodes, launches=launches, program_s=prog_s,
-                       live_s=live_s), f)
+                       graph_nodes=n_nodes, launches=launches, ln_launches=ln_launches,
+                       program_s=prog_s, live_s=live_s), f)
 
 
 def start_export(root):
@@ -4263,7 +4524,9 @@ def finish_export(proc, out, timeout=900):
     if code != 0:
         raise RuntimeError(f"phase e1's process exited with {code}")
     with open(out) as f:
-        return json.load(f)
+        rep = json.load(f)
+    LN_MAIN["exported program"] = rep["ln_launches"]
+    return rep
 
 
 # the families that the 2-rank phases run, in turn: U2 (z2-z4), the
@@ -4334,6 +4597,7 @@ def tp_sp_family(family, rank, sp, tp, addrs, root, dev, fa):
         "{name: inference, interval: 1, unit: epoch}]"]
     reset_counts(fa)
     reset_dp_counts()
+    reset_ln_counts()
     parallel.counts.clear()
     fa._launch_fwd, fa._launch_bwd = rec_fwd, rec_bwd
     trainer_mod.Trainer.train_step = rec_step
@@ -4345,7 +4609,7 @@ def tp_sp_family(family, rank, sp, tp, addrs, root, dev, fa):
         fa._launch_fwd, fa._launch_bwd = launch_fwd, launch_bwd
         trainer_mod.Trainer.train_step = train_step
     res = dict(train_s=time.perf_counter() - t0, counts=counts(fa), dp_counts=dp_counts(),
-               collectives=dict(parallel.counts), calls=calls,
+               ln_counts=ln_counts(), collectives=dict(parallel.counts), calls=calls,
                steps=[(rows, k1) for rows, k1, _ in steps],
                micro=len(trainer.task.dataset("train")), n_valid=len(trainer.valid_set),
                losses=[float(x) for x in trainer._loss_accum],
@@ -4376,6 +4640,7 @@ def tp_sp_family(family, rank, sp, tp, addrs, root, dev, fa):
         else:
             step, B = para_bench_step(dev, shard=True)
         reset_dp_counts()
+        reset_ln_counts()
         for _ in range(2):
             step()
         torch.cuda.synchronize()
@@ -4388,7 +4653,7 @@ def tp_sp_family(family, rank, sp, tp, addrs, root, dev, fa):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) / 5)
         res.update(step_ms=statistics.median(times) * 1e3, step_loss=loss.item(), step_rows=B,
-                   step_dp_counts=dp_counts(),
+                   step_dp_counts=dp_counts(), step_ln_counts=ln_counts(),
                    step_collectives={k: v / 15 for k, v in parallel.counts.items()},
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         del step, loss
@@ -4507,6 +4772,7 @@ def tp_sp_w2v(rank, sp, tp, addrs, root, wave_root, dev, fa):
         "common.trigger=[{name: valid, interval: 1, unit: epoch}, "
         "{name: save_model, interval: 1, unit: epoch}]"]
     reset_counts(fa)
+    reset_ln_counts()
     parallel.counts.clear()
     fa._launch_fwd = rec_fwd
     try:
@@ -4515,7 +4781,7 @@ def tp_sp_w2v(rank, sp, tp, addrs, root, wave_root, dev, fa):
         torch.cuda.synchronize()
     finally:
         fa._launch_fwd = launch_fwd
-    res = dict(train_s=time.perf_counter() - t0, counts=counts(fa),
+    res = dict(train_s=time.perf_counter() - t0, counts=counts(fa), ln_counts=ln_counts(),
                collectives=dict(parallel.counts), calls=calls,
                micro=trainer.step, n_valid=len(trainer.valid_set),
                skipped=int(trainer.tx.notfinite_count), updates=int(trainer.tx.count),
@@ -4588,11 +4854,15 @@ def check_w2v_tp_sp_run(res, sp, tp, label, name):
     from liteasr_tpu_torch.parallel import sharding
 
     heads, total = W2V_HEADS // tp, 0
+    ref_model = build_w2v_model(torch.bfloat16, "cpu")
     for r, x in enumerate(res):
         fwd, lse, bwd = x["counts"]
         if (lse, bwd) != (0, 0) or fwd != W2V_LAYERS * x["n_valid"] or len(x["calls"]) != fwd:
             raise RuntimeError(f"{label} rank {r}: K1 {fwd} (recorded {len(x['calls'])}), "
                                f"K1' {lse}, K2 {bwd} for {x['n_valid']} valid batches")
+        # LayerNorm: every forward of the run, at the rank's shard of it
+        check_ln(f"{label} rank {r} run", x["ln_counts"], ln_calls(ref_model), x["micro"],
+                 x["n_valid"])
         if x["backend"] != "gloo" or not all(math.isfinite(v) for v in x["losses"]):
             raise RuntimeError(f"{label} rank {r}: backend {x['backend']}, losses {x['losses']}")
         lay = x["layout"]
@@ -4606,8 +4876,7 @@ def check_w2v_tp_sp_run(res, sp, tp, label, name):
                 raise RuntimeError(f"{label} rank {r}: K1 at q {q_shape}, k {k_shape}, {shard}")
         total += fwd
     run = res[0]["run"]
-    ref_shapes = {k: tuple(v.shape) for k, v in
-                  build_w2v_model(torch.bfloat16, "cpu").state_dict().items()}
+    ref_shapes = {k: tuple(v.shape) for k, v in ref_model.state_dict().items()}
     ckpt = torch.load(os.path.join(run, "ckpts", "model.ep.1.pt"), weights_only=True)
     if {k: tuple(v.shape) for k, v in ckpt.items()} != ref_shapes:
         raise RuntimeError(f"{label}: the checkpoint's layout is not the one-process one")
@@ -4618,7 +4887,8 @@ def check_w2v_tp_sp_run(res, sp, tp, label, name):
     log(f"tp/sp train {label} (2 ranks on one card, gloo on CUDA tensors): {res[0]['micro']} "
         f"micro-batches in {res[0]['train_s']:.2f} s incl. the group's start, validation and "
         f"checkpoint; K1 {res[0]['counts'][0]} a rank ({W2V_LAYERS} per valid batch, "
-        f"{res[0]['n_valid']} batches) at q {qs}; {res[0]['updates']} updates, "
+        f"{res[0]['n_valid']} batches) at q {qs}; LayerNorm launches rank 0 "
+        f"{res[0]['ln_counts']}; {res[0]['updates']} updates, "
         f"{res[0]['skipped']} skipped (non-finite); losses rank 0 "
         f"{[round(v, 3) for v in res[0]['losses']]}, rank 1 "
         f"{[round(v, 3) for v in res[1]['losses']]}; collectives {res[0]['collectives']}; "
@@ -4662,6 +4932,8 @@ def check_tp_sp_run(fa, family, label, res, sp, tp, dev, name):
     enc = TD_ENC_LAYERS if family == "rnnt" else ENC_LAYERS
     pass1 = 2 * DEC_LAYERS if family == "paraformer" else 0
     micro, heads = res[0]["micro"], HEADS // tp
+    build = {"u2": build_model, "rnnt": build_td_model, "paraformer": build_para_model}[family]
+    ref_model = build(torch.bfloat16, "cpu")
     total, total_dp = [0, 0, 0], [0, 0]
     for r, x in enumerate(res):
         fwd, lse, bwd = x["counts"]
@@ -4696,6 +4968,14 @@ def check_tp_sp_run(fa, family, label, res, sp, tp, dev, name):
                                f"(want {want_step})")
         total_dp = [a + b + c for a, b, c in
                     zip(total_dp, x["dp_counts"], x["step_dp_counts"])]
+        if family == "rnnt":
+            # LayerNorm, all of it in the encoder: at the rank's block of the
+            # frames of every micro-batch, valid batch and the trigger's one
+            # decode batch, and in each of the 17 bf16 micro-steps
+            check_ln(f"{label} rank {r} run", x["ln_counts"], ln_calls(ref_model), micro,
+                     x["n_valid"] + 1)
+            check_ln(f"{label} rank {r} micro-steps", x["step_ln_counts"],
+                     ln_calls(ref_model), 17, 0)
         for rows, k1 in x["steps"]:
             # pass 1 on the rank's block of rows, at its heads
             mine = sharding.split_sizes(rows, sp)[lay.sp_i]
@@ -4706,8 +4986,7 @@ def check_tp_sp_run(fa, family, label, res, sp, tp, dev, name):
                                    f"{k1}")
         total = [a + b for a, b in zip(total, (fwd, lse, bwd))]
     run = res[0]["run"]
-    build = {"u2": build_model, "rnnt": build_td_model, "paraformer": build_para_model}[family]
-    ref_shapes = {k: tuple(v.shape) for k, v in build(torch.bfloat16, "cpu").state_dict().items()}
+    ref_shapes = {k: tuple(v.shape) for k, v in ref_model.state_dict().items()}
     ckpt = torch.load(os.path.join(run, "ckpts", "model.ep.1.pt"), weights_only=True)
     if {k: tuple(v.shape) for k, v in ckpt.items()} != ref_shapes:
         raise RuntimeError(f"{label}: the checkpoint's layout is not the one-process one")
@@ -4738,7 +5017,9 @@ def check_tp_sp_run(fa, family, label, res, sp, tp, dev, name):
         f"{valid}; checkpoint in the one-process layout, decoded in one process: error "
         f"count {one[0][0]}/{one[0][1]}, as the trigger logged; RNN-T DP launches "
         f"(forward, backward) rank 0 {res[0]['dp_counts']} in the run and "
-        f"{res[0]['step_dp_counts']} in the micro-steps [{name}]")
+        f"{res[0]['step_dp_counts']} in the micro-steps; LayerNorm launches rank 0 "
+        f"{res[0]['ln_counts']} in the run and {res[0]['step_ln_counts']} in the micro-steps "
+        f"[{name}]")
     return total, total_dp
 
 
@@ -5020,6 +5301,8 @@ def main() -> int:
         kz = check_shard_kernels(fa, dev, name)
         kzp = check_para_shard_kernels(fa, dev, name)
         kzw = check_w2v_shard_kernels(fa, dev, name)
+    with phase("ln"):
+        kl = check_layer_norm(dev, name)
     if "--kernels-only" in sys.argv[1:]:
         return 0
     if "--export-only" in sys.argv[1:]:  # e1
@@ -5286,6 +5569,24 @@ def main() -> int:
         "tp_sp_launches": tpsp["rnnt_dp"],
         **{k: v for k, v in td_step.items() if k != "step_launches"},
         "library_ms": None,  # no library computes the transducer's lattice DP
+    }, {
+        # LayerNorm (phase ln, bf16): ms / bwd_ms the kernels at the 200k
+        # cell's shape, plain_* the plain chain's, library_* ATen's fused
+        # F.layer_norm; every shape's numbers; launches / bwd_launches the
+        # main paths 4, 6, g, h, m, u, z5, z11 and e1, each by path
+        "name": "layer_norm",
+        "route": "cuda",
+        "source": "liteasr_tpu_torch/csrc/layer_norm.cu",
+        "replaces": None,  # liteasr_tpu/ops/layer_norm.py is XLA code
+        "launches": sum(v[0] for v in LN_MAIN.values()),
+        "bwd_launches": sum(v[1] for v in LN_MAIN.values()),
+        "main_path_launches": LN_MAIN,
+        **{k: kl["u2_200k"][k] for k in ("ms", "bwd_ms", "plain_ms", "plain_bwd_ms",
+                                          "bound_ms", "bwd_bound_ms", "library_ms",
+                                          "library_bwd_ms", "library_bf16_ms",
+                                          "library_bf16_bwd_ms")},
+        "bound_by": "bytes",
+        "shapes": kl,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

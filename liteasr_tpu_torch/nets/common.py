@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-LN_EPS = 1e-12  # reference liteasr/nets/layer_norm.py:10
+from liteasr_tpu_torch.ops.layer_norm import layer_norm
 
 
 class Dense(nn.Linear):
@@ -43,7 +43,8 @@ class Dense(nn.Linear):
 
 class LayerNorm(nn.Module):
     """fp32 statistics, output cast to ``dtype``
-    (liteasr_tpu/nets/common.py:32-44, ops/layer_norm.py:29-37)."""
+    (liteasr_tpu/nets/common.py:32-44, ops/layer_norm.py:29-37): the
+    function ``ops.layer_norm.layer_norm``, its kernels on a CUDA device."""
 
     def __init__(self, dim: int, *, dtype: torch.dtype = torch.float32,
                  device=None):
@@ -53,13 +54,7 @@ class LayerNorm(nn.Module):
         self.compute_dtype = dtype
 
     def forward(self, x):
-        x32 = x.float()
-        mean = x32.mean(dim=-1, keepdim=True)
-        xc = x32 - mean
-        var = (xc * xc).mean(dim=-1, keepdim=True)
-        y = xc * torch.rsqrt(var + LN_EPS) * self.weight + self.bias
-        # the reference rounds to the input's dtype first, then casts
-        return y.to(x.dtype).to(self.compute_dtype)
+        return layer_norm(x, self.weight, self.bias, self.compute_dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,

@@ -61,6 +61,9 @@ number of its additions:
 ``rnnt.dp_kernel_rows``     ``ops.rnnt.lattice_nll``: the utterances
                             whose DP ran in the CUDA kernels
 ``rnnt.dp_plain_rows``      the same, in the plain loop over T'
+``layer_norm.kernel_rows``  ``ops.layer_norm.layer_norm``: the rows of
+                            each call that ran in the CUDA kernels
+``layer_norm.plain_rows``   the same, in the plain version
 =========================== ==========================================
 """
 

@@ -14,7 +14,8 @@ import re
 
 import pytest
 
-from liteasr_tpu_torch.ops import cuda_libs, flash_attention, rnnt  # noqa: F401 (declare)
+# importing an op module declares its library
+from liteasr_tpu_torch.ops import cuda_libs, flash_attention, layer_norm, rnnt  # noqa: F401
 from liteasr_tpu_torch.utils import shared_lib
 
 C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,

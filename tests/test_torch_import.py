@@ -59,7 +59,7 @@ def test_port_imports_without_jax():
 
 def test_kernel_loader_raises_without_cuda():
     proc = _run("""
-        from liteasr_tpu_torch.ops import cuda_libs, flash_attention, rnnt
+        from liteasr_tpu_torch.ops import cuda_libs, flash_attention, layer_norm, rnnt
         for lib in cuda_libs.LIBRARIES.values():
             try:
                 lib.load()
@@ -69,4 +69,4 @@ def test_kernel_loader_raises_without_cuda():
                 raise SystemExit(f"the loader returned {lib.name} without a CUDA device")
     """)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.count("raised: CUDA is not available") == 3
+    assert proc.stdout.count("raised: CUDA is not available") == 4

@@ -9,8 +9,9 @@ loader's worker; a span's stamps bracket the profiler's own event of an op
 inside it, and no span reaches the profiler's events; the benchmark's
 twelve readers of the spans read nothing without them and the per-micro-step
 values of a hand-built table; a transducer's forward records its four
-spans, its lattice counter and its DP's row counter once, only under a
-profiler, and the benchmark's reader of the lattice counter; the CPU's
+spans, its lattice counter, its DP's row counter and its LayerNorms'
+rows once, only under a profiler, and the benchmark's reader of the
+lattice counter; the CPU's
 DP counts its rows as the plain loop's; a ``common.profile_dir`` run's
 trace carries the spans as rows of their own, on the trace's time base.
 ``to_device``
@@ -145,7 +146,10 @@ def test_two_micro_steps_under_a_cpu_profiler(corpus, tmp_path):
         assert tracing.span("train.step") is not tracing.OFF
         _micro_steps(trainer, 2)
     totals = tracing.totals()
-    assert set(totals) == set(NAMES) | set(COUNTERS)
+    assert set(totals) == set(NAMES) | set(COUNTERS) | {"layer_norm.plain_rows"}
+    # the CPU's LayerNorms took the plain version: 2 x 5 + 1 in the
+    # encoder, 3 + 1 in the decoder, a micro-step
+    assert totals["layer_norm.plain_rows"]["count"] == 2 * 15
     # the CPU has no page-locked memory: every batch crossed as pageable
     assert totals["data.h2d_pinned_bytes"] == {"count": 2, "total": 0}
     assert totals["data.h2d_pageable_bytes"]["count"] == 2
@@ -353,13 +357,16 @@ def test_transducer_spans_record_once_a_forward_only_under_a_profiler():
         for _ in range(2):
             _transducer_step(criterion, model, batch)
     totals = tracing.totals()
-    assert set(totals) == set(RNNT) | {"rnnt.lattice_cells", "rnnt.dp_plain_rows"}
+    assert set(totals) == set(RNNT) | {"rnnt.lattice_cells", "rnnt.dp_plain_rows",
+                                       "layer_norm.plain_rows"}
     for name in RNNT:
         assert totals[name]["count"] == 2, name
         assert totals[name]["host_ms"] > 0 and totals[name]["device_ms"] is None, name
     t_sub = ((T - 1) // 2 - 1) // 2  # the conv2d front end's frames
     assert totals["rnnt.lattice_cells"] == {"count": 2, "total": 2 * B * t_sub * (U + 1) * 12}
     assert totals["rnnt.dp_plain_rows"] == {"count": 2, "total": 2 * B}
+    # the conformer block's five LayerNorms and the encoder's last, a forward
+    assert totals["layer_norm.plain_rows"] == {"count": 12, "total": 12 * B * t_sub}
     spans = tracing.spans()
     assert [s.name for s in spans] == list(RNNT) * 2  # in the forward's order
     assert not set(RNNT) & _event_names(prof)
